@@ -1,0 +1,113 @@
+"""IVF coarse quantizer: centroid training and inverted lists.
+
+Counterparts of ``src/repro/core/ivf.py``: ``InvertedLists`` (CSR,
+host numpy), ``DeviceInvertedLists`` and its host-side build (shipped
+to the device once), ``train_centroids`` and ``build_inverted_lists``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.docstore import ragged_arange
+from repro_torch.core.kmeans import kmeans_train
+
+
+@dataclass
+class InvertedLists:
+    """CSR: vectors of centroid c are ids[offsets[c]:offsets[c+1]]."""
+    offsets: np.ndarray          # [K + 1] int64
+    ids: np.ndarray              # [n_vectors] int64, centroid-major
+
+    @property
+    def n_centroids(self) -> int:
+        return len(self.offsets) - 1
+
+
+@dataclass
+class DeviceInvertedLists:
+    """Device-resident IVF views for the candidate path:
+
+      * ``offsets``/``ids``: the CSR itself;
+      * ``doc_lists`` [K, Lmax] int32: each centroid's unique owner docs
+        ascending, padded with the sentinel ``n_docs`` (``doc_valid``
+        marks real entries);
+      * ``doc_member`` [K, n_docs] f32 0/1: the same entries densely — a
+        probed-centroid row times this table counts how many probed
+        lists own each doc.
+
+    The view is exact: every (centroid, doc) pair is kept.
+    """
+    offsets: torch.Tensor
+    ids: torch.Tensor
+    doc_lists: torch.Tensor
+    doc_valid: torch.Tensor
+    doc_member: torch.Tensor
+    list_cap: int                # Lmax: the longest unique-doc list
+    n_docs: int = 0
+
+    @property
+    def n_centroids(self) -> int:
+        return self.doc_lists.shape[0]
+
+    def device_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.offsets, self.ids, self.doc_lists,
+                             self.doc_valid, self.doc_member))
+
+
+def build_device_inverted_lists(ivf: InvertedLists, vec2doc: np.ndarray,
+                                n_docs: int, device: torch.device
+                                ) -> DeviceInvertedLists:
+    """Host-side build, then one copy to ``device``."""
+    K = ivf.n_centroids
+    lens = np.diff(ivf.offsets)
+    cent = np.repeat(np.arange(K, dtype=np.int64), lens)
+    docs = np.asarray(vec2doc, np.int64)[ivf.ids]
+    nd = max(n_docs, 1)
+    cd = np.unique(cent * np.int64(nd) + docs)
+    ci, di = cd // nd, cd % nd
+    counts = np.bincount(ci, minlength=K)
+    cap = max(int(counts.max(initial=0)), 1)
+    kept = counts
+    group_starts = np.zeros(K, np.int64)
+    np.cumsum(counts[:-1], out=group_starts[1:])
+    pos = np.repeat(group_starts, kept) + ragged_arange(kept)
+    doc_lists = np.full((K, cap), n_docs, np.int32)
+    doc_valid = np.zeros((K, cap), bool)
+    rows = np.repeat(np.arange(K), kept)
+    cols = ragged_arange(kept)
+    doc_lists[rows, cols] = di[pos]
+    doc_valid[rows, cols] = True
+    doc_member = np.zeros((K, nd), np.float32)
+    doc_member[rows, di[pos]] = 1.0
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return DeviceInvertedLists(
+        offsets=dev(ivf.offsets.astype(np.int32)),
+        ids=dev(ivf.ids.astype(np.int32)),
+        doc_lists=dev(doc_lists), doc_valid=dev(doc_valid),
+        doc_member=dev(doc_member), list_cap=cap, n_docs=int(n_docs))
+
+
+def train_centroids(vectors: torch.Tensor, n_centroids: int,
+                    n_iters: int = 12, *, seed: int = 0,
+                    init_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """vectors [M, dim] -> unit centroids [K, dim] (cosine k-means)."""
+    return kmeans_train(vectors, n_centroids, n_iters, init_idx=init_idx,
+                        seed=seed)
+
+
+def build_inverted_lists(assign: np.ndarray, n_centroids: int
+                         ) -> InvertedLists:
+    assign = np.asarray(assign)
+    order = np.argsort(assign, kind="stable").astype(np.int64)
+    counts = np.bincount(assign, minlength=n_centroids)
+    offsets = np.zeros(n_centroids + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return InvertedLists(offsets=offsets, ids=order)

@@ -1,0 +1,82 @@
+"""Wrapper of the fused probe kernel (``csrc/plaid_probe.cu``).
+
+Same argument layout as ``src/repro/kernels/plaid_probe/ops.py``
+``plaid_probe_scores``. CPU tensors (or ``impl="ref"``) run the plain
+version; CUDA tensors launch the kernel on the current stream or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import (LaunchCounter, build, check_cuda,
+                                 check_dtype, check_impl)
+from repro_torch.kernels.plaid_probe.ref import plaid_probe_ref
+
+LAUNCHES = LaunchCounter()
+_NAME = "plaid_probe"
+_SMEM_LIMIT = 232448
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = build.load(_NAME)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.plaid_probe_launch.argtypes = ([P] * 7 + [I] * 6
+                                           + [ctypes.c_float, P])
+        lib.plaid_probe_launch.restype = I
+        lib.plaid_probe_smem_bytes.argtypes = [I, I, I]
+        lib.plaid_probe_smem_bytes.restype = ctypes.c_size_t
+        lib.plaid_probe_max_lq.argtypes = []
+        lib.plaid_probe_max_lq.restype = I
+        _lib = lib
+    return _lib
+
+
+def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
+                       t_cs: float, impl: str = "auto"):
+    """q [Nq, Lq, dim] f32; q_mask [Nq, Lq] bool; centroids [K, dim] f32;
+    codes [Nq, C, L] int32 centroid ids; code_mask [Nq, C, L] bool;
+    cand_mask [Nq, C] bool -> approx scores [Nq, C] f32 (-inf invalid)."""
+    check_impl(impl)
+    if impl == "ref" or q.device.type == "cpu":
+        return plaid_probe_ref(q, q_mask, centroids, codes, code_mask,
+                               cand_mask, t_cs=t_cs)
+    if q.device.type != "cuda":
+        raise ValueError(f"{_NAME}: unsupported device {q.device}")
+    for key, t, dt in (("q", q, torch.float32), ("q_mask", q_mask, torch.bool),
+                       ("centroids", centroids, torch.float32),
+                       ("codes", codes, torch.int32),
+                       ("code_mask", code_mask, torch.bool),
+                       ("cand_mask", cand_mask, torch.bool)):
+        check_dtype(_NAME, key, t, dt)
+    check_cuda(_NAME, q=q, q_mask=q_mask, centroids=centroids, codes=codes,
+               code_mask=code_mask, cand_mask=cand_mask)
+    Nq, Lq, dim = q.shape
+    K = centroids.shape[0]
+    _, C, L = codes.shape
+    if (codes.shape[0] != Nq or tuple(code_mask.shape) != (Nq, C, L)
+            or tuple(cand_mask.shape) != (Nq, C)
+            or tuple(q_mask.shape) != (Nq, Lq) or centroids.shape[1] != dim):
+        raise ValueError(f"{_NAME}: inconsistent shapes q {tuple(q.shape)} "
+                         f"centroids {tuple(centroids.shape)} "
+                         f"codes {tuple(codes.shape)}")
+    lib = _load()
+    if Lq > lib.plaid_probe_max_lq():
+        raise ValueError(f"{_NAME}: Lq={Lq} above the kernel's "
+                         f"{lib.plaid_probe_max_lq()}")
+    if lib.plaid_probe_smem_bytes(Lq, K, dim) > _SMEM_LIMIT:
+        raise ValueError(f"{_NAME}: Lq={Lq}, K={K}, dim={dim} exceed "
+                         f"shared memory")
+    out = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.plaid_probe_launch(
+        q.data_ptr(), q_mask.data_ptr(), centroids.data_ptr(),
+        codes.data_ptr(), code_mask.data_ptr(), cand_mask.data_ptr(),
+        out.data_ptr(), Nq, Lq, dim, K, C, L, float(t_cs), stream)
+    build.check(code, _NAME)
+    LAUNCHES.count += 1
+    return out

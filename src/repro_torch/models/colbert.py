@@ -1,0 +1,164 @@
+"""ColBERT encoder (Khattab & Zaharia, 2020) as a PyTorch module.
+
+Counterpart of ``src/repro/models/colbert.py``: a bidirectional trunk,
+a linear projection to ``proj_dim`` and L2 normalization.
+
+  * ``[Q]``/``[D]`` marker after ``[CLS]``; queries are padded to
+    ``query_maxlen`` with ``[MASK]`` tokens that attend and emit vectors.
+  * Document punctuation tokens do not emit stored vectors.
+
+``init_colbert`` draws random weights from a seeded ``torch.Generator``
+with the reference initializers' distributions; ``params_from_jax``
+turns the reference's parameter tree into this module's state.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import Dense, Embed, dt
+from repro_torch.models.transformer import Transformer
+
+# Special token ids (data/tokenizer.py — shared vocabulary layout)
+PAD_ID, CLS_ID, SEP_ID, MASK_ID, Q_MARK_ID, D_MARK_ID = 0, 1, 2, 3, 4, 5
+N_SPECIAL = 8          # ids < N_SPECIAL are special
+N_PUNCT = 16           # ids in [N_SPECIAL, N_SPECIAL + N_PUNCT) are punctuation
+
+
+class ColBERT(nn.Module):
+    """cfg: ColbertConfig. ``forward(tokens, pad_mask)`` -> unit vectors."""
+
+    def __init__(self, cfg, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.trunk = Transformer(cfg.trunk, device)
+        self.proj = Dense(cfg.trunk.d_model, cfg.proj_dim, False, device,
+                          dt(cfg.trunk.param_dtype))
+
+    @property
+    def device(self) -> torch.device:
+        return self.proj.w.device
+
+    def forward(self, tokens: torch.Tensor,
+                pad_mask: torch.Tensor) -> torch.Tensor:
+        """tokens [B, L] -> unit vectors [B, L, proj_dim] f32."""
+        v = self.proj(self.trunk(tokens, pad_mask)).float()
+        return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1,
+                                                        keepdim=True),
+                               min=1e-9)
+
+    def load_params(self, state: Dict[str, np.ndarray]) -> "ColBERT":
+        """Load a ``params_from_jax`` state (numpy arrays) in place."""
+        self.load_state_dict({k: torch.as_tensor(np.array(v))
+                              for k, v in state.items()}, strict=True)
+        return self
+
+
+def init_colbert(cfg, generator: Optional[torch.Generator] = None, *,
+                 seed: int = 0, device: DeviceLike = None) -> ColBERT:
+    """Random weights: embeddings truncated-normal(0.02), dense weights
+    normal(1/sqrt(d_in)), zero biases, unit norms. ``generator`` (on the
+    model's device) defaults to one seeded with ``seed``."""
+    model = ColBERT(cfg, device)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (Dense, Embed)):
+            m.reset_parameters(generator)
+    return model
+
+
+def params_from_jax(tree) -> Dict[str, np.ndarray]:
+    """The reference's ``init_colbert`` tree (nested dicts of arrays;
+    dense ``w`` is [d_in, d_out]; layers stacked on axis 0 under
+    ``trunk/dense_layers``) -> this module's state, as numpy arrays.
+    The trunk's ``lm_head`` is not part of the encoder and is dropped."""
+    tr = tree["trunk"]
+    state = {"trunk.embed.table": tr["embed"]["table"],
+             "trunk.pos_embed.table": tr["pos_embed"]["table"],
+             "trunk.final_norm.scale": tr["final_norm"]["scale"],
+             "trunk.final_norm.bias": tr["final_norm"]["bias"],
+             "proj.w": tree["proj"]["w"]}
+    layers = tr["dense_layers"]
+    n_layers = np.asarray(layers["attn_norm"]["scale"]).shape[0]
+    for i in range(n_layers):
+        pre = f"trunk.layers.{i}."
+        for norm in ("attn_norm", "mlp_norm"):
+            for key in ("scale", "bias"):
+                state[pre + f"{norm}.{key}"] = np.asarray(layers[norm][key])[i]
+        for name in ("wq", "wk", "wv", "wo"):
+            for key, val in layers["attn"][name].items():
+                state[pre + f"attn.{name}.{key}"] = np.asarray(val)[i]
+        for name in ("w1", "w2"):
+            state[pre + f"mlp.{name}.w"] = np.asarray(
+                layers["mlp"][name]["w"])[i]
+    return {k: np.asarray(v) for k, v in state.items()}
+
+
+def prepare_query_tokens(tokens: torch.Tensor, query_maxlen: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, L] raw ids -> ([B, Lq] [CLS][Q] body, PAD slots as [MASK];
+    attention mask all True — the expansion tokens attend)."""
+    B = tokens.shape[0]
+    body_len = query_maxlen - 2
+    body = tokens[:, :body_len].to(torch.int32)
+    if body.shape[1] < body_len:
+        body = torch.nn.functional.pad(body, (0, body_len - body.shape[1]))
+    body = torch.where(body == PAD_ID, torch.full_like(body, MASK_ID), body)
+    head = torch.tensor([CLS_ID, Q_MARK_ID], dtype=torch.int32,
+                        device=tokens.device).expand(B, 2)
+    out = torch.cat([head, body], dim=1)
+    return out, torch.ones(out.shape, dtype=torch.bool, device=out.device)
+
+
+def prepare_doc_tokens(tokens: torch.Tensor, doc_maxlen: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, L] raw ids -> ([B, Ld] with [CLS][D] prefix, pad mask)."""
+    B = tokens.shape[0]
+    body_len = doc_maxlen - 2
+    body = tokens[:, :body_len].to(torch.int32)
+    if body.shape[1] < body_len:
+        body = torch.nn.functional.pad(body, (0, body_len - body.shape[1]))
+    head = torch.tensor([CLS_ID, D_MARK_ID], dtype=torch.int32,
+                        device=tokens.device).expand(B, 2)
+    out = torch.cat([head, body], dim=1)
+    return out, out != PAD_ID
+
+
+def emit_mask_docs(tokens: torch.Tensor, pad_mask: torch.Tensor,
+                   mask_punctuation: bool) -> torch.Tensor:
+    """Doc positions that emit stored vectors: real, non-punctuation
+    tokens (the CLS/[D] markers included, as in ColBERT's skiplist)."""
+    if not mask_punctuation:
+        return pad_mask
+    punct = (tokens >= N_SPECIAL) & (tokens < N_SPECIAL + N_PUNCT)
+    return pad_mask & ~punct
+
+
+def _ids(model: ColBERT, tokens) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
+                           else tokens, device=model.device)
+
+
+@torch.no_grad()
+def encode_queries(model: ColBERT, tokens):
+    """Raw query ids [B, L] -> ([B, Lq, dim] unit vectors, emit mask);
+    every expanded slot emits."""
+    toks, attn = prepare_query_tokens(_ids(model, tokens),
+                                      model.cfg.query_maxlen)
+    return model(toks, attn), torch.ones_like(attn)
+
+
+@torch.no_grad()
+def encode_docs(model: ColBERT, tokens):
+    """Raw doc ids [B, L] -> ([B, Ld, dim] unit vectors, emit mask);
+    non-emitting slots are zero."""
+    toks, attn = prepare_doc_tokens(_ids(model, tokens), model.cfg.doc_maxlen)
+    v = model(toks, attn)
+    emit = emit_mask_docs(toks, attn, model.cfg.mask_punctuation)
+    return torch.where(emit[..., None], v, torch.zeros((), device=v.device)), emit

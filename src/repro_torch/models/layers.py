@@ -1,0 +1,101 @@
+"""Layer substrate of the encoder: dense, LayerNorm, embedding, GELU.
+
+Counterparts of ``src/repro/models/layers.py``. Parameters keep the JAX
+package's layout (a dense weight ``w`` is ``[d_in, d_out]``) so
+``params_from_jax`` is a rename. Parameters stay in their param dtype;
+activations are cast on entry, as in the reference:
+
+  * ``dense`` casts weight (and bias) to the input's dtype, then ``@``;
+  * ``layernorm`` computes in f32 and casts back to the input's dtype;
+  * ``embed`` casts the table first, then gathers;
+  * GELU is the tanh form (``jax.nn.gelu``'s default).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def dt(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def trunc_normal_(t: torch.Tensor, std: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """In place: normal(0, std) truncated to [-2 std, 2 std] by inverse
+    CDF (the distribution of ``jax.random.truncated_normal(-2, 2) * std``)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+    with torch.no_grad():
+        u = torch.empty_like(t).uniform_(2 * lo - 1, 2 * hi - 1,
+                                         generator=generator)
+        t.copy_(torch.erfinv(u) * (math.sqrt(2.0) * std))
+    return t
+
+
+class Dense(nn.Module):
+    """y = x @ w (+ b), w [d_in, d_out], computed in x's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = False,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, device=device,
+                                          dtype=dtype))
+        self.b = (nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype))
+                  if bias else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """normal(0, 1/sqrt(d_in)) weight, zero bias (``init_dense``)."""
+        with torch.no_grad():
+            self.w.normal_(0.0, 1.0 / math.sqrt(self.w.shape[0]),
+                           generator=generator)
+            if self.b is not None:
+                self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.w.to(x.dtype)
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm in f32, cast back to the input's dtype."""
+
+    def __init__(self, d: int, eps: float, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+class Embed(nn.Module):
+    """Lookup table; ``forward`` casts the table, then gathers."""
+
+    def __init__(self, vocab: int, d: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d, device=device,
+                                              dtype=dtype))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.table, 0.02, generator)
+
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.table.to(dtype)[ids]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
