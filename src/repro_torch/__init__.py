@@ -1,10 +1,11 @@
 """Token pooling for multi-vector retrieval — PyTorch / CUDA (Hopper) port.
 
-The main path of the JAX package (``src/repro``), rewritten for one
-NVIDIA H100: ColBERT encode -> Ward token pooling -> PLAID 2-bit build,
-and query encode -> device-resident probe/prune -> packed rerank ->
-top-k. The three Pallas kernels on that path are hand-written CUDA
-kernels here (``csrc/``), built with ``nvcc`` at first use.
+The JAX package (``src/repro``), rewritten for one NVIDIA H100, slice
+by slice: ColBERT encode -> Ward token pooling -> PLAID 2-bit or flat
+index, artifacts in the JAX package's format both ways, and query
+encode -> device or host probe/prune -> packed, f32 or dense rerank ->
+top-k. The Pallas kernels on those paths are hand-written CUDA kernels
+here (``csrc/``), built with ``nvcc`` at first use.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -12,8 +13,9 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
 
     model = rt.init_colbert(rt.CONFIG, seed=0)
     index, stats = rt.Indexer(model, pooling_spec=rt.PoolingSpec("ward", 2)
-                              ).build(doc_tokens)
-    scores, ids = rt.Searcher(model, index).search(query_tokens, k=10)
+                              ).build(doc_tokens, out_dir="idx")
+    scores, ids = rt.Searcher.from_dir(model, "idx").search(query_tokens,
+                                                            k=10)
 
 Attributes resolve lazily so ``import repro_torch`` stays cheap.
 """

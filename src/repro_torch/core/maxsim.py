@@ -1,5 +1,9 @@
-"""Top-k epilogue of every search (``src/repro/core/maxsim.py``
-``topk_with_pads``) on a stable top-k.
+"""MaxSim scoring entry points and the top-k epilogue of every search.
+
+Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_all_docs`` (flat
+search and the dense corpus-wide fallback), ``maxsim_rerank`` and the
+slabbed ``maxsim_rerank_store`` (gathered f32 candidates), both through
+the ``maxsim`` kernels (``kernels/maxsim``), and ``topk_with_pads``.
 
 ``torch.topk`` does not order ties by lowest index; ``jax.lax.top_k``
 does, and the candidate slates depend on it. ``stable_topk`` sorts
@@ -11,6 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.maxsim import ops as maxsim_ops
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,3 +59,33 @@ def tie_aware_mismatches(I0: np.ndarray, S0: np.ndarray, I1: np.ndarray,
             bad += int(abs(S0[r, j] - S1[r, j]) > tol
                        or abs(other - S0[r, j]) > tol)
     return bad
+
+
+def maxsim_all_docs(q, q_mask, d, d_mask, impl: str = "auto"):
+    """All-pairs scores [Nq, Nd]: the ``maxsim`` kernel on the card, its
+    plain version (blocked over docs) on CPU tensors."""
+    return maxsim_ops.maxsim(q.float().contiguous(), q_mask.contiguous(),
+                             d, d_mask, impl=impl)
+
+
+def maxsim_rerank(q, q_mask, d, d_mask, impl: str = "auto"):
+    """Per-query gathered-candidate scores [Nq, S]."""
+    return maxsim_ops.maxsim_rerank(q.float().contiguous(),
+                                    q_mask.contiguous(), d, d_mask,
+                                    impl=impl)
+
+
+def maxsim_rerank_store(store, q, q_mask, cand, cand_mask, *,
+                        slab: int = 1024, impl: str = "auto"):
+    """Gather candidates from ``store`` (a ``DocStore``) and rerank,
+    slabbed over the candidate axis so the [Nq, slab, Ld, dim] gather
+    stays bounded. cand/cand_mask [Nq, C] (device) -> scores [Nq, C]
+    (-inf invalid)."""
+    parts = []
+    for lo in range(0, cand.shape[1], slab):
+        c = cand[:, lo:lo + slab]
+        cm = cand_mask[:, lo:lo + slab]
+        d, dm = store.gather(c)
+        s = maxsim_rerank(q, q_mask, d, dm & cm[:, :, None], impl=impl)
+        parts.append(s.masked_fill(~cm, float("-inf")))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

@@ -1,23 +1,26 @@
 """PLAID-style staged late-interaction search (Santhanam et al., 2022).
 
-Counterpart of ``src/repro/core/plaid.py`` for the device-resident path:
+Counterpart of ``src/repro/core/plaid.py``:
 
   1. centroid probe — every query token scores all K centroids
      (``_centroid_scores_batch``), top-``nprobe`` ids per token;
-  2. candidate generation — probed-centroid rows times the 0/1
-     ``doc_member`` table give each query's candidate docs, compacted
-     ascending (``_device_candidates``);
+  2. candidate generation — on the device, probed-centroid rows times
+     the 0/1 ``doc_member`` table give each query's candidate docs,
+     compacted ascending (``_device_candidates``); on the host path, a
+     vectorized numpy walk of the inverted lists (``_gather_candidates``);
   3. approximate scoring and prune — when the candidate ladder exceeds
      ``ndocs``, the ``plaid_probe`` kernel scores candidates from their
-     centroid ids alone and the best ``ndocs`` survive;
+     centroid ids alone and the best ``ndocs`` survive (both paths);
   4. exact rerank from packed codes — the ``maxsim_packed`` kernel
-     (``maxsim_packed_rerank_store``).
+     (``maxsim_packed_rerank_store``), or from the f32 reconstruction
+     store (``recon_store``) with the ``maxsim_rerank`` kernel.
 
-The reference's host probe path and its dense corpus-wide fallback are
-not ported: where ``device_probe_plan`` refuses the device path, search
-raises ``NotImplementedError`` (ROADMAP queue 1, persistence and the
-host probe path). Index arrays the search reads live on the index's
-device; the IVF bookkeeping is host numpy, as in the reference.
+``device_probe_plan`` takes the device path only where its slates are
+provably the host path's and ``doc_member`` fits the gather cap
+(``probe_kernel="auto"``): at K = 256 the cap of 2**24 elements allows
+65,536 docs, and larger corpora take the host path. Index arrays the
+search reads live on the index's device; the IVF bookkeeping is host
+numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,20 +30,22 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.docstore import ragged_arange
+from repro_torch.core.docstore import (DocStore, pad_candidate_sets,
+                                       padded_scatter_index, ragged_arange)
 from repro_torch.core.ivf import (DeviceInvertedLists, InvertedLists,
                                   build_device_inverted_lists,
                                   build_inverted_lists)
 from repro_torch.core.maxsim import stable_topk
-from repro_torch.core.quantization import ResidualCodec, encode
+from repro_torch.core.quantization import ResidualCodec, decode, encode
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
 
 _CAND_BLOCK = 32       # candidate-axis padding granularity
-_DEVICE_GATHER_CAP = 1 << 24   # doc_member elements the device path takes
-_UNPORTED = ("host probe path / dense fallback: not ported yet (ROADMAP "
-             "queue 1, persistence with the host probe path and the "
-             "maxsim all-pairs kernel)")
+PROBE_KERNELS = ("auto", "device", "host")
+# "auto" takes the host path above this many doc_member elements
+# (K * n_docs f32); "device" forces the device path through it
+_DEVICE_GATHER_CAP = 1 << 24
+_DECODE_CHUNK = 1 << 18     # code rows per recon-store decode pass
 
 
 @dataclass
@@ -52,6 +57,7 @@ class PLAIDIndex:
     vec2doc: np.ndarray          # [n_vectors] int64 doc id (host)
     doc_offsets: np.ndarray      # [n_docs + 1] int64 (host)
     doc_maxlen: int
+    recon: Optional[DocStore] = None     # f32 reconstruction cache, lazy
     _packed_padded: Optional[Tuple] = field(default=None, repr=False)
     _device_ivf: Optional[DeviceInvertedLists] = field(default=None,
                                                        repr=False)
@@ -86,18 +92,32 @@ class PLAIDIndex:
                                 device=dev)
             mask = torch.zeros((max(n, 1), L), dtype=torch.bool, device=dev)
             if n and self.n_vectors:
-                lens = np.diff(self.doc_offsets)
-                kept = np.minimum(lens, L)
-                rows = np.repeat(np.arange(n), kept)
-                cols = ragged_arange(kept)
-                src = np.repeat(self.doc_offsets[:-1], kept) + cols
-                r, c, s = (torch.from_numpy(a).to(dev)
-                           for a in (rows, cols, src))
+                r, c, s = padded_scatter_index(self.doc_offsets, L, dev)
                 ids[r, c] = self.assignments[s]
                 words[r, c] = self.codes[s]
                 mask[r, c] = True
             self._packed_padded = (ids, words, mask)
         return self._packed_padded
+
+    def _decode_docs(self) -> torch.Tensor:
+        """Every code row decoded on the device -> [n_vectors, dim] f32
+        (``quantization.decode``, in chunks)."""
+        parts = [decode(self.codec, self.assignments[lo:lo + _DECODE_CHUNK],
+                        self.codes[lo:lo + _DECODE_CHUNK])
+                 for lo in range(0, self.n_vectors, _DECODE_CHUNK)]
+        if not parts:
+            return torch.zeros((0, self.codec.dim), device=self.device)
+        return torch.cat(parts)
+
+    def recon_store(self) -> DocStore:
+        """f32 reconstruction cache, built on first use: what the dense
+        corpus-wide scoring and ``packed_rerank=False`` read. Packed
+        serving never builds it."""
+        if self.recon is None:
+            self.recon = DocStore.from_arrays(
+                self._decode_docs(), self.doc_offsets,
+                np.ones(self.n_docs, bool), self.doc_maxlen)
+        return self.recon
 
     def padded_codes(self) -> Tuple[torch.Tensor, torch.Tensor]:
         ids, _, mask = self.padded_packed()
@@ -119,6 +139,8 @@ class PLAIDIndex:
                          for t in self._packed_padded)
         if self._device_ivf is not None:
             total += self._device_ivf.device_bytes()
+        if self.recon is not None:
+            total += self.recon.device_nbytes()
         return total
 
 
@@ -168,14 +190,18 @@ def _centroid_scores_batch(qs: torch.Tensor,
     return torch.einsum("qld,kd->qlk", qs.float(), centroids.float())
 
 
-def device_probe_plan(index: PLAIDIndex, Lq: int, nprobe: int, ndocs: int):
+def device_probe_plan(index: PLAIDIndex, Lq: int, nprobe: int, ndocs: int,
+                      probe_kernel: str = "auto"):
     """``(use_device, (div, k, c_score, s_out))`` — the reference's plan
-    (``probe_kernel="auto"``; the port's IVF view is always exact): the
-    device path is taken only when the dense corpus-wide dispatch is
-    unreachable for every possible candidate count and ``doc_member`` is
-    under the gather cap. ``c_score`` is the static stage-2/3 width, ``s_out`` the
-    rerank slate width."""
-    if index.n_vectors == 0 or index.n_docs == 0:
+    (the port's IVF view is always exact): the device path is taken only
+    when the dense corpus-wide dispatch is unreachable for every possible
+    candidate count and, under ``"auto"``, ``doc_member`` is under the
+    gather cap; ``"host"`` always refuses it. ``c_score`` is the static
+    stage-2/3 width, ``s_out`` the rerank slate width."""
+    if probe_kernel not in PROBE_KERNELS:
+        raise ValueError(f"probe_kernel must be one of {PROBE_KERNELS}, "
+                         f"got {probe_kernel!r}")
+    if probe_kernel == "host" or index.n_vectors == 0 or index.n_docs == 0:
         return False, None
     div = index.device_ivf()
     n_docs = index.n_docs
@@ -188,7 +214,8 @@ def device_probe_plan(index: PLAIDIndex, Lq: int, nprobe: int, ndocs: int):
     f_noprune = min(lmax, _floor_ladder(int(ndocs)))
     if max(f_prune, f_noprune) >= n_docs:
         return False, None
-    if div.doc_member.numel() > _DEVICE_GATHER_CAP:
+    if (probe_kernel != "device"
+            and div.doc_member.numel() > _DEVICE_GATHER_CAP):
         return False, None
     return True, (div, k, c_score, s_out)
 
@@ -249,31 +276,102 @@ def _device_candidates(cs, qs, qm, doc_member, live, codes, tok_mask,
     return cand_p, mask_p
 
 
+def _gather_candidates(index: PLAIDIndex, probe: np.ndarray,
+                       live: Optional[np.ndarray], probe_valid: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host stage 2: probe [Nq, Lq, k] centroid ids -> padded candidate
+    doc ids [Nq, C] + validity [Nq, C], sorted unique ids per query.
+    ``probe_valid`` drops masked-token probes (a top-k over an all--inf
+    row would otherwise walk centroids 0..k-1)."""
+    Nq = probe.shape[0]
+    K = index.ivf.n_centroids
+    flat = probe.reshape(Nq, -1).astype(np.int64)
+    keys = (np.arange(Nq)[:, None] * K + flat)[probe_valid.reshape(Nq, -1)]
+    qc = np.unique(keys)                 # each probed list walked once
+    qi, ci = qc // K, qc % K
+    starts = index.ivf.offsets[ci]
+    lens = index.ivf.offsets[ci + 1] - starts
+    if int(lens.sum()) == 0:
+        return np.zeros((Nq, 1), np.int64), np.zeros((Nq, 1), bool)
+    pos = np.repeat(starts, lens) + ragged_arange(lens)
+    docs = index.vec2doc[index.ivf.ids[pos]]
+    qidx = np.repeat(qi, lens)
+    qd = np.unique(qidx * np.int64(index.n_docs) + docs)
+    qidx, docs = qd // index.n_docs, qd % index.n_docs
+    if live is not None:
+        keep = live[docs]
+        qidx, docs = qidx[keep], docs[keep]
+    return pad_candidate_sets(qidx, docs, Nq, block=_CAND_BLOCK)
+
+
+def _host_candidates(index: PLAIDIndex, cs, qs, qm, live, *, k: int,
+                     t_cs: float, ndocs: int, impl: str):
+    """Stages 1-3 on the host path -> (cand [Nq, S] int64, mask) on the
+    index's device: numpy list walk, then, where the padded slate is
+    wider than ``ndocs``, the ``plaid_probe`` prune to the best
+    ``ndocs`` (block-padded), ordered by approximate score."""
+    dev = index.device
+    _, probe = stable_topk(cs.masked_fill(~qm[:, :, None], float("-inf")),
+                           k)                               # [Nq, Lq, k]
+    probe_valid = qm[:, :, None].expand(probe.shape).cpu().numpy()
+    cand, cmask = _gather_candidates(index, probe.cpu().numpy(), live,
+                                     probe_valid)
+    cand = torch.from_numpy(cand).to(dev)
+    cmask = torch.from_numpy(cmask).to(dev)
+    if cand.shape[1] <= ndocs:
+        return cand, cmask
+    codes, tok_mask = index.padded_codes()
+    approx = plaid_probe_scores(
+        qs, qm, index.codec.centroids.contiguous(), codes[cand],
+        tok_mask[cand] & cmask[:, :, None], cmask, t_cs=t_cs, impl=impl)
+    keep = min(ndocs, cand.shape[1])
+    top_s, top_i = stable_topk(approx, keep)
+    cand = torch.gather(cand, 1, top_i)
+    cmask = torch.isfinite(top_s)
+    S = _pad_up(keep, _CAND_BLOCK)
+    if S > keep:
+        cand = torch.nn.functional.pad(cand, (0, S - keep))
+        cmask = torch.nn.functional.pad(cmask, (0, S - keep))
+    return cand, cmask
+
+
 def plaid_candidates(index: PLAIDIndex, qs: torch.Tensor, nprobe: int = 8,
-                     t_cs: float = 0.3, ndocs: int = 8192,
-                     live: Optional[torch.Tensor] = None,
+                     t_cs: float = 0.3, ndocs: int = 8192, live=None,
                      q_mask: Optional[torch.Tensor] = None,
-                     impl: str = "auto"
+                     probe_kernel: str = "auto", impl: str = "auto"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stages 1-3 for a query batch: qs [Nq, Lq, dim] -> survivor doc ids
     [Nq, S] + validity [Nq, S], on the index's device. Masked query
-    tokens contribute nothing to probes or approximate scores."""
-    qs = qs.float()
-    Nq, Lq = qs.shape[:2]
-    use_device, geom = device_probe_plan(index, Lq, nprobe, ndocs)
-    if not use_device:
-        raise NotImplementedError(_UNPORTED)
-    div, k, c_score, s_out = geom
+    tokens contribute nothing to probes or approximate scores. ``live``
+    ([n_docs] bool, numpy or tensor) drops dead docs. ``probe_kernel``
+    picks the device path (where ``device_probe_plan`` allows it) or the
+    host path; both give the same slates."""
     dev = index.device
+    qs = qs.float().to(dev).contiguous()
+    Nq, Lq = qs.shape[:2]
+    if index.n_vectors == 0:
+        return (torch.zeros((Nq, 1), dtype=torch.long, device=dev),
+                torch.zeros((Nq, 1), dtype=torch.bool, device=dev))
+    use_device, geom = device_probe_plan(index, Lq, nprobe, ndocs,
+                                         probe_kernel)
     qm = (torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
-          if q_mask is None else q_mask.to(dev, torch.bool))
+          if q_mask is None else q_mask.to(dev, torch.bool).contiguous())
+    cs = _centroid_scores_batch(qs, index.codec.centroids)
+    if not use_device:
+        if isinstance(live, torch.Tensor):
+            live = live.cpu().numpy()
+        return _host_candidates(index, cs, qs, qm, live,
+                                k=min(nprobe, index.codec.n_centroids),
+                                t_cs=float(t_cs), ndocs=int(ndocs),
+                                impl=impl)
+    div, k, c_score, s_out = geom
     if live is None:
         live = torch.ones(index.n_docs, dtype=torch.bool, device=dev)
-    cs = _centroid_scores_batch(qs, index.codec.centroids)
+    live = torch.as_tensor(live, device=dev)
     codes, tok_mask = index.padded_codes()
     return _device_candidates(
-        cs, qs.contiguous(), qm.contiguous(), div.doc_member, live, codes,
-        tok_mask, index.codec.centroids.contiguous(), k=k, t_cs=float(t_cs),
+        cs, qs, qm, div.doc_member, live, codes, tok_mask,
+        index.codec.centroids.contiguous(), k=k, t_cs=float(t_cs),
         ndocs=int(ndocs), c_score=c_score, s_out=s_out, impl=impl)
 
 

@@ -1,8 +1,9 @@
 """Pooling and index specs: plain frozen dataclasses with field checks.
 
-Counterparts of ``src/repro/core/spec.py`` ``PoolingSpec`` and
-``IndexSpec`` for the port's slice. The registries, argparse derivation
-and manifest round-trip of the reference are not ported (ROADMAP
+Counterparts of ``src/repro/core/spec.py`` ``PoolingSpec``,
+``IndexSpec`` and ``INDEX_PARAM_KEYS`` (the manifest "params" keys) for
+the port's slice. The registries, argparse derivation and the
+spec-from-manifest round trip of the reference are not ported (ROADMAP
 queue 1, "Spec and facade").
 """
 from __future__ import annotations
@@ -14,7 +15,13 @@ from typing import Any, Dict
 POOL_METHODS = ("none", "sequential", "kmeans", "ward")
 PORTED_POOL_METHODS = ("none", "ward")
 BACKENDS = ("flat", "hnsw", "plaid")
-PORTED_BACKENDS = ("plaid",)
+PORTED_BACKENDS = ("flat", "plaid")
+# MultiVectorIndex construction knobs: what an artifact manifest records
+# under "params" (a reader of either package needs all nine)
+INDEX_PARAM_KEYS = (
+    "doc_maxlen", "n_centroids", "quant_bits", "nprobe",
+    "t_cs", "ndocs", "hnsw_m", "hnsw_ef_construction",
+    "hnsw_candidates")
 
 
 @dataclass(frozen=True)
@@ -38,6 +45,10 @@ class PoolingSpec:
         method = "none" if int(self.factor) <= 1 else self.method
         return pool_doc_embeddings(x, mask, int(self.factor), method,
                                    impl=impl)
+
+    def manifest_meta(self) -> Dict[str, Any]:
+        """The ``pool`` entry an artifact manifest records."""
+        return {"method": self.method, "factor": int(self.factor)}
 
 
 @dataclass(frozen=True)

@@ -12,22 +12,28 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-KERNELS = ("ward_pool", "plaid_probe", "maxsim_packed")
+KERNELS = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
+           "maxsim_rerank")
 IMPLS = ("auto", "ref")
+# kernel -> (package under kernels/, counter in its ops.py); one source
+# may hold several entries, each with its own counter
+_COUNTERS = {"maxsim_rerank": ("maxsim", "RERANK_LAUNCHES")}
 
 
-def _ops(name: str):
-    return importlib.import_module(f"repro_torch.kernels.{name}.ops")
+def _counter(name: str) -> "LaunchCounter":
+    pkg, attr = _COUNTERS.get(name, (name, "LAUNCHES"))
+    ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+    return getattr(ops, attr)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: _ops(name).LAUNCHES.count for name in KERNELS}
+    return {name: _counter(name).count for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
-        _ops(name).LAUNCHES.count = 0
+        _counter(name).count = 0
 
 
 class LaunchCounter:

@@ -1,0 +1,103 @@
+"""Wrappers of the two MaxSim kernels (``csrc/maxsim.cu``).
+
+Same argument layout as ``src/repro/kernels/maxsim/ops.py`` ``maxsim``
+and ``maxsim_rerank``. CPU tensors (or ``impl="ref"``) run the plain
+versions; CUDA tensors launch the kernel on the current stream or raise.
+Each entry has its own launch counter.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import (LaunchCounter, build, check_cuda,
+                                 check_dtype, check_impl)
+from repro_torch.kernels.maxsim.ref import maxsim_ref, maxsim_rerank_ref
+
+LAUNCHES = LaunchCounter()            # maxsim (all-pairs)
+RERANK_LAUNCHES = LaunchCounter()     # maxsim_rerank (per-query candidates)
+_NAME = "maxsim"
+_SMEM_LIMIT = 232448
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = build.load(_NAME)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.maxsim_launch, lib.maxsim_rerank_launch):
+            fn.argtypes = [P] * 5 + [I] * 5 + [P]
+            fn.restype = I
+        lib.maxsim_smem_bytes.argtypes = [I]
+        lib.maxsim_smem_bytes.restype = ctypes.c_size_t
+        _lib = lib
+    return _lib
+
+
+def _checked(name, q, q_mask, d, d_mask, doc_shape):
+    """dtype/device/contiguity/shape checks of both entries; -> lib."""
+    for key, t, dt in (("q", q, torch.float32), ("q_mask", q_mask, torch.bool),
+                       ("d", d, torch.float32), ("d_mask", d_mask, torch.bool)):
+        check_dtype(name, key, t, dt)
+    check_cuda(name, q=q, q_mask=q_mask, d=d, d_mask=d_mask)
+    Nq, Lq, dim = q.shape
+    if (tuple(q_mask.shape) != (Nq, Lq) or d.shape[-1] != dim
+            or tuple(d.shape[:-2]) != doc_shape
+            or tuple(d_mask.shape) != tuple(d.shape[:-1])):
+        raise ValueError(f"{name}: inconsistent shapes q {tuple(q.shape)} "
+                         f"q_mask {tuple(q_mask.shape)} d {tuple(d.shape)} "
+                         f"d_mask {tuple(d_mask.shape)}")
+    if dim % 4 or q.data_ptr() % 16 or d.data_ptr() % 16:
+        raise ValueError(f"{name}: dim must be a multiple of 4 and q, d "
+                         f"16-byte aligned (dim={dim})")
+    lib = _load()
+    if lib.maxsim_smem_bytes(dim) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: dim={dim} exceeds shared memory")
+    return lib
+
+
+def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
+    """All-pairs scores: q [Nq, Lq, dim] f32; q_mask [Nq, Lq] bool;
+    d [Nd, Ld, dim] f32; d_mask [Nd, Ld] bool -> [Nq, Nd] f32."""
+    check_impl(impl)
+    if impl == "ref" or q.device.type == "cpu":
+        return maxsim_ref(q, q_mask, d, d_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"{_NAME}: unsupported device {q.device}")
+    lib = _checked(_NAME, q, q_mask, d, d_mask, (d.shape[0],))
+    Nq, Lq, dim = q.shape
+    Nd, Ld, _ = d.shape
+    out = torch.empty((Nq, Nd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.maxsim_launch(q.data_ptr(), q_mask.data_ptr(), d.data_ptr(),
+                             d_mask.data_ptr(), out.data_ptr(), Nq, Lq, dim,
+                             Nd, Ld, stream)
+    build.check(code, _NAME)
+    LAUNCHES.count += 1
+    return out
+
+
+def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):
+    """Per-query candidate scores: q [Nq, Lq, dim] f32; q_mask [Nq, Lq];
+    d [Nq, S, Ld, dim] f32; d_mask [Nq, S, Ld] -> [Nq, S] f32; query i
+    scores only d[i]."""
+    check_impl(impl)
+    if impl == "ref" or q.device.type == "cpu":
+        return maxsim_rerank_ref(q, q_mask, d, d_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"maxsim_rerank: unsupported device {q.device}")
+    lib = _checked("maxsim_rerank", q, q_mask, d, d_mask,
+                   (q.shape[0], d.shape[1]))
+    Nq, Lq, dim = q.shape
+    _, S, Ld, _ = d.shape
+    out = torch.empty((Nq, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.maxsim_rerank_launch(q.data_ptr(), q_mask.data_ptr(),
+                                    d.data_ptr(), d_mask.data_ptr(),
+                                    out.data_ptr(), Nq, Lq, dim, S, Ld,
+                                    stream)
+    build.check(code, "maxsim_rerank")
+    RERANK_LAUNCHES.count += 1
+    return out

@@ -6,20 +6,8 @@ MaxSim of ``kernels/maxsim/ref.py`` ``maxsim_rerank_ref``.
 """
 from __future__ import annotations
 
-import torch
-
+from repro_torch.kernels.maxsim.ref import maxsim_rerank_ref
 from repro_torch.kernels.quant.ref import decode_rows_ref
-
-
-def maxsim_rerank_ref(q, q_mask, d, d_mask):
-    """q [Nq, Lq, dim]; d [Nq, S, Ld, dim]; masks True = valid
-    -> scores [Nq, S] f32 (each query scores only its own docs)."""
-    sim = torch.einsum("qld,qskd->qslk", q.float(), d.float())
-    sim = sim.masked_fill(~d_mask[:, :, None, :], float("-inf"))
-    best = sim.amax(dim=-1)                                  # [Nq, S, Lq]
-    best = torch.where(q_mask[:, None, :] & torch.isfinite(best), best,
-                       torch.zeros((), device=best.device))
-    return best.sum(dim=-1)
 
 
 def maxsim_packed_rerank_ref(q, q_mask, words, ids, d_mask, centroids,

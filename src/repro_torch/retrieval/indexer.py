@@ -1,21 +1,24 @@
-"""Indexer: encode -> TOKEN POOL -> PLAID index, the paper's pipeline.
+"""Indexer: encode -> TOKEN POOL -> index, the paper's pipeline.
 
 Counterpart of ``src/repro/retrieval/indexer.py`` ``Indexer.build``
-without ``out_dir`` (persistence and streaming builds are queued in
-ROADMAP queue 1):
+(streaming builds are queued in ROADMAP queue 1):
 
   1. encode documents in batches of ``encode_batch`` with the ColBERT
      encoder (the last batch zero-padded to full width),
   2. pool each batch (``PoolingSpec``; Ward through the ``ward_pool``
      kernel) and compact the pooled rows on the device,
-  3. build the PLAID index from the pooled vectors.
+  3. build the index (plaid or flat) from the compacted rows,
+  4. with ``out_dir``, write the artifact (``core/persist.py``) and a
+     ``stats.json`` beside its manifest.
 
 Everything stays on the model's device; host work is the IVF
-bookkeeping of the build.
+bookkeeping of the build and the artifact write.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import MultiVectorIndex
+from repro_torch.core.persist import artifact_bytes, serialized_nbytes
 from repro_torch.core.pooling import compact_pooled
 from repro_torch.core.quantization import ResidualCodec
 from repro_torch.core.spec import IndexSpec, PoolingSpec
@@ -36,6 +40,7 @@ class IndexStats:
     n_docs: int
     n_vectors_raw: int
     n_vectors_stored: int
+    index_bytes: int = 0     # serialized artifact size (core/persist.py)
     device_bytes: int = 0
     # wall seconds per build stage (host clock around synchronized work)
     stage_seconds: Dict[str, float] = field(default_factory=dict)
@@ -103,16 +108,21 @@ class Indexer:
                 int(torch.stack(raw).sum()))
 
     def build(self, doc_tokens: np.ndarray,
-              codec: Optional[ResidualCodec] = None, impl: str = "auto"
+              codec: Optional[ResidualCodec] = None, impl: str = "auto",
+              out_dir: Optional[str] = None
               ) -> Tuple[MultiVectorIndex, IndexStats]:
         """doc_tokens [N, L] raw ids -> (MultiVectorIndex, IndexStats).
-        ``codec`` presets the residual codec (``set_codec``) instead of
-        training one on the pooled vectors."""
+        ``codec`` presets the plaid residual codec (``set_codec``)
+        instead of training one on the pooled vectors. ``out_dir``
+        writes the artifact (with the ``pool`` entry) and ``stats.json``;
+        ``index_bytes`` is always the serialized size."""
         times: Dict[str, float] = {}
         flat, counts, raw = self.encode_and_pool_counted(doc_tokens, impl,
                                                          times)
         t0 = time.perf_counter()
-        index = MultiVectorIndex(dim=self.cfg.proj_dim, device=self.device,
+        index = MultiVectorIndex(dim=self.cfg.proj_dim,
+                                 backend=self.index_spec.backend,
+                                 device=self.device,
                                  **self.index_spec.params())
         if codec is not None:
             index.set_codec(codec)
@@ -121,10 +131,24 @@ class Indexer:
         if index._plaid is not None:
             index._plaid.padded_packed()
             index._plaid.device_ivf()
+        elif index._store is not None and index.n_docs:
+            index._store.padded()
         sync(self.device)
         times["index"] = time.perf_counter() - t0
+        if out_dir is not None:
+            t0 = time.perf_counter()
+            manifest = index.save(out_dir, extra_meta={
+                "pool": self.pooling.manifest_meta()})
+            index_bytes = artifact_bytes(manifest)
+            times["save"] = time.perf_counter() - t0
+        else:
+            index_bytes = serialized_nbytes(index)
         stats = IndexStats(n_docs=index.n_docs, n_vectors_raw=raw,
                            n_vectors_stored=index.n_vectors(),
+                           index_bytes=index_bytes,
                            device_bytes=index.device_bytes(),
                            stage_seconds=times)
+        if out_dir is not None:
+            with open(os.path.join(out_dir, "stats.json"), "w") as fh:
+                json.dump(stats.to_json(), fh, indent=2)
         return index, stats

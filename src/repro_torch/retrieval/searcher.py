@@ -3,7 +3,8 @@
 Counterpart of ``src/repro/retrieval/searcher.py``: ``encode_queries``
 pads each chunk of up to ``encode_batch`` queries to the nearest
 power-of-two width; ``search_encoded`` runs the index's batched
-two-stage engine; ``search`` chains the two. Query time is unchanged by
+two-stage engine; ``search`` chains the two; ``from_dir`` serves a
+saved artifact (written by either package). Query time is unchanged by
 token pooling — the searcher is the same for pooled and unpooled
 indexes.
 """
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import MultiVectorIndex
+from repro_torch.device import DeviceLike
 from repro_torch.models.colbert import ColBERT, encode_queries
 
 
@@ -28,6 +30,15 @@ class Searcher:
         self.cfg = model.cfg
         self.index = index
         self.encode_batch = int(encode_batch)
+
+    @classmethod
+    def from_dir(cls, model: ColBERT, path: str, device: DeviceLike = None,
+                 mmap: bool = True, encode_batch: int = 64) -> "Searcher":
+        """Serve the index artifact at ``path`` (no corpus encode, no
+        build), loaded onto ``device`` (``cuda`` when not given)."""
+        from repro_torch.core.persist import load_artifact
+        return cls(model, load_artifact(path, mmap=mmap, device=device),
+                   encode_batch=encode_batch)
 
     def _encode_width(self, n: int) -> int:
         """Smallest power-of-two width holding n queries, capped at

@@ -5,8 +5,9 @@
 * entry points given no device run on ``cuda`` and raise without one —
   they never fall back to the CPU quietly;
 * CPU tensors run the kernels' plain versions (no launch is counted);
-* where the reference would take the host probe path or the dense
-  fallback, the port raises ``NotImplementedError`` instead.
+* where the reference takes the host probe path and the dense
+  fallback, so does the port, with the reference's results; what is not
+  ported yet raises ``NotImplementedError`` naming ROADMAP.
 """
 import os
 import pkgutil
@@ -34,7 +35,9 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
-    assert "repro_torch.kernels.ward_pool.ops" in mods
+    for m in ("kernels.ward_pool.ops", "kernels.maxsim.ops",
+              "kernels.maxsim.ref", "core.persist", "core.docstore"):
+        assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -64,16 +67,22 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     assert rt.resolve_device("cpu").type == "cpu"
 
 
-def _index(n_docs, **kw):
-    rng = np.random.default_rng(0)
+def _docs(n_docs, rng):
     docs = []
     for _ in range(n_docs):
         v = rng.normal(size=(int(rng.integers(2, 6)), 16)).astype(np.float32)
-        docs.append(torch.from_numpy(v / np.linalg.norm(v, axis=-1,
-                                                        keepdims=True)))
+        docs.append(v / np.linalg.norm(v, axis=-1, keepdims=True))
+    return docs
+
+
+def _index(n_docs, codec=None, **kw):
+    rng = np.random.default_rng(0)
+    docs = _docs(n_docs, rng)
     idx = MultiVectorIndex(dim=16, device="cpu", doc_maxlen=24,
                            n_centroids=16, **kw)
-    idx.add(docs)
+    if codec is not None:
+        idx.set_codec(codec)
+    idx.add([torch.from_numpy(v) for v in docs])
     return idx, rng
 
 
@@ -92,17 +101,35 @@ def test_cpu_search_runs_plain_versions():
 
 
 def test_refused_device_plan_raises_not_implemented():
-    # 40 docs under the default ndocs: the reference would go to the
-    # host probe path and the dense corpus-wide rerank
-    idx, rng = _index(40)
-    qs = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search_batch(qs, k=5)
+    """40 docs under the default ndocs: the device plan is refused, and
+    where the port used to raise it now takes the host probe path and
+    the dense corpus-wide rerank, as the reference does, and returns the
+    reference's results (the same codec on both sides; ids equal
+    tie-aware and scores to rtol 1e-5 / atol 1e-4: f32 sums in another
+    order)."""
+    import jax.numpy as jnp
+    from repro.core.index import MultiVectorIndex as JIndex
+    from repro_torch.core.maxsim import tie_aware_mismatches
+    from repro_torch.core.plaid import device_probe_plan
+    from repro_torch.core.quantization import ResidualCodec
+    jidx = JIndex(dim=16, backend="plaid", doc_maxlen=24, n_centroids=16)
+    jidx.add(_docs(40, np.random.default_rng(0)))
+    c = jidx._plaid.codec
+    codec = ResidualCodec(*(torch.tensor(np.asarray(a)) for a in
+                            (c.centroids, c.cutoffs, c.values)), c.bits)
+    idx, rng = _index(40, codec=codec)
+    assert not device_probe_plan(idx._plaid, 3, idx.nprobe, idx.ndocs)[0]
+    qs = rng.normal(size=(2, 3, 16)).astype(np.float32)
+    S, I = idx.search_batch(torch.from_numpy(qs), k=5)
+    jS, jI = jidx.search_batch(jnp.asarray(qs), k=5)
+    assert tie_aware_mismatches(np.asarray(jI), np.asarray(jS), I, S,
+                                1e-4) == 0
+    np.testing.assert_allclose(S, np.asarray(jS), rtol=1e-5, atol=1e-4)
 
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexSpec(backend="flat")
+        IndexSpec(backend="hnsw")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiVectorIndex(dim=8, backend="hnsw", device="cpu")
     with pytest.raises(ValueError):
