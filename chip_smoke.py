@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # one CUDA card; no network
 
-1. Builds the four CUDA sources from ``src/repro_torch/csrc`` with
+1. Builds the six CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
 2. Drives each path through the user entry points, every kernel's launch
    counter set to 0 just before the path and read just after; a path
@@ -28,13 +28,30 @@
    * flat: a 4,096-doc flat index (Ward f=2), 64 queries, ``maxsim``;
    * recon_rerank: the 16,384-doc index with ``packed_rerank=False``
      (the ``maxsim_rerank`` kernel over the f32 reconstruction store);
-     results equal the packed path's tie-aware, scores to 1e-4.
-   The dense and flat paths are re-run with the plain versions
-   (``impl="ref"``) and must agree.
+     results equal the packed path's tie-aware, scores to 1e-4;
+   * kmeans: a 4,096-doc plaid index pooled by per-document k-means at
+     factor 2 (the ``kmeans_assign`` kernel, 11 launches per encode
+     batch: 10 Lloyd steps and the final assignment), searched with
+     ndocs = 256, PLAID's own k = 10 setting: at 4,096 docs a query's
+     candidate set stays under 1024, so only that setting engages the
+     prune (``plaid_probe``); each doc stores at most
+     n_valid // 2 + 1 vectors;
+   * sequential: a 1,024-doc flat index pooled by sequential runs at
+     factor 2 (``maxsim``); each doc stores exactly ceil(n_valid / 2);
+   * cascade: ``build_cascade`` over 4,096 docs with the reference's
+     defaults (Ward, coarse 6, fine 2, 32 candidates), 64 queries
+     (``ward_pool``, ``maxsim`` for stage 1, ``maxsim_rerank`` for
+     stage 2);
+   * cascade_from_dir: the cascade saved and served by
+     ``Searcher.from_dir``; results equal the in-memory cascade's
+     exactly.
+   The dense, flat, kmeans and cascade paths are re-run with the plain
+   versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
-   shapes (inputs taken from the built indexes), and times both with
-   CUDA events; prints each kernel's bound (bytes over 3.35 TB/s or
-   operations over the f32 peak of 67 TFLOP/s, the larger).
+   shapes (inputs taken from the built indexes and the k-means path's
+   first encode batch), and times both with CUDA events; prints each
+   kernel's bound (bytes over 3.35 TB/s or operations over the f32 peak
+   of 67 TFLOP/s, the larger).
 4. Re-runs the main search with the plain versions (``impl="ref"``): the
    ids must agree tie-aware and the scores to 1e-4.
 
@@ -66,8 +83,15 @@ SEED = 0
 SCORE_ATOL = 1e-4                  # f32 sums in another order
 DENSE_DOCS = 512
 FLAT_DOCS = 4096
+KMEANS_DOCS = 4096
+KMEANS_NDOCS = 256                 # PLAID's k=10 setting (see the docstring)
+SEQUENTIAL_DOCS = 1024
+CASCADE_DOCS = 4096
+ENCODE_BATCH = 128
+NEAR_TIE = 1e-5                    # kmeans_assign: top-two sims this close
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
+CASCADE_DIR = os.path.join(ROOT, "build", "chip_smoke_cascade")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -76,6 +100,10 @@ PATH_KERNELS = {
     "dense": ("ward_pool", "maxsim"),
     "flat": ("ward_pool", "maxsim"),
     "recon_rerank": ("plaid_probe", "maxsim_rerank"),
+    "kmeans": ("kmeans_assign", "plaid_probe", "maxsim_packed"),
+    "sequential": ("maxsim",),
+    "cascade": ("ward_pool", "maxsim", "maxsim_rerank"),
+    "cascade_from_dir": ("maxsim", "maxsim_rerank"),
 }
 PATH_LAUNCHES = {}
 NO_LIBRARY = ("null: no single PyTorch call does the masked max over doc "
@@ -489,6 +517,137 @@ def recon_path(torch, index, searcher, queries, S, I):
     _agree("recon rerank vs packed rerank", S, I, S1, I1)
 
 
+def _n_valid(cfg, docs):
+    """Emitted (stored before pooling) vectors per doc, from the tokens."""
+    import torch
+    from repro_torch.models.colbert import emit_mask_docs, prepare_doc_tokens
+    toks, attn = prepare_doc_tokens(torch.from_numpy(np.asarray(docs)),
+                                    cfg.doc_maxlen)
+    return emit_mask_docs(toks, attn, cfg.mask_punctuation).sum(1).numpy()
+
+
+def kmeans_path(rt, torch, model, docs, queries):
+    """A 4,096-doc plaid index pooled by per-document k-means (f=2)."""
+    n_batches = -(-KMEANS_DOCS // ENCODE_BATCH)
+
+    def drive():
+        t0 = time.perf_counter()
+        indexer = rt.Indexer(model,
+                             index_spec=rt.IndexSpec(ndocs=KMEANS_NDOCS),
+                             pooling_spec=rt.PoolingSpec("kmeans", 2),
+                             encode_batch=ENCODE_BATCH)
+        index, stats = indexer.build(docs[:KMEANS_DOCS])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        searcher = rt.Searcher(model, index, encode_batch=QUERY_BATCH)
+        res = _search_all(searcher, queries)
+        # no counted kernel runs here: printed before the launch check
+        _candidate_report(torch, index, searcher.encode_queries(queries))
+        return index, stats, build_s, searcher, res
+
+    index, stats, build_s, searcher, (S, I) = run_path("kmeans", torch,
+                                                       drive)
+    launches = PATH_LAUNCHES["kmeans"]["kmeans_assign"]
+    print(f"kmeans: {stats.n_docs} docs, build {build_s:.3f}s; stages "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in stats.stage_seconds.items())
+          + f"; vectors raw {stats.n_vectors_raw}, stored "
+          f"{stats.n_vectors_stored} (reduction {stats.vector_reduction:.4f});"
+          f" kmeans_assign launches {launches} = 11 x {n_batches} encode "
+          f"batches: {launches == 11 * n_batches}")
+    if launches != 11 * n_batches:
+        raise AssertionError("kmeans: kmeans_assign launches are not 11 per "
+                             "encode batch")
+    stored = np.diff(index._plaid.doc_offsets)
+    cap = _n_valid(model.cfg, docs[:KMEANS_DOCS]) // 2 + 1
+    if (stored > cap).any():
+        raise AssertionError(f"kmeans: {int((stored > cap).sum())} docs "
+                             f"store more than n_valid // 2 + 1 vectors")
+    _check_results(S, I, index.n_docs)
+    search_s = _steady_search_s(torch, searcher,
+                                searcher.encode_queries(queries))
+    print(f"kmeans: index search {N_QUERIES} queries steady {search_s:.4f}s")
+    _agree("kmeans path vs plain versions", S, I,
+           *_search_all(searcher, queries, impl="ref"))
+
+
+def sequential_path(rt, torch, model, docs, queries):
+    """A 1,024-doc flat index pooled by sequential runs (f=2)."""
+
+    def drive():
+        indexer = rt.Indexer(model, index_spec=rt.IndexSpec(backend="flat"),
+                             pooling_spec=rt.PoolingSpec("sequential", 2),
+                             encode_batch=ENCODE_BATCH)
+        index, stats = indexer.build(docs[:SEQUENTIAL_DOCS])
+        searcher = rt.Searcher(model, index, encode_batch=QUERY_BATCH)
+        return index, stats, _search_all(searcher, queries)
+
+    index, stats, (S, I) = run_path("sequential", torch, drive)
+    want = -(-_n_valid(model.cfg, docs[:SEQUENTIAL_DOCS]) // 2)
+    stored = index._store.doc_lengths()
+    print(f"sequential: {stats.n_docs} docs, vectors raw "
+          f"{stats.n_vectors_raw}, stored {stats.n_vectors_stored}")
+    if not np.array_equal(stored, want):
+        raise AssertionError(f"sequential: {int((stored != want).sum())} "
+                             f"docs do not store ceil(n_valid / 2) vectors")
+    _check_results(S, I, index.n_docs)
+
+
+def cascade_path(rt, torch, model, docs, queries):
+    """``build_cascade`` with the reference's defaults over 4,096 docs."""
+
+    def drive():
+        t0 = time.perf_counter()
+        cascade = rt.build_cascade(model, docs[:CASCADE_DOCS],
+                                   encode_batch=ENCODE_BATCH)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        searcher = rt.Searcher(model, cascade, encode_batch=QUERY_BATCH)
+        return cascade, build_s, searcher, _search_all(searcher, queries)
+
+    cascade, build_s, searcher, (S, I) = run_path("cascade", torch, drive)
+    _check_results(S, I, cascade.n_docs)
+    search_s = _steady_search_s(torch, searcher,
+                                searcher.encode_queries(queries))
+    print(f"cascade: {cascade.n_docs} docs, coarse (f={cascade.coarse_factor})"
+          f" {cascade.stage1_vectors()} + fine (f={cascade.fine_factor}) "
+          f"{cascade.n_vectors() - cascade.stage1_vectors()} vectors, "
+          f"{cascade.candidates} candidates; build {build_s:.3f}s; device "
+          f"bytes {cascade.device_bytes()}; index search {N_QUERIES} "
+          f"queries steady {search_s:.4f}s")
+    _agree("cascade vs plain versions", S, I,
+           *_search_all(searcher, queries, impl="ref"))
+    return cascade, S, I
+
+
+def cascade_from_dir_path(rt, torch, model, queries, cascade, S, I):
+    """The cascade saved, then served by ``Searcher.from_dir``: the same
+    vectors, kernels and card, so the results must be equal."""
+    from repro_torch.core.persist import artifact_bytes
+    shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    cascade.save(CASCADE_DIR)
+    save_s = time.perf_counter() - t0
+
+    def drive():
+        t0 = time.perf_counter()
+        searcher = rt.Searcher.from_dir(model, CASCADE_DIR,
+                                        encode_batch=QUERY_BATCH)
+        torch.cuda.synchronize()
+        return searcher, time.perf_counter() - t0, _search_all(searcher,
+                                                               queries)
+
+    loaded, load_s, (S1, I1) = run_path("cascade_from_dir", torch, drive)
+    if not isinstance(loaded.index, rt.CascadeIndex):
+        raise AssertionError(f"from_dir served a {type(loaded.index)}")
+    print(f"cascade artifact: {artifact_bytes(CASCADE_DIR)} bytes, save "
+          f"{save_s:.4f}s, load {load_s:.4f}s")
+    if not (np.array_equal(I, I1) and np.array_equal(S, S1)):
+        raise AssertionError("cascade from_dir results differ from the "
+                             "in-memory cascade's")
+    print("cascade_from_dir: results equal the in-memory cascade's exactly")
+    shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+
+
 def _launches(name):
     by_path = {p: c[name] for p, c in PATH_LAUNCHES.items() if c[name]}
     return dict(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -560,6 +719,110 @@ def check_maxsim_rerank(torch, dev, index, qv):
                       f"library_ms {NO_LIBRARY}")
 
 
+def check_kmeans_assign(torch, dev, model, docs):
+    """At the k-means path's shapes: its first encode batch (B = 128,
+    N = 256, d = 128) against its centroids after the last Lloyd step
+    (K = 129). Ids must equal the plain version's except on rows whose
+    top two sims lie within NEAR_TIE (their count is printed)."""
+    from repro_torch.core.kmeans import kmeans_fit_batch
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    from repro_torch.models.colbert import encode_docs
+    v, emit = encode_docs(model, docs[:ENCODE_BATCH])
+    B, N, d = v.shape
+    x, c, km = kmeans_fit_batch(v, emit, emit.sum(-1) // 2 + 1, N // 2 + 1)
+    K = c.shape[1]
+    got_a, got_s = kmeans_assign(x, c, km)
+    want_a, want_s = kmeans_assign(x, c, km, impl="ref")
+    torch.cuda.synchronize()
+    sim = torch.bmm(x, c.transpose(1, 2)).masked_fill(~km[:, None, :],
+                                                      float("-inf"))
+    top2 = sim.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
+    differ = got_a != want_a
+    n_near, n_differ = int((near & emit).sum()), int(differ.sum())
+    bad = int((differ & ~near).sum())
+    err = float((got_s - want_s).abs().max())
+    print(f"kmeans_assign: {n_differ} of {B * N} rows differ from the plain "
+          f"version, all on near-tie rows: {bad == 0}; {n_near} valid rows "
+          f"have their top two sims within {NEAR_TIE}")
+    if bad:
+        raise AssertionError(f"kmeans_assign: {bad} rows differ off a "
+                             f"near tie")
+    if not torch.allclose(got_s, want_s, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"kmeans_assign: best sims max abs err {err}")
+    ops = 2 * d * N * int(km.sum())            # valid clusters only
+    bound, by = _bound_ms(_nbytes(x, c, km) + B * N * 8, ops)
+    return dict(name="kmeans_assign", route="cuda",
+                source="src/repro_torch/csrc/kmeans_assign.cu",
+                replaces="src/repro/kernels/kmeans_assign/kernel.py:36",
+                **_launches("kmeans_assign"), max_abs_err=err,
+                ms=_time_ms(lambda: kmeans_assign(x, c, km)),
+                plain_ms=_time_ms(lambda: kmeans_assign(x, c, km,
+                                                        impl="ref")),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                check=f"ids equal off near ties ({n_differ} differ, {n_near}"
+                      f" valid near-tie rows), best allclose rtol 1e-5 atol "
+                      f"1e-5 (B={B}, N={N}, K={K}, d={d}); library_ms null: "
+                      f"a matmul plus a masked argmax is not one call")
+
+
+def check_dequant_score(torch, dev, index, qv):
+    """On the main index's rows: the packed tokens of every candidate doc
+    of the first query batch, scored against one query's tokens."""
+    from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
+    from repro_torch.kernels.quant.ops import dequant_score
+    p = index._plaid
+    cand, cmask = index.candidates(qv)
+    docs = torch.unique(cand[cmask])
+    ids, words, tmask = p.padded_packed()
+    dm = tmask[docs]
+    w, cid = words[docs][dm].contiguous(), ids[docs][dm].contiguous()
+    row_doc = torch.arange(len(docs), device=dev)[:, None].expand_as(dm)[dm]
+    q = qv[0].contiguous()
+    Lq, dim = q.shape
+    M, bits = w.shape[0], p.codec.bits
+    cen, vals = p.codec.centroids.contiguous(), p.codec.values.contiguous()
+    args = (w, cid, cen, vals, q)
+    got = dequant_score(*args, bits=bits)
+    want = dequant_score(*args, bits=bits, impl="ref")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=0, atol=SCORE_ATOL):
+        raise AssertionError(f"dequant_score: max abs err {err}")
+    best = torch.full((len(docs), Lq), float("-inf"), device=dev)
+    best = best.scatter_reduce(0, row_doc[:, None].expand(M, Lq), got,
+                               "amax")
+    qm = torch.ones((1, Lq), dtype=torch.bool, device=dev)
+    packed = maxsim_packed_rerank(q[None], qm, words[docs][None],
+                                  ids[docs][None], dm[None], cen, vals,
+                                  bits=bits)[0]
+    doc_err = float((best.sum(1) - packed).abs().max())
+    if not torch.allclose(best.sum(1), packed, rtol=0, atol=SCORE_ATOL):
+        raise AssertionError(f"dequant_score: per-doc MaxSim differs from "
+                             f"maxsim_packed by {doc_err}")
+    ops = M * (2 * Lq * dim + 4 * dim)
+    out_bytes = M * Lq * 4
+    bound, by = _bound_ms(_nbytes(*args) + out_bytes, ops)
+    rows_bound, rows_by = _bound_ms(_nbytes(w, cid, vals, q) + M * dim * 4
+                                    + out_bytes, ops)
+    return dict(name="dequant_score", route="cuda",
+                source="src/repro_torch/csrc/dequant_score.cu",
+                replaces="src/repro/kernels/quant/kernel.py:62",
+                **_launches("dequant_score"), max_abs_err=err,
+                ms=_time_ms(lambda: dequant_score(*args, bits=bits)),
+                plain_ms=_time_ms(lambda: dequant_score(*args, bits=bits,
+                                                        impl="ref")),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                check=f"allclose atol {SCORE_ATOL}; per-doc max summed over "
+                      f"the query equals maxsim_packed to {SCORE_ATOL} (max "
+                      f"diff {doc_err:.3g}) (M={M} rows of {len(docs)} "
+                      f"candidate docs, Lq={Lq}, dim={dim}, b={bits}); bound "
+                      f"with a centroid row read per row {rows_bound:.4f} ms "
+                      f"({rows_by}); launches 0: no path of the JAX package "
+                      f"calls it; library_ms null: unpack + reconstruct + "
+                      f"score is not one call")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -589,12 +852,18 @@ def main() -> int:
     flat_path(rt, torch, model, docs, queries)
     recon_path(torch, index, searcher, queries, S, I)
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    kmeans_path(rt, torch, model, docs, queries)
+    sequential_path(rt, torch, model, docs, queries)
+    cascade, cS, cI = cascade_path(rt, torch, model, docs, queries)
+    cascade_from_dir_path(rt, torch, model, queries, cascade, cS, cI)
 
     qv = searcher.encode_queries(queries[:QUERY_BATCH])
     kernels = [check_ward(torch, dev), check_plaid_probe(torch, dev, index, qv),
                check_maxsim_packed(torch, dev, index, qv),
                check_maxsim(torch, dev, index, qv),
-               check_maxsim_rerank(torch, dev, index, qv)]
+               check_maxsim_rerank(torch, dev, index, qv),
+               check_kmeans_assign(torch, dev, model, docs),
+               check_dequant_score(torch, dev, index, qv)]
     for k in kernels:
         print(f"kernel {k['name']}: {k.pop('check')}; {k['ms']:.4f} ms, "
               f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "

@@ -1,10 +1,10 @@
 """Token pooling for multi-vector retrieval — PyTorch / CUDA (Hopper) port.
 
 The JAX package (``src/repro``), rewritten for one NVIDIA H100, slice
-by slice: ColBERT encode -> Ward token pooling -> PLAID 2-bit or flat
-index, artifacts in the JAX package's format both ways, and query
-encode -> device or host probe/prune -> packed, f32 or dense rerank ->
-top-k. The Pallas kernels on those paths are hand-written CUDA kernels
+by slice: ColBERT encode -> token pooling (sequential, k-means or Ward)
+-> PLAID 2-bit or flat index, or the pooled two-level cascade,
+artifacts in the JAX package's format both ways, and query encode ->
+device or host probe/prune -> packed, f32 or dense rerank -> top-k. The Pallas kernels on those paths are hand-written CUDA kernels
 here (``csrc/``), built with ``nvcc`` at first use.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
@@ -33,6 +33,8 @@ _EXPORTS = {
     "Indexer": "repro_torch.retrieval.indexer",
     "IndexStats": "repro_torch.retrieval.indexer",
     "Searcher": "repro_torch.retrieval.searcher",
+    "CascadeIndex": "repro_torch.retrieval.cascade",
+    "build_cascade": "repro_torch.retrieval.cascade",
     "ColBERT": "repro_torch.models.colbert",
     "init_colbert": "repro_torch.models.colbert",
     "params_from_jax": "repro_torch.models.colbert",

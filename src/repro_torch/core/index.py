@@ -10,9 +10,11 @@ corpus-wide dispatch, ``search_batch``, ``save``/``load``
 Serving toggles, never persisted: ``packed_rerank`` (plaid rerank from
 packed codes, or from the f32 reconstruction store) and
 ``probe_kernel`` (``"auto"``/``"device"``/``"host"`` candidate path).
-Not ported yet (ROADMAP queue 1): the hnsw backend and ``add`` after
-the build raise ``NotImplementedError``; ``delete`` is absent (dead docs
-come only from a loaded artifact).
+The pooled cascade is its own class (``retrieval/cascade.py``). Not
+ported yet (ROADMAP queue 1, item 4: index mutation, with the hnsw
+backend): ``backend="hnsw"`` and ``add`` after the build raise
+``NotImplementedError``; ``delete`` is absent (dead docs come only from
+a loaded artifact).
 
 ``impl`` on the search methods selects the kernels' plain versions
 (``"ref"``); only the tests and ``chip_smoke.py`` pass it.

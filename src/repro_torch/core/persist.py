@@ -1,10 +1,13 @@
 """Versioned on-disk index artifacts, the format both packages share.
 
 Counterpart of ``src/repro/core/persist.py`` (``FORMAT_VERSION = 1``)
-for monolithic flat and plaid indexes: an artifact is a directory of
+for monolithic flat and plaid indexes and for the pooled cascade: an
+artifact is a directory of
 
-    manifest.json     format_version, generation, kind, backend, dim,
-                      n_docs, params, (codec_bits), payload table
+    manifest.json     format_version, generation, kind, then for an
+                      index: backend, dim, n_docs, params, (codec_bits);
+                      for a cascade: dim, coarse_factor, fine_factor,
+                      candidates, doc_maxlen; and the payload table
                       {name: file, dtype, shape, bytes}
     <payload>.<token>.npy   one numpy array per tensor
 
@@ -18,7 +21,7 @@ assignments ``int32``, offsets / ids ``int64``, ``live`` bool, vectors
 and codec tables ``float32``. Loading reads the payloads (memory-mapped
 with ``mmap=True``) and copies them onto the index's device.
 
-Sharded, cascade and hnsw artifacts are not ported (ROADMAP queue 1).
+Sharded and hnsw artifacts are not ported (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -323,14 +326,68 @@ def _plaid_from(index, payloads, manifest) -> None:
     index.deleted = set(np.nonzero(~payloads["live"])[0].tolist())
 
 
+# ---------------------------------------------------------------------------
+# CascadeIndex <-> artifact
+# ---------------------------------------------------------------------------
+def cascade_payloads(cascade) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    """(meta, payloads) of a CascadeIndex: what ``save_cascade`` writes,
+    both pool levels as docstore payloads under ``coarse_`` / ``fine_``."""
+    meta = {"kind": "cascade_index",
+            "dim": int(cascade.dim),
+            "coarse_factor": int(cascade.coarse_factor),
+            "fine_factor": int(cascade.fine_factor),
+            "candidates": int(cascade.candidates),
+            "doc_maxlen": int(cascade.doc_maxlen)}
+    payloads = _docstore_payloads(cascade._coarse, "coarse_")
+    payloads.update(_docstore_payloads(cascade._fine, "fine_"))
+    return meta, payloads
+
+
+def save_cascade(cascade, path: str,
+                 extra_meta: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, Any]:
+    meta, payloads = cascade_payloads(cascade)
+    if extra_meta:
+        meta.update(extra_meta)
+    return write_artifact(path, meta, payloads)
+
+
+def load_cascade(path: str, mmap: bool = True, device: DeviceLike = None):
+    """Reconstruct a CascadeIndex (written by either package) onto
+    ``device``."""
+    from repro_torch.retrieval.cascade import CascadeIndex
+    manifest = read_manifest(path)
+    if manifest["kind"] != "cascade_index":
+        raise IndexFormatError(f"expected kind 'cascade_index', found "
+                               f"{manifest['kind']!r}")
+    cascade = CascadeIndex(
+        dim=int(_require(manifest, "dim", path)),
+        coarse_factor=int(_require(manifest, "coarse_factor", path)),
+        fine_factor=int(_require(manifest, "fine_factor", path)),
+        candidates=int(_require(manifest, "candidates", path)),
+        doc_maxlen=int(_require(manifest, "doc_maxlen", path)),
+        device=resolve_device(device))
+    payloads = load_payloads(path, manifest, mmap=mmap)
+    for level in ("coarse_", "fine_"):
+        for name in ("flat", "offsets", "live"):
+            _require(payloads, level + name, "cascade artifact")
+    cascade._coarse = _docstore_from(payloads, "coarse_", cascade.doc_maxlen,
+                                     cascade.device)
+    cascade._fine = _docstore_from(payloads, "fine_", cascade.doc_maxlen,
+                                   cascade.device)
+    return cascade
+
+
 def load_artifact(path: str, mmap: bool = True, device: DeviceLike = None):
     """Load the index artifact at ``path``, dispatching on the manifest
     ``kind``: the loader behind ``Searcher.from_dir``."""
     kind = read_manifest(path)["kind"]
     if kind == "multi_vector_index":
         return load_index(path, mmap=mmap, device=device)
-    if kind in ("sharded_index", "cascade_index"):
+    if kind == "cascade_index":
+        return load_cascade(path, mmap=mmap, device=device)
+    if kind == "sharded_index":
         raise NotImplementedError(
-            f"{kind} artifacts are not ported yet (ROADMAP queue 1)")
+            "sharded_index artifacts are not ported yet (ROADMAP queue 1)")
     raise IndexFormatError(f"artifact kind {kind!r} at {path!r} is not a "
                            f"searchable index")

@@ -1,10 +1,16 @@
 """Token pooling — the paper's contribution — as an indexing-time step.
 
-Counterpart of ``src/repro/core/pooling.py`` for methods ``none`` and
-``ward``: cluster each document's token vectors (Ward, through the
-``ward_pool`` kernel) and replace each cluster by its renormalized mean.
+Counterpart of ``src/repro/core/pooling.py``: group each document's
+token vectors with one of the paper's three methods and replace each
+group by its renormalized mean.
+
+  * ``sequential`` — runs of ``factor`` consecutive valid tokens;
+  * ``kmeans``     — cosine k-means with n_valid // factor + 1 clusters
+    (``core/kmeans.py``, through the ``kmeans_assign`` kernel);
+  * ``ward``       — hierarchical Ward clustering (the ``ward_pool``
+    kernel).
+
 ``pool_factor=1`` / ``none`` is the identity (the unpooled baseline).
-``sequential`` and ``kmeans`` pooling are queued in ROADMAP queue 1.
 """
 from __future__ import annotations
 
@@ -12,13 +18,24 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.spec import PORTED_POOL_METHODS, POOL_METHODS
+from repro_torch.core.kmeans import kmeans_cluster_batch
+from repro_torch.core.spec import POOL_METHODS
 from repro_torch.kernels.ward_pool.ops import ward_assign
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                            min=1e-9)
+
+
+def sequential_assign(mask: torch.Tensor, factor: int) -> torch.Tensor:
+    """The g-th VALID token joins group ``g // factor``: mask [B, N] ->
+    assign [B, N] int32. Grouping by valid-token rank means masked gaps
+    do not split a run, so a doc with n valid tokens pools to exactly
+    ``ceil(n / factor)`` vectors. Masked positions get an arbitrary
+    (weight-zero) group id."""
+    rank = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
+    return (torch.clamp(rank, min=0) // factor).to(torch.int32)
 
 
 def _mean_pool_by_assign(x: torch.Tensor, mask: torch.Tensor,
@@ -59,12 +76,21 @@ def pool_doc_embeddings(x: torch.Tensor, mask: torch.Tensor, factor: int,
             xo = _normalize(xo)
         return torch.where(mask[..., None], xo,
                            torch.zeros((), device=x.device)), mask
-    if method not in PORTED_POOL_METHODS:
-        raise NotImplementedError(
-            f"pooling method {method!r} is not ported yet (ROADMAP queue 1: "
-            f"sequential and k-means pooling with kmeans_assign)")
-    assign = ward_assign(x, mask, factor, impl=impl)
-    return _mean_pool_by_assign(x, mask, assign, x.shape[1], renormalize)
+    N = x.shape[1]
+    if method == "ward":
+        # assign ids live in [0, N) (representative token index)
+        assign = ward_assign(x, mask, factor, impl=impl)
+        return _mean_pool_by_assign(x, mask, assign, N, renormalize)
+    if method == "sequential":
+        assign = sequential_assign(mask, factor)
+        nseg = (N + factor - 1) // factor
+    else:
+        assign = kmeans_cluster_batch(x, mask, factor, impl=impl)
+        nseg = N // factor + 1
+    pooled, pmask = _mean_pool_by_assign(x, mask, assign, nseg, renormalize)
+    pad = N - nseg        # scatter into N slots, as the other methods do
+    return (torch.nn.functional.pad(pooled, (0, 0, 0, pad)),
+            torch.nn.functional.pad(pmask, (0, pad)))
 
 
 def compact_pooled(pooled: torch.Tensor, pooled_mask: torch.Tensor
@@ -74,3 +100,9 @@ def compact_pooled(pooled: torch.Tensor, pooled_mask: torch.Tensor
     the reference's order (``compact_pooled``'s validity sort)."""
     counts = pooled_mask.sum(dim=1)
     return pooled[pooled_mask], counts
+
+
+def vector_counts(mask: torch.Tensor, pooled_mask: torch.Tensor):
+    """(original vector count, pooled vector count) of a batch — the
+    paper's Table 3."""
+    return int(mask.sum()), int(pooled_mask.sum())

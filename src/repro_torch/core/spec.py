@@ -13,7 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 POOL_METHODS = ("none", "sequential", "kmeans", "ward")
-PORTED_POOL_METHODS = ("none", "ward")
+PORTED_POOL_METHODS = POOL_METHODS
 BACKENDS = ("flat", "hnsw", "plaid")
 PORTED_BACKENDS = ("flat", "plaid")
 # MultiVectorIndex construction knobs: what an artifact manifest records

@@ -13,11 +13,12 @@ import importlib
 from typing import Dict
 
 KERNELS = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
-           "maxsim_rerank")
+           "maxsim_rerank", "kmeans_assign", "dequant_score")
 IMPLS = ("auto", "ref")
 # kernel -> (package under kernels/, counter in its ops.py); one source
 # may hold several entries, each with its own counter
-_COUNTERS = {"maxsim_rerank": ("maxsim", "RERANK_LAUNCHES")}
+_COUNTERS = {"maxsim_rerank": ("maxsim", "RERANK_LAUNCHES"),
+             "dequant_score": ("quant", "LAUNCHES")}
 
 
 def _counter(name: str) -> "LaunchCounter":

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim")
+SOURCES = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
+           "kmeans_assign", "dequant_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

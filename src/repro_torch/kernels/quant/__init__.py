@@ -1,1 +1,1 @@
-"""Packed-code primitives shared by the PLAID kernels (``csrc/quant.cuh``)."""
+"""Packed-code primitives (``csrc/quant.cuh``) and the fused dequantize + score kernel (``csrc/dequant_score.cu``)."""

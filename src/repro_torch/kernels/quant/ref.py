@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the packed-code primitives.
 
-Counterparts of ``src/repro/kernels/quant/ref.py`` ``unpack_ref`` and of
-the decode half of ``kernels/maxsim_packed/ref.py``. Packed words are
+Counterparts of ``src/repro/kernels/quant/ref.py`` ``unpack_ref`` and
+``dequant_score_ref``, and of the decode half of
+``kernels/maxsim_packed/ref.py``. Packed words are
 held as ``torch.int32`` tensors carrying the uint32 bit pattern: ``>>``
 on ``torch.uint32`` is not implemented on the CPU, and masking the low
 ``bits`` after an arithmetic shift of the int32 view gives the same
@@ -33,3 +34,15 @@ def decode_rows_ref(words: torch.Tensor, ids: torch.Tensor,
     v = centroids[ids.long()] + res
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                            min=1e-9)
+
+
+def dequant_score_ref(words: torch.Tensor, centroid_ids: torch.Tensor,
+                      centroids: torch.Tensor, values: torch.Tensor,
+                      q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Counterpart of ``src/repro/kernels/quant/ref.py``
+    ``dequant_score_ref`` with the centroid gather inside: words [M, W],
+    centroid_ids [M] -> sims [M, Lq] f32 of the unit-renormalized
+    reconstructions against q [Lq, dim]."""
+    v = decode_rows_ref(words, centroid_ids, centroids.float(),
+                        values.float(), bits)
+    return v @ q.float().T

@@ -21,7 +21,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +106,12 @@ class Indexer:
                     np.zeros(0, np.int64), 0)
         return (torch.cat(rows), torch.cat(counts).cpu().numpy(),
                 int(torch.stack(raw).sum()))
+
+    def encode_and_pool(self, doc_tokens: np.ndarray) -> List[torch.Tensor]:
+        """doc_tokens [N, L] -> per-doc pooled vectors ([n_i, dim] views
+        on the device), the list form ``build_cascade`` takes."""
+        flat, counts, _ = self.encode_and_pool_counted(doc_tokens)
+        return list(torch.split(flat, counts.tolist()))
 
     def build(self, doc_tokens: np.ndarray,
               codec: Optional[ResidualCodec] = None, impl: str = "auto",

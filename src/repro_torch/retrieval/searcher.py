@@ -4,13 +4,14 @@ Counterpart of ``src/repro/retrieval/searcher.py``: ``encode_queries``
 pads each chunk of up to ``encode_batch`` queries to the nearest
 power-of-two width; ``search_encoded`` runs the index's batched
 two-stage engine; ``search`` chains the two; ``from_dir`` serves a
-saved artifact (written by either package). Query time is unchanged by
+saved artifact (written by either package): a flat or plaid
+``MultiVectorIndex`` or a ``CascadeIndex``. Query time is unchanged by
 token pooling — the searcher is the same for pooled and unpooled
 indexes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -18,10 +19,12 @@ import torch
 from repro_torch.core.index import MultiVectorIndex
 from repro_torch.device import DeviceLike
 from repro_torch.models.colbert import ColBERT, encode_queries
+from repro_torch.retrieval.cascade import CascadeIndex
 
 
 class Searcher:
-    def __init__(self, model: ColBERT, index: MultiVectorIndex,
+    def __init__(self, model: ColBERT,
+                 index: Union[MultiVectorIndex, CascadeIndex],
                  encode_batch: int = 64):
         if model.device.type != torch.device(index.device).type:
             raise ValueError(f"model is on {model.device}, index on "
@@ -34,8 +37,9 @@ class Searcher:
     @classmethod
     def from_dir(cls, model: ColBERT, path: str, device: DeviceLike = None,
                  mmap: bool = True, encode_batch: int = 64) -> "Searcher":
-        """Serve the index artifact at ``path`` (no corpus encode, no
-        build), loaded onto ``device`` (``cuda`` when not given)."""
+        """Serve the index or cascade artifact at ``path`` (no corpus
+        encode, no build), loaded onto ``device`` (``cuda`` when not
+        given); dispatches on the manifest ``kind``."""
         from repro_torch.core.persist import load_artifact
         return cls(model, load_artifact(path, mmap=mmap, device=device),
                    encode_batch=encode_batch)

@@ -5,15 +5,20 @@ fixture decides at run time). Run on a card with
 
 Tolerances: Ward assignments equal; probe -inf slots equal and finite
 scores to 1e-5; packed rerank scores to 1e-5; the f32 MaxSim kernels to
-rtol 1e-5, atol 1e-4 (f32 dot products and sums in another order).
+rtol 1e-5, atol 1e-4 (f32 dot products and sums in another order);
+k-means assignment ids equal except where the top two sims lie within
+1e-5 (f32 dot products in another order), best sims to 1e-5; dequantize
++ score to atol 1e-4, the reference test's tolerance.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.maxsim.ops import maxsim, maxsim_rerank
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
+from repro_torch.kernels.quant.ops import dequant_score
 from repro_torch.kernels.ward_pool.ops import ward_assign
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +121,56 @@ def test_maxsim_rerank_kernel_equals_plain(dev):
     assert float(got[0, 0]) == 0.0
 
 
+@pytest.mark.parametrize("B,N,K,dim,dtype", [
+    (1, 257, 32, 128, torch.float32),      # the reference's standalone shape
+    (1, 100, 8, 64, torch.bfloat16),
+    (6, 256, 129, 128, torch.float32),     # k-means pooling at f=2
+    (3, 70, 200, 32, torch.float32),       # K above one centroid chunk
+])
+def test_kmeans_assign_kernel_equals_plain(dev, B, N, K, dim, dtype):
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    x = torch.randn((B, N, dim), generator=g, device=dev).to(dtype)
+    c = torch.randn((B, K, dim), generator=g, device=dev).to(dtype)
+    km = torch.rand((B, K), generator=g, device=dev) < 0.7
+    if B == 1:                                   # the reference's contract
+        x, c, km = x[0], c[0], km[0]
+    else:
+        km[0] = False                            # every cluster masked
+    before = launch_counts()["kmeans_assign"]
+    a, s = kmeans_assign(x, c, km)
+    assert launch_counts()["kmeans_assign"] == before + 1
+    ar, sr = kmeans_assign(x, c, km, impl="ref")
+    sim = torch.matmul(x.float(), c.float().transpose(-1, -2)).masked_fill(
+        ~km[..., None, :], float("-inf"))
+    top2 = sim.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-5
+    assert not ((a != ar) & ~near).any()
+    torch.testing.assert_close(s, sr, rtol=1e-5, atol=1e-5)
+    if B > 1:                                    # all masked: index 0, -inf
+        assert (a[0] == 0).all() and torch.isinf(s[0]).all()
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("M,dim,Lq", [(100, 128, 16), (300, 64, 32),
+                                      (5000, 128, 32)])
+def test_dequant_score_kernel_equals_plain(dev, bits, M, dim, Lq):
+    g = torch.Generator(device=dev).manual_seed(M + bits)
+    K = 16
+    W = dim * bits // 32
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, W), generator=g,
+                          device=dev, dtype=torch.int32)
+    ids = torch.randint(0, K, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cen = _unit(g, (K, dim), dev)
+    vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.05
+    q = _unit(g, (Lq, dim), dev)
+    before = launch_counts()["dequant_score"]
+    got = dequant_score(words, ids, cen, vals, q, bits=bits)
+    assert launch_counts()["dequant_score"] == before + 1
+    want = dequant_score(words, ids, cen, vals, q, bits=bits, impl="ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     x = torch.randn((2, 8, 16), device=dev)
     mask = torch.ones((2, 8), dtype=torch.int32, device=dev)
@@ -132,6 +187,15 @@ def test_wrappers_reject_bad_inputs(dev):
                            torch.ones((1, 3), dtype=torch.bool, device=dev),
                            t_cs=0.3)
     d = torch.randn((3, 5, 30), device=dev)      # dim not a multiple of 4
+    with pytest.raises(TypeError):
+        kmeans_assign(x[0], torch.randn((4, 16), device=dev),
+                      torch.ones(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):                # W does not match dim
+        dequant_score(torch.zeros((3, 5), dtype=torch.int32, device=dev),
+                      torch.zeros(3, dtype=torch.int32, device=dev),
+                      torch.randn((4, 32), device=dev),
+                      torch.randn((32, 4), device=dev),
+                      torch.randn((2, 32), device=dev), bits=2)
     with pytest.raises(ValueError):
         maxsim(torch.randn((1, 4, 30), device=dev),
                torch.ones((1, 4), dtype=torch.bool, device=dev), d,

@@ -22,7 +22,8 @@ import repro_torch
 from repro_torch.configs.colbertv2 import SMOKE
 from repro_torch.core.index import MultiVectorIndex
 from repro_torch.core.spec import IndexSpec
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import KERNELS, launch_counts
+from repro_torch.kernels.build import SOURCES
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -36,7 +37,9 @@ def _modules():
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
     for m in ("kernels.ward_pool.ops", "kernels.maxsim.ops",
-              "kernels.maxsim.ref", "core.persist", "core.docstore"):
+              "kernels.maxsim.ref", "core.persist", "core.docstore",
+              "kernels.kmeans_assign.ops", "kernels.kmeans_assign.ref",
+              "kernels.quant.ops", "core.kmeans", "retrieval.cascade"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,6 +51,18 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_seven_kernels_from_six_sources():
+    """Every ported TPU kernel has a launch counter, and every CUDA
+    source under ``csrc/`` is built."""
+    assert KERNELS == ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
+                       "maxsim_rerank", "kmeans_assign", "dequant_score")
+    assert set(launch_counts()) == set(KERNELS)
+    csrc = os.path.join(SRC, "repro_torch", "csrc")
+    assert sorted(SOURCES) == sorted(f[:-3] for f in os.listdir(csrc)
+                                     if f.endswith(".cu"))
+    assert len(SOURCES) == 6
 
 
 def test_entry_points_without_device_need_cuda(monkeypatch):
@@ -64,6 +79,8 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         rt.Indexer(model)
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiVectorIndex(dim=8, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.CascadeIndex(dim=8)
     assert rt.resolve_device("cpu").type == "cpu"
 
 

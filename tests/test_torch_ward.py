@@ -97,6 +97,13 @@ def test_unpooled_and_unported_methods():
                                  1, "ward")
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # k-means, once unported here, now pools as the reference does
+    # (full parity in test_torch_kmeans.py); an unknown method raises
+    jp, jm = j_pool(jnp.asarray(x), jnp.asarray(mask), 2, "kmeans")
+    tp, tm = pool_doc_embeddings(torch.from_numpy(x), torch.from_numpy(mask),
+                                 2, "kmeans")
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5)
+    with pytest.raises(ValueError):
         pool_doc_embeddings(torch.from_numpy(x), torch.from_numpy(mask), 2,
-                            "kmeans")
+                            "average")
