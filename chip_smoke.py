@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # one CUDA card; no network
 
-1. Builds the six CUDA sources from ``src/repro_torch/csrc`` with
+1. Builds the seven CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
 2. Drives each path through the user entry points, every kernel's launch
    counter set to 0 just before the path and read just after; a path
@@ -44,14 +44,38 @@
      stage 2);
    * cascade_from_dir: the cascade saved and served by
      ``Searcher.from_dir``; results equal the in-memory cascade's
-     exactly.
+     exactly;
+   * lm: causal-LM serving of Qwen3-0.6B at full width (28 layers,
+     d_model 1024, 16 heads over 8 kv heads, d_head 64, vocab 151,936;
+     random weights from a seed; bf16 compute; ``use_flash_kernel``)
+     through ``make_lm_prefill_step`` (8 prompts of 2,048 token ids,
+     cache of 2,048 + 16) and 16 greedy ``make_lm_decode_step`` calls:
+     ``flash_attention`` launches exactly 28 times, once a layer, all in
+     the prefill. The same weights and prompts then go through the plain
+     path (``use_flash_kernel=False``: ``full_attn`` at S = 2,048): the
+     last-token logits, each layer's cache after the first and the
+     greedy tokens must agree. A second, uncounted run of the kernel path
+     keeps the first and last layer's kernel inputs and outputs, which
+     are held against the plain version. Then each fault of
+     ``LM_FAULTS`` is planted in the model's kernel call (uncounted
+     runs): each must break those limits;
+   * lm_long: the same model at B = 1, S = 8,192, prefill only (28 more
+     launches), held against the plain path, which at this length is
+     the chunked online-softmax path; the first and last layer's kernel
+     calls are again held against the plain version.
    The dense, flat, kmeans and cascade paths are re-run with the plain
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
    shapes (inputs taken from the built indexes and the k-means path's
-   first encode batch), and times both with CUDA events; prints each
-   kernel's bound (bytes over 3.35 TB/s or operations over the f32 peak
-   of 67 TFLOP/s, the larger).
+   first encode batch; ``flash_attention`` on seeded random inputs in
+   the Qwen3, Qwen1.5 and Qwen2.5-14B head layouts, bf16 and f32,
+   Sq < Skv, Sq > Skv, non-causal, the lm_long shape, and the timed lm
+   shape), and times both with CUDA events;
+   prints each kernel's bound (bytes over 3.35 TB/s or operations over
+   the f32 peak of 67 TFLOP/s — for ``flash_attention`` the bf16
+   tensor-core peak of 989 TFLOP/s — the larger). ``flash_attention``
+   is also timed against ``scaled_dot_product_attention`` (its
+   ``library_ms``; the port never calls it).
 4. Re-runs the main search with the plain versions (``impl="ref"``): the
    ids must agree tie-aware and the scores to 1e-4.
 
@@ -62,6 +86,8 @@ script exits non-zero without printing that line.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -73,6 +99,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_OPS_PER_S = 67e12              # H100 SXM f32, outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 N_DOCS = 16384
 N_QUERIES = 64
 QUERY_BATCH = 32
@@ -89,6 +116,36 @@ SEQUENTIAL_DOCS = 1024
 CASCADE_DOCS = 4096
 ENCODE_BATCH = 128
 NEAR_TIE = 1e-5                    # kmeans_assign: top-two sims this close
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH = 8
+LM_PROMPT = 2048
+LM_DECODE = 16
+LM_LONG = 8192
+# kernel path vs plain path, both bf16 through 28 layers: the attention
+# outputs differ by about one bf16 step per layer (the kernel rounds the
+# unnormalized p, the plain path the normalized weights), which grows to
+# ~2% relative through the depth (measured on the CPU with the plain
+# version at 28 layers and d_model 256 / 512: logits 2.1%, cache 1.6%).
+# The cache is held layer by layer from the second layer on: layer 0's
+# k and v are computed before any attention and do not depend on it.
+LM_LOGITS_ATOL = 0.25              # logits: max abs
+LM_REL = 0.05                      # logits, each layer's cache: |a-b|/|b|
+# faults planted in the kernel path's attention (a wrapper in place of the
+# model's kernel call, outside every counted run); each must break one of
+# the limits above, else those limits could not see a wrong kernel
+LM_FAULTS = ("causal=False", "kv head h % KV, not h // G",
+             "diagonal off by one")
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}     # atol = rtol
+FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
+    ("qwen3 16/8/64", 1, 16, 8, 4096, 4096, 64, True, "bfloat16"),
+    ("qwen1.5 16/16/64", 1, 16, 16, 4096, 4096, 64, True, "bfloat16"),
+    ("qwen2.5-14b 40/8/128", 1, 40, 8, 4096, 4096, 128, True, "bfloat16"),
+    ("qwen3 16/8/64 f32", 1, 16, 8, 4096, 4096, 64, True, "float32"),
+    ("Sq < Skv", 1, 16, 8, 1000, 4096, 64, True, "bfloat16"),
+    ("Sq > Skv", 1, 16, 8, 4096, 1000, 64, True, "bfloat16"),
+    ("non-causal", 1, 16, 8, 4096, 4096, 64, False, "bfloat16"),
+    ("lm_long 16/8/64", 1, 16, 8, 8192, 8192, 64, True, "bfloat16"),
+]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
 CASCADE_DIR = os.path.join(ROOT, "build", "chip_smoke_cascade")
@@ -104,8 +161,11 @@ PATH_KERNELS = {
     "sequential": ("maxsim",),
     "cascade": ("ward_pool", "maxsim", "maxsim_rerank"),
     "cascade_from_dir": ("maxsim", "maxsim_rerank"),
+    "lm": ("flash_attention",),
+    "lm_long": ("flash_attention",),
 }
 PATH_LAUNCHES = {}
+FLASH_ERRS = []                    # flash_attention vs plain, every check
 NO_LIBRARY = ("null: no single PyTorch call does the masked max over doc "
               "tokens and the masked sum over query tokens")
 
@@ -133,9 +193,10 @@ def _time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
+def _bound_ms(n_bytes: float, n_ops: float,
+              ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -823,6 +884,378 @@ def check_dequant_score(torch, dev, index, qv):
                       f"score is not one call")
 
 
+def _errors(got, want):
+    """Max abs and relative (Frobenius) error of got against want."""
+    got, want = got.float(), want.float()
+    return (float((got - want).abs().max()),
+            float((got - want).norm() / want.norm()))
+
+
+def _compare(what, got, want, atol, rel):
+    """Prints the errors of got against want; raises past atol or rel."""
+    err, r = _errors(got, want)
+    print(f"{what}: max abs err {err:.4g} (atol {atol}), relative "
+          f"{r:.4g} (limit {rel})")
+    if err > atol or r > rel:
+        raise AssertionError(f"{what}: the kernel path and the plain path "
+                             f"disagree")
+
+
+def _cache_errors(cache, want, S):
+    """-> (max abs difference of layer 0's k and v, which no attention
+    has touched; the largest relative error of one layer's k or v over
+    the layers after it)."""
+    first, worst = 0.0, 0.0
+    for key in ("k", "v"):
+        for layer in range(cache[key].shape[0]):
+            err, r = _errors(cache[key][layer, :, :S], want[key][layer, :, :S])
+            if layer == 0:
+                first = max(first, err)
+            else:
+                worst = max(worst, r)
+    return first, worst
+
+
+@contextlib.contextmanager
+def _flash_replaced(make):
+    """The model's call of the ``flash_attention`` wrapper goes through
+    ``make(wrapper)`` for the duration."""
+    import repro_torch.models.attention as att
+    inner = att.flash_attention
+    att.flash_attention = make(inner)
+    try:
+        yield
+    finally:
+        att.flash_attention = inner
+
+
+def _capturing(layers, store):
+    """A replacement that passes every call through and keeps the q, k,
+    v and output of the given layers' calls (in call order)."""
+    def make(inner):
+        calls = [0]
+
+        def wrapped(q, k, v, **kw):
+            o = inner(q, k, v, **kw)
+            if calls[0] in layers:
+                store[calls[0]] = (q, k, v, o)
+            calls[0] += 1
+            return o
+        return wrapped
+    return make
+
+
+def _planted(fault):
+    """A replacement that calls the kernel with one fault planted."""
+    def make(inner):
+        def wrapped(q, k, v, causal=True, **kw):
+            if fault == "causal=False":
+                return inner(q, k, v, causal=False, **kw)
+            if fault == "kv head h % KV, not h // G":
+                G = q.shape[1] // k.shape[1]
+                return inner(q, k.repeat(1, G, 1, 1), v.repeat(1, G, 1, 1),
+                             causal=causal, **kw)
+            if fault == "diagonal off by one":   # row i sees columns < i
+                return inner(q, k[:, :, :-1], v[:, :, :-1], causal=causal,
+                             **kw)
+            raise ValueError(fault)
+        return wrapped
+    return make
+
+
+def _check_captured(what, torch, captured):
+    """Each captured layer's kernel output against the plain version on
+    the same q, k, v (the model's own, at the path's shape)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    tol = FLASH_TOL["bfloat16"]
+    for layer, (q, k, v, o) in sorted(captured.items()):
+        want = flash_attention(q, k, v, causal=True, impl="ref").float()
+        err = float((o.float() - want).abs().max())
+        FLASH_ERRS.append(err)
+        print(f"{what}: layer {layer}'s own q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}: kernel vs plain version max abs err "
+              f"{err:.4g} (atol = rtol = {tol})")
+        if not torch.allclose(o.float(), want, rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: flash_attention disagrees with "
+                                 f"its plain version at layer {layer}")
+        del want
+
+
+def _lm_model(rt, torch):
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH), use_flash_kernel=True)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{LM_ARCH}: compute dtype {cfg.dtype}")
+    t0 = time.perf_counter()
+    model = rt.init_transformer(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"lm setup: {LM_ARCH} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"kv heads, d_head {cfg.d_head}, vocab {cfg.vocab_size}; "
+          f"{sum(p.numel() for p in model.parameters())} params, random "
+          f"from seed {SEED}) in {time.perf_counter() - t0:.3f}s")
+    return cfg, model
+
+
+def _serve(rt, torch, cfg, model, tokens, n_decode):
+    """Prefill through the step builder, then ``n_decode`` greedy decode
+    steps; -> (logits per position [n_decode + 1] x [B, V] f32, greedy
+    tokens [B, n_decode + 1], cache, prefill s, decode s)."""
+    from repro_torch.kernels import launch_counts
+    B, S = tokens.shape
+    prefill = rt.make_lm_prefill_step(cfg, max_len=S + n_decode)
+    decode = rt.make_lm_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = launch_counts()["flash_attention"]
+    out, toks = [logits.float()], [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        logits, cache = decode(model, cache, {"token": toks[-1][:, None],
+                                              "pos": S + i})
+        out.append(logits.float())
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if launch_counts()["flash_attention"] != after_prefill:
+        raise AssertionError("a decode step launched flash_attention")
+    return out, torch.stack(toks, 1), cache, prefill_s, decode_s
+
+
+def _check_cache(what, cache, want, S):
+    first, worst = _cache_errors(cache, want, S)
+    print(f"{what} cache [:, :, :{S}]: layer 0 max abs difference {first:.4g}"
+          f" (computed before any attention); layers 1.. largest relative "
+          f"error of one layer's k or v {worst:.4g} (limit {LM_REL})")
+    if worst > LM_REL:
+        raise AssertionError(f"{what}: the kernel path's cache and the "
+                             f"plain path's disagree")
+
+
+def lm_faults(rt, torch, cfg, model, tokens, p_logits, p_cache):
+    """The kernel path's prefill again with each of LM_FAULTS planted;
+    each must break a limit that the lm path holds the kernel path to."""
+    S = tokens.shape[1]
+    for fault in LM_FAULTS:
+        with _flash_replaced(_planted(fault)):
+            logits, _, cache, _, _ = _serve(rt, torch, cfg, model, tokens, 0)
+        err, r = _errors(logits[0], p_logits[0])
+        _, worst = _cache_errors(cache, p_cache, S)
+        del logits, cache
+        caught = err > LM_LOGITS_ATOL or r > LM_REL or worst > LM_REL
+        print(f"lm planted fault ({fault}): last-token logits max abs err "
+              f"{err:.4g} (atol {LM_LOGITS_ATOL}), relative {r:.4g} (limit "
+              f"{LM_REL}); cache layers 1.. largest relative {worst:.4g} "
+              f"(limit {LM_REL}); caught: {caught}")
+        if not caught:
+            raise AssertionError(f"lm: the limits do not catch the planted "
+                                 f"fault {fault!r}")
+
+
+def lm_path(rt, torch, cfg, model):
+    """Qwen3-0.6B serving: prefill of 8 x 2,048 tokens and 16 greedy
+    decode steps through the kernel path, then the plain path."""
+    from repro_torch.kernels import launch_counts
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    logits, toks, cache, prefill_s, decode_s = run_path(
+        "lm", torch, lambda: _serve(rt, torch, cfg, model, tokens,
+                                    LM_DECODE))
+    peak = torch.cuda.max_memory_allocated()
+    n = PATH_LAUNCHES["lm"]["flash_attention"]
+    print(f"lm: flash_attention launches {n} (one a layer: "
+          f"{n == cfg.n_layers}), none in the {LM_DECODE} decode steps")
+    if n != cfg.n_layers:
+        raise AssertionError(f"lm: {n} flash_attention launches, not "
+                             f"{cfg.n_layers}")
+    n_tok = LM_BATCH * LM_PROMPT
+    print(f"lm: first pass prefill {prefill_s:.4f}s ({n_tok / prefill_s:.1f}"
+          f" tokens/s), decode {decode_s / LM_DECODE * 1e3:.3f} ms a step "
+          f"(batch {LM_BATCH}); peak device memory {peak} bytes")
+    for x in logits:
+        if tuple(x.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+                torch.isfinite(x).all()):
+            raise AssertionError("lm: logits of the wrong shape or not "
+                                 "finite")
+    # steady: the kernel path's prefill and decode again, keeping the
+    # first and the last layer's kernel inputs and outputs
+    captured = {}
+    with _flash_replaced(_capturing((0, cfg.n_layers - 1), captured)):
+        again, _, _, prefill_s, decode_s = _serve(rt, torch, cfg, model,
+                                                  tokens, LM_DECODE)
+    print(f"lm: steady prefill {prefill_s:.4f}s ({n_tok / prefill_s:.1f} "
+          f"tokens/s), decode {decode_s / LM_DECODE * 1e3:.3f} ms a step")
+    del again
+    _check_captured("lm", torch, captured)
+    del captured
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    before = launch_counts()["flash_attention"]
+    p_logits, p_toks, p_cache, p_prefill_s, p_decode_s = _serve(
+        rt, torch, plain, model, tokens, LM_DECODE)
+    if launch_counts()["flash_attention"] != before:
+        raise AssertionError("the plain path launched flash_attention")
+    print(f"lm: plain path prefill {p_prefill_s:.4f}s "
+          f"({n_tok / p_prefill_s:.1f} tokens/s), decode "
+          f"{p_decode_s / LM_DECODE * 1e3:.3f} ms a step")
+    _compare("lm last-token logits", logits[0], p_logits[0], LM_LOGITS_ATOL,
+             LM_REL)
+    _check_cache("lm", cache, p_cache, LM_PROMPT)
+    _greedy_agree(logits, toks, p_logits, p_toks)
+    del cache
+    lm_faults(rt, torch, cfg, model, tokens, p_logits, p_cache)
+
+
+def _greedy_agree(logits, toks, p_logits, p_toks):
+    """Per sequence, positions up to the first differing token are fed
+    the same tokens: their logits must agree to LM_LOGITS_ATOL and their
+    tokens must be equal unless the plain path's top-2 gap is within
+    LM_LOGITS_ATOL; after such a (legitimate) split the inputs differ
+    and nothing more is compared."""
+    B, n = toks.shape
+    t, pt = toks.cpu().numpy(), p_toks.cpu().numpy()
+    worst, splits = 0.0, []
+    for b in range(B):
+        for j in range(n):
+            worst = max(worst, float((logits[j][b] - p_logits[j][b]).abs()
+                                     .max()))
+            if t[b, j] != pt[b, j]:
+                top2 = p_logits[j][b].topk(2).values
+                gap = float(top2[0] - top2[1])
+                splits.append((b, j, gap))
+                if gap > LM_LOGITS_ATOL:
+                    raise AssertionError(
+                        f"lm: greedy token {j} of sequence {b} differs "
+                        f"where the plain path's top-2 gap is {gap:.4g}")
+                break
+    print(f"lm greedy decode: {B} sequences x {n} tokens; logits where the "
+          f"inputs agree max abs err {worst:.4g} (atol {LM_LOGITS_ATOL}); "
+          f"splits (sequence, token, plain top-2 gap): {splits}")
+    if worst > LM_LOGITS_ATOL:
+        raise AssertionError("lm: decode logits disagree")
+
+
+def lm_long_path(rt, torch, cfg, model):
+    """The same model at B = 1, S = 8,192, prefill only; the plain path
+    there is the chunked online-softmax attention."""
+    tokens = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (1, LM_LONG)).astype(np.int32)
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    if not (LM_LONG > plain.attn_full_threshold
+            and LM_LONG % plain.attn_chunk == 0):
+        raise AssertionError("lm_long: the plain path is not the chunked one")
+    torch.cuda.reset_peak_memory_stats()
+    logits, _, cache, prefill_s, _ = run_path(
+        "lm_long", torch, lambda: _serve(rt, torch, cfg, model, tokens, 0))
+    n = PATH_LAUNCHES["lm_long"]["flash_attention"]
+    print(f"lm_long: flash_attention launches {n}; prefill {prefill_s:.4f}s "
+          f"({LM_LONG / prefill_s:.1f} tokens/s); peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    if n != cfg.n_layers:
+        raise AssertionError(f"lm_long: {n} flash_attention launches, not "
+                             f"{cfg.n_layers}")
+    captured = {}
+    with _flash_replaced(_capturing((0, cfg.n_layers - 1), captured)):
+        again = _serve(rt, torch, cfg, model, tokens, 0)
+    del again
+    _check_captured("lm_long", torch, captured)
+    del captured
+    p_logits, _, p_cache, p_prefill_s, _ = _serve(rt, torch, plain, model,
+                                                  tokens, 0)
+    print(f"lm_long: plain (chunked) path prefill {p_prefill_s:.4f}s")
+    if not bool(torch.isfinite(logits[0]).all()):
+        raise AssertionError("lm_long: non-finite logits")
+    _compare("lm_long last-token logits", logits[0], p_logits[0],
+             LM_LOGITS_ATOL, LM_REL)
+    _check_cache("lm_long", cache, p_cache, LM_LONG)
+
+
+def check_flash_attention(torch, dev):
+    """The kernel against its plain version on seeded random inputs, then
+    timed at the lm path's per-layer shape with the plain version and
+    ``scaled_dot_product_attention`` (library_ms)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    errs = FLASH_ERRS
+    for what, B, H, KV, Sq, Skv, dh, causal, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (rand((B, H, Sq, dh), dt), rand((B, KV, Skv, dh), dt),
+                   rand((B, KV, Skv, dh), dt))
+        got = flash_attention(q, k, v, causal=causal).float()
+        want = flash_attention(q, k, v, causal=causal, impl="ref").float()
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        err = float((got - want).abs().max())
+        errs.append(err)
+        print(f"flash_attention {what} (B={B}, Sq={Sq}, Skv={Skv}, "
+              f"{dtype}, causal={causal}): max abs err {err:.4g} (atol = "
+              f"rtol = {tol})")
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention {what}: disagrees")
+        if causal and Sq > Skv:
+            n0 = Sq - Skv
+            if got[:, :, :n0].any() or want[:, :, :n0].any():
+                raise AssertionError("flash_attention: rows that see no "
+                                     "column are not 0")
+            print(f"flash_attention {what}: the first {n0} rows are "
+                  f"exactly 0 on both")
+        del q, k, v, got, want
+    # timed at the lm path's per-layer shape, in the model's layout (the
+    # [B, S, heads, dh] projections seen as [B, heads, S, dh])
+    B, H, KV, S, dh = LM_BATCH, 16, 8, LM_PROMPT, 64
+    q, k, v = (rand((B, S, n, dh), torch.bfloat16).transpose(1, 2)
+               for n in (H, KV, KV))
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+        kl, vl, gqa = k, v, dict(enable_gqa=True)
+    except TypeError:                # no enable_gqa: repeat outside timing
+        kl = k.repeat_interleave(H // KV, dim=1)
+        vl = v.repeat_interleave(H // KV, dim=1)
+        gqa = {}
+    ms = _time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = _time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                impl="ref"))
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, kl, vl, is_causal=True, **gqa), reps=20)
+    got = flash_attention(q, k, v, causal=True).float()
+    want = flash_attention(q, k, v, causal=True, impl="ref").float()
+    tol = FLASH_TOL["bfloat16"]
+    errs.append(float((got - want).abs().max()))
+    print(f"flash_attention timed lm shape (B={B}, S={S}, bf16, causal): "
+          f"max abs err {errs[-1]:.4g} (atol = rtol = {tol})")
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError("flash_attention: disagrees at the lm shape")
+    del got, want
+    pairs = B * H * S * (S + 1) // 2
+    bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
+                          4 * dh * pairs, BF16_OPS_PER_S)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:91",
+                **_launches("flash_attention"), max_abs_err=max(errs),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms,
+                check=f"allclose atol = rtol {FLASH_TOL['float32']} (f32), "
+                      f"{FLASH_TOL['bfloat16']} (bf16) in {len(FLASH_CASES)} "
+                      f"cases ({', '.join(c[0] for c in FLASH_CASES)}), at "
+                      f"the timed lm shape, and on the first and last "
+                      f"layer's own q, k, v of the lm and lm_long paths; "
+                      f"rows that see no column exactly 0; timed at q "
+                      f"[{B * H}, {S}, {dh}], "
+                      f"k/v [{B * KV}, {S}, {dh}] bf16 causal; bound: bf16 "
+                      f"peak, 4 dh x {pairs} visible pairs; library_ms: "
+                      f"scaled_dot_product_attention(is_causal=True"
+                      f"{', enable_gqa=True' if gqa else ', k/v repeated'})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -834,6 +1267,9 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    # f32 products and convolutions in full f32 (no TF32) everywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = _card()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -856,6 +1292,12 @@ def main() -> int:
     sequential_path(rt, torch, model, docs, queries)
     cascade, cS, cI = cascade_path(rt, torch, model, docs, queries)
     cascade_from_dir_path(rt, torch, model, queries, cascade, cS, cI)
+    del cascade
+    lm_cfg, lm = _lm_model(rt, torch)
+    lm_path(rt, torch, lm_cfg, lm)
+    lm_long_path(rt, torch, lm_cfg, lm)
+    del lm
+    torch.cuda.empty_cache()
 
     qv = searcher.encode_queries(queries[:QUERY_BATCH])
     kernels = [check_ward(torch, dev), check_plaid_probe(torch, dev, index, qv),
@@ -863,11 +1305,14 @@ def main() -> int:
                check_maxsim(torch, dev, index, qv),
                check_maxsim_rerank(torch, dev, index, qv),
                check_kmeans_assign(torch, dev, model, docs),
-               check_dequant_score(torch, dev, index, qv)]
+               check_dequant_score(torch, dev, index, qv),
+               check_flash_attention(torch, dev)]
     for k in kernels:
+        lib = (f", library {k['library_ms']:.4f} ms" if k["library_ms"]
+               is not None else "")
         print(f"kernel {k['name']}: {k.pop('check')}; {k['ms']:.4f} ms, "
-              f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})")
+              f"plain {k['plain_ms']:.4f} ms{lib}, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
 
     _agree("main path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))

@@ -4,8 +4,10 @@ The JAX package (``src/repro``), rewritten for one NVIDIA H100, slice
 by slice: ColBERT encode -> token pooling (sequential, k-means or Ward)
 -> PLAID 2-bit or flat index, or the pooled two-level cascade,
 artifacts in the JAX package's format both ways, and query encode ->
-device or host probe/prune -> packed, f32 or dense rerank -> top-k. The Pallas kernels on those paths are hand-written CUDA kernels
-here (``csrc/``), built with ``nvcc`` at first use.
+device or host probe/prune -> packed, f32 or dense rerank -> top-k;
+and causal-LM serving (prefill and decode) of the dense Qwen trunks.
+The Pallas kernels on those paths are hand-written CUDA kernels here
+(``csrc/``), built with ``nvcc`` at first use.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -16,6 +18,14 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
                               ).build(doc_tokens, out_dir="idx")
     scores, ids = rt.Searcher.from_dir(model, "idx").search(query_tokens,
                                                             k=10)
+
+    cfg = dataclasses.replace(rt.get_config("qwen3-0.6b"),
+                              use_flash_kernel=True)
+    lm = rt.init_transformer(cfg, seed=0)
+    logits, cache = rt.make_lm_prefill_step(cfg, max_len=S + n)(
+        lm, {"tokens": prompts})
+    logits, cache = rt.make_lm_decode_step(cfg)(
+        lm, cache, {"token": logits.argmax(-1)[:, None], "pos": S})
 
 Attributes resolve lazily so ``import repro_torch`` stays cheap.
 """
@@ -39,6 +49,12 @@ _EXPORTS = {
     "init_colbert": "repro_torch.models.colbert",
     "params_from_jax": "repro_torch.models.colbert",
     "resolve_device": "repro_torch.device",
+    "get_config": "repro_torch.configs",
+    "get_smoke_config": "repro_torch.configs",
+    "TransformerLM": "repro_torch.models.transformer",
+    "init_transformer": "repro_torch.models.transformer",
+    "make_lm_prefill_step": "repro_torch.launch.steps",
+    "make_lm_decode_step": "repro_torch.launch.steps",
 }
 
 __all__ = sorted(_EXPORTS)

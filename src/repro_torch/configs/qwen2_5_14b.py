@@ -1,0 +1,32 @@
+"""Qwen2.5-14B dense, GQA, QKV bias [hf:Qwen/Qwen2.5 family; hf].
+
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064.
+Copy of ``src/repro/configs/qwen2_5_14b.py`` (``CONFIG`` and the test-size
+``SMOKE``), without the training and sharding hints.
+"""
+from repro_torch.configs.base import TransformerConfig
+
+CONFIG = TransformerConfig(
+    name="qwen2.5-14b",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)
+
+SMOKE = TransformerConfig(
+    name="qwen2.5-smoke",
+    n_layers=2,
+    d_model=64,
+    n_heads=8,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=512,
+    qkv_bias=True,
+    attn_full_threshold=4096,
+    max_seq_len=128,
+)

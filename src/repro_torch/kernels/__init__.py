@@ -13,7 +13,8 @@ import importlib
 from typing import Dict
 
 KERNELS = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
-           "maxsim_rerank", "kmeans_assign", "dequant_score")
+           "maxsim_rerank", "kmeans_assign", "dequant_score",
+           "flash_attention")
 IMPLS = ("auto", "ref")
 # kernel -> (package under kernels/, counter in its ops.py); one source
 # may hold several entries, each with its own counter

@@ -1,13 +1,36 @@
-"""Masked full attention of the bidirectional encoder.
+"""Attention of the trunks: GQA, RoPE, qk-norm, QKV bias; three paths.
 
-Counterpart of ``src/repro/models/attention.py`` ``_project_qkv`` and
-``_full_attn`` — the path every ColBERT call takes (it always passes a
-pad mask). Scores are computed in f32 from the compute-dtype q and k
-(the reference's ``preferred_element_type=float32``); the softmax is in
-f32; rows that come out NaN (fully masked) are set to 0; the weights are
-cast to v's dtype for the second product. Written with matmul and
-softmax as the reference is: the fused attention kernel belongs to the
-``flash_attention`` port.
+Counterpart of ``src/repro/models/attention.py``:
+
+1. ``full_attn``: materialized scores, for sequences up to
+   ``cfg.attn_full_threshold``, and always with a pad mask (every
+   ColBERT call takes it);
+2. ``chunked_attn``: the online-softmax recurrence over kv chunks in
+   plain torch, taken when S > ``attn_full_threshold`` and S is a
+   multiple of ``attn_chunk``; causal, it walks query chunks and visits
+   only the kv chunks at or below the diagonal;
+3. the ``flash_attention`` kernel, when ``cfg.use_flash_kernel`` is set,
+   the trunk is causal and there is no pad mask; k and v go in grouped,
+   ``[B, KV, S, dh]``, not repeated. q, k and v go in as transposed
+   views of the ``[B, S, heads, dh]`` projections and the kernel writes
+   its output in ``[B, S, H, dh]`` memory, so no copy is made on the way
+   in or out.
+
+``attention_decode`` scores one new token against the kv cache with an
+exact two-pass softmax, the cache kept grouped ``[B, S_max, KV, dh]``.
+It writes the new token's k and v into the cache in place (the reference
+returns a new cache; in place saves a copy of the cache per layer and
+step).
+
+Scores are computed in f32 from the compute-dtype q and k (the
+reference's ``preferred_element_type=float32``), the softmax in f32,
+and the weights cast to v's dtype for the second product. RoPE is the
+split-half form with f32 angles. Query head h reads kv head
+h // (n_heads // n_kv_heads).
+
+The functions take the config that decides the path (``cfg``): a
+module's own config only fixes its shapes, so one set of weights runs
+through the kernel and through the plain paths.
 """
 from __future__ import annotations
 
@@ -15,45 +38,206 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Dense
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import Dense, RMSNorm
 
 
+def _scale(dh: int) -> float:
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    half = d_head // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [..., S, H, dh]; positions [S] -> x rotated, in x's dtype."""
+    dh = x.shape[-1]
+    if dh % 2:
+        raise ValueError("RoPE requires an even head dim")
+    ang = positions.float()[..., None] * rope_freqs(dh, theta, x.device)
+    cos = torch.cos(ang)[..., None, :]                       # [S, 1, dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
 class Attention(nn.Module):
+    """The projections (and qk-norm scales) of one layer; applied by
+    ``attention_forward`` and ``attention_decode``."""
+
     def __init__(self, cfg, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.pos_emb != "learned" or cfg.n_kv_heads != cfg.n_heads:
-            raise NotImplementedError(
-                "only learned positions and full multi-head attention are "
-                "ported (rope, GQA: ROADMAP queue 1)")
         d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         self.cfg = cfg
         self.wq = Dense(d, H * dh, cfg.qkv_bias, device, dtype)
         self.wk = Dense(d, KV * dh, cfg.qkv_bias, device, dtype)
         self.wv = Dense(d, KV * dh, cfg.qkv_bias, device, dtype)
         self.wo = Dense(H * dh, d, False, device, dtype)
-
-    def _project_qkv(self, x):
-        B, S, _ = x.shape
-        c = self.cfg
-        q = self.wq(x).reshape(B, S, c.n_heads, c.d_head)
-        k = self.wk(x).reshape(B, S, c.n_kv_heads, c.d_head)
-        v = self.wv(x).reshape(B, S, c.n_kv_heads, c.d_head)
-        return q, k, v
-
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        B, S, _ = x.shape
-        q, k, v = self._project_qkv(x)
-        o = full_attn(q, k, v, pad_mask)
-        return self.wo(o.reshape(B, S, -1))
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(dh, cfg.norm_eps, device, dtype)
+            self.k_norm = RMSNorm(dh, cfg.norm_eps, device, dtype)
 
 
-def full_attn(q, k, v, pad_mask):
-    """q, k, v [B, S, H, dh]; pad_mask [B, Skv] True = valid
-    -> [B, Sq, H, dh] in v's dtype."""
-    dh = q.shape[-1]
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
-    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
-    s = s.masked_fill(~pad_mask[:, None, None, :], float("-inf"))
+def _project_qkv(attn: Attention, x, cfg, positions):
+    """-> q [B, S, H, dh], k, v [B, S, KV, dh], qk-norm and RoPE applied."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = attn.wq(x).reshape(B, S, H, dh)
+    k = attn.wk(x).reshape(B, S, KV, dh)
+    v = attn.wv(x).reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = attn.q_norm(q)
+        k = attn.k_norm(k)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, KV, dh] -> [B, S, KV * n_rep, dh], head-major: head h reads
+    kv head h // n_rep."""
+    if n_rep == 1:
+        return k
+    B, S, KV, dh = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, n_rep, dh).reshape(
+        B, S, KV * n_rep, dh)
+
+
+# ---------------------------------------------------------------------------
+# Full attention
+# ---------------------------------------------------------------------------
+def full_attn(q, k, v, pad_mask=None, *, causal: bool = False,
+              q_offset: int = 0):
+    """q [B, Sq, H, dh], k, v [B, Skv, H, dh]; pad_mask [B, Skv] True =
+    valid -> [B, Sq, H, dh] in v's dtype. Fully masked rows give 0."""
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * _scale(
+        q.shape[-1])
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), float("-inf"))
+    if pad_mask is not None:
+        s = s.masked_fill(~pad_mask[:, None, None, :], float("-inf"))
     w = torch.softmax(s, dim=-1)
     w = torch.where(torch.isnan(w), torch.zeros((), device=w.device), w)
     return torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention
+# ---------------------------------------------------------------------------
+def _attn_over_kv_chunks(qc, k, v, *, n_chunks: int, chunk: int,
+                         causal: bool, q_start: int):
+    """Online softmax over kv chunks for one query chunk.
+    qc [B, Cq, H, dh]; k, v [B, n_chunks * chunk, H, dh] -> [B, Cq, H, dh]."""
+    B, Cq, H, dh = qc.shape
+    dev = qc.device
+    scale = _scale(dh)
+    neg_inf = float("-inf")
+    zero = torch.zeros((), device=dev)
+    m = torch.full((B, H, Cq), neg_inf, device=dev)
+    l = torch.zeros((B, H, Cq), device=dev)
+    acc = torch.zeros((B, H, Cq, dh), device=dev)
+    qpos = q_start + torch.arange(Cq, device=dev)
+    qf = qc.float()
+    for ci in range(n_chunks):
+        kci = k[:, ci * chunk:(ci + 1) * chunk]
+        vci = v[:, ci * chunk:(ci + 1) * chunk]
+        s = torch.einsum("bqhd,bshd->bhqs", qf, kci.float()) * scale
+        if causal:
+            kpos = ci * chunk + torch.arange(chunk, device=dev)
+            s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), neg_inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isneginf(m_new), zero, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isneginf(s), zero, p)
+        alpha = torch.where(torch.isneginf(m), zero, torch.exp(m - m_new))
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqs,bshd->bhqd", p.to(vci.dtype), vci)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones((), device=dev), l)
+    return (acc / l[..., None]).transpose(1, 2).to(qc.dtype)
+
+
+def chunked_attn(q, k, v, *, causal: bool, chunk: int):
+    """Exact-FLOPs chunked attention; S % chunk == 0."""
+    S = q.shape[1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    nq = S // chunk
+    if not causal:
+        return _attn_over_kv_chunks(q, k, v, n_chunks=nq, chunk=chunk,
+                                    causal=False, q_start=0)
+    outs = []
+    for i in range(nq):
+        end = (i + 1) * chunk
+        outs.append(_attn_over_kv_chunks(
+            q[:, i * chunk:end], k[:, :end], v[:, :end], n_chunks=i + 1,
+            chunk=chunk, causal=True, q_start=i * chunk))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill / encoder) and decode
+# ---------------------------------------------------------------------------
+def attention_forward(attn: Attention, x, cfg, *, positions=None,
+                      pad_mask=None, return_kv: bool = False):
+    """x [B, S, d_model] -> y [B, S, d_model] (and the post-RoPE,
+    post-qk-norm (k, v) [B, S, KV, dh] if ``return_kv``)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(attn, x, cfg, positions)
+    if cfg.use_flash_kernel and pad_mask is None and cfg.causal:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True).transpose(1, 2)
+    else:
+        kf = _repeat_kv(k, cfg.q_per_kv)
+        vf = _repeat_kv(v, cfg.q_per_kv)
+        if (S <= cfg.attn_full_threshold or S % cfg.attn_chunk
+                or pad_mask is not None):
+            o = full_attn(q, kf, vf, pad_mask, causal=cfg.causal)
+        else:
+            o = chunked_attn(q, kf, vf, causal=cfg.causal,
+                             chunk=cfg.attn_chunk)
+    y = attn.wo(o.reshape(B, S, cfg.n_heads * cfg.d_head))
+    return (y, (k, v)) if return_kv else y
+
+
+def attention_decode(attn: Attention, x, cfg, cache_k, cache_v, pos: int):
+    """x [B, 1, d]; cache_k, cache_v [B, S_max, KV, dh]; ``pos`` the
+    number of valid cache entries, where the new token is written (in
+    place). -> (y [B, 1, d], cache_k, cache_v)."""
+    pos = int(pos)
+    B = x.shape[0]
+    KV, G, dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head
+    positions = torch.full((1,), pos, device=x.device)
+    q, k_new, v_new = _project_qkv(attn, x, cfg, positions)
+    q = q.reshape(B, 1, KV, G, dh)
+    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    S = cache_k.shape[1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
+                     cache_k.float()) * _scale(dh)
+    valid = torch.arange(S, device=x.device) <= pos
+    s = s.masked_fill(~valid, float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    e = torch.where(torch.isneginf(s), torch.zeros((), device=x.device), e)
+    w = e / e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(cache_v.dtype), cache_v)
+    y = attn.wo(o.reshape(B, 1, cfg.n_heads * dh))
+    return y, cache_k, cache_v

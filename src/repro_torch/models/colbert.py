@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense, Embed, dt
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import params_from_jax as trunk_params
 
 # Special token ids (data/tokenizer.py — shared vocabulary layout)
 PAD_ID, CLS_ID, SEP_ID, MASK_ID, Q_MARK_ID, D_MARK_ID = 0, 1, 2, 3, 4, 5
@@ -74,30 +75,14 @@ def init_colbert(cfg, generator: Optional[torch.Generator] = None, *,
 
 
 def params_from_jax(tree) -> Dict[str, np.ndarray]:
-    """The reference's ``init_colbert`` tree (nested dicts of arrays;
-    dense ``w`` is [d_in, d_out]; layers stacked on axis 0 under
-    ``trunk/dense_layers``) -> this module's state, as numpy arrays.
-    The trunk's ``lm_head`` is not part of the encoder and is dropped."""
-    tr = tree["trunk"]
-    state = {"trunk.embed.table": tr["embed"]["table"],
-             "trunk.pos_embed.table": tr["pos_embed"]["table"],
-             "trunk.final_norm.scale": tr["final_norm"]["scale"],
-             "trunk.final_norm.bias": tr["final_norm"]["bias"],
-             "proj.w": tree["proj"]["w"]}
-    layers = tr["dense_layers"]
-    n_layers = np.asarray(layers["attn_norm"]["scale"]).shape[0]
-    for i in range(n_layers):
-        pre = f"trunk.layers.{i}."
-        for norm in ("attn_norm", "mlp_norm"):
-            for key in ("scale", "bias"):
-                state[pre + f"{norm}.{key}"] = np.asarray(layers[norm][key])[i]
-        for name in ("wq", "wk", "wv", "wo"):
-            for key, val in layers["attn"][name].items():
-                state[pre + f"attn.{name}.{key}"] = np.asarray(val)[i]
-        for name in ("w1", "w2"):
-            state[pre + f"mlp.{name}.w"] = np.asarray(
-                layers["mlp"][name]["w"])[i]
-    return {k: np.asarray(v) for k, v in state.items()}
+    """The reference's ``init_colbert`` tree (``trunk``: an
+    ``init_transformer`` tree; ``proj``) -> this module's state, as numpy
+    arrays. The trunk's ``lm_head`` is not part of the encoder and is
+    dropped."""
+    trunk = {k: v for k, v in tree["trunk"].items() if k != "lm_head"}
+    state = trunk_params(trunk, prefix="trunk.")
+    state["proj.w"] = np.asarray(tree["proj"]["w"])
+    return state
 
 
 def prepare_query_tokens(tokens: torch.Tensor, query_maxlen: int

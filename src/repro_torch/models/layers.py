@@ -1,4 +1,5 @@
-"""Layer substrate of the encoder: dense, LayerNorm, embedding, GELU.
+"""Layer substrate of the trunks: dense, RMSNorm / LayerNorm, embedding,
+activations.
 
 Counterparts of ``src/repro/models/layers.py``. Parameters keep the JAX
 package's layout (a dense weight ``w`` is ``[d_in, d_out]``) so
@@ -6,9 +7,11 @@ package's layout (a dense weight ``w`` is ``[d_in, d_out]``) so
 activations are cast on entry, as in the reference:
 
   * ``dense`` casts weight (and bias) to the input's dtype, then ``@``;
-  * ``layernorm`` computes in f32 and casts back to the input's dtype;
+  * ``RMSNorm`` and ``LayerNorm`` compute in f32 and cast back to the
+    input's dtype; ``norm`` picks one by the config's name;
   * ``embed`` casts the table first, then gathers;
-  * GELU is the tanh form (``jax.nn.gelu``'s default).
+  * GELU is the tanh form (``jax.nn.gelu``'s default); ``act_fn`` maps
+    the reference's activation names (silu, gelu, relu, tanh).
 """
 from __future__ import annotations
 
@@ -65,6 +68,21 @@ class Dense(nn.Module):
         return y
 
 
+class RMSNorm(nn.Module):
+    """x * rsqrt(mean(x^2) + eps) * scale in f32, cast back to x's dtype."""
+
+    def __init__(self, d: int, eps: float, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm in f32, cast back to the input's dtype."""
 
@@ -99,3 +117,20 @@ class Embed(nn.Module):
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def norm(kind: str, d: int, eps: float, device=None,
+         dtype=torch.float32) -> nn.Module:
+    """The norm a config names: ``"rmsnorm"`` or ``"layernorm"``."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, eps, device, dtype)
+    if kind == "layernorm":
+        return LayerNorm(d, eps, device, dtype)
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu, "tanh": torch.tanh}
+
+
+def act_fn(name: str):
+    return ACTS[name]

@@ -1,22 +1,25 @@
-"""Plain two-layer MLP of the encoder (``src/repro/models/mlp.py``,
-non-gated path): y = w2(act(w1(x)))."""
+"""Dense FFN (``src/repro/models/mlp.py``): the gated (SwiGLU-style)
+``w2(act(w1 x) * w3 x)`` of the LM trunks, or the plain two-layer
+``w2(act(w1 x))`` of the ColBERT encoder."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Dense, gelu
+from repro_torch.models.layers import Dense, act_fn
 
 
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, act: str = "gelu",
                  gated: bool = False, device=None, dtype=torch.float32):
         super().__init__()
-        if gated or act != "gelu":
-            raise NotImplementedError(
-                "only the non-gated GELU MLP is ported (ROADMAP queue 1)")
+        self.act = act_fn(act)
         self.w1 = Dense(d_model, d_ff, False, device, dtype)
         self.w2 = Dense(d_ff, d_model, False, device, dtype)
+        self.w3 = Dense(d_model, d_ff, False, device, dtype) if gated else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(gelu(self.w1(x)))
+        h = self.act(self.w1(x))
+        if self.w3 is not None:
+            h = h * self.w3(x)
+        return self.w2(h)

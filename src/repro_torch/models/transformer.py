@@ -1,57 +1,214 @@
-"""Bidirectional encoder trunk (``src/repro/models/transformer.py``
-``forward`` over ``dense_layers``).
+"""Transformer trunks (``src/repro/models/transformer.py``): the
+bidirectional encoder of ColBERT and the causal LM.
 
-Pre-norm blocks, a plain Python loop over the layers in place of the
-reference's ``scan``; no sharding constraints. Embeddings and the
-residual stream are in the compute dtype (bf16 for ColBERTv2).
+Pre-norm blocks (RMSNorm or LayerNorm), a plain Python loop over the
+layers in place of the reference's ``scan``; no sharding constraints.
+Embeddings and the residual stream are in the compute dtype.
+
+``TransformerLM`` adds the LM head and the serving steps:
+
+  * ``logits_head`` — the LM head (the embedding table when tied);
+  * ``init_cache`` — zeroed k/v cache [L, B, S_max, KV, dh];
+  * ``prefill`` — hidden states and the cache of a prompt: each layer's k
+    and v after qk-norm and RoPE, in the compute dtype, zero-padded to
+    ``max_len``;
+  * ``decode_step`` — one token against the cache (written in place).
+
+The methods take an optional ``cfg`` that decides the attention path
+(``use_flash_kernel``, ``attn_full_threshold``, ``attn_chunk``), as the
+reference's functions take theirs; the module's own config is the
+default and fixes the shapes. ``init_transformer`` draws seeded random
+weights; ``params_from_jax`` turns the reference's parameter tree into
+a module's state. MoE trunks are not ported.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
+import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.attention import Attention
-from repro_torch.models.layers import Embed, LayerNorm, dt
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import (Attention, attention_decode,
+                                          attention_forward)
+from repro_torch.models.layers import Dense, Embed, dt, norm
 from repro_torch.models.mlp import MLP
 
 
 class Block(nn.Module):
     def __init__(self, cfg, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.norm != "layernorm":
-            raise NotImplementedError(
-                "only LayerNorm trunks are ported (ROADMAP queue 1)")
-        self.attn_norm = LayerNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+        self.cfg = cfg
+        self.attn_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
+                              dtype)
         self.attn = Attention(cfg, device, dtype)
-        self.mlp_norm = LayerNorm(cfg.d_model, cfg.norm_eps, device, dtype)
+        self.mlp_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
+                             dtype)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.gated_mlp,
                        device, dtype)
 
-    def forward(self, x, pad_mask):
-        x = x + self.attn(self.attn_norm(x), pad_mask)
+    def forward(self, x, pad_mask=None, positions=None, cfg=None,
+                return_kv: bool = False):
+        h = attention_forward(self.attn, self.attn_norm(x), cfg or self.cfg,
+                              positions=positions, pad_mask=pad_mask,
+                              return_kv=return_kv)
+        if return_kv:
+            h, kv = h
+        x = x + h
+        x = x + self.mlp(self.mlp_norm(x))
+        return (x, kv) if return_kv else x
+
+    def decode(self, x, cache_k, cache_v, pos: int, cfg=None):
+        h, _, _ = attention_decode(self.attn, self.attn_norm(x),
+                                   cfg or self.cfg, cache_k, cache_v, pos)
+        x = x + h
         return x + self.mlp(self.mlp_norm(x))
 
 
 class Transformer(nn.Module):
+    """Embedding, blocks and final norm; ``forward`` gives hidden states."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.causal:
+        if cfg.moe:
             raise NotImplementedError(
-                "causal trunks are not ported (ROADMAP queue 1)")
+                f"{cfg.name}: MoE trunks (models/moe.py) are not ported yet "
+                f"(ROADMAP queue 1)")
         pdt = dt(cfg.param_dtype)
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, device, pdt)
-        self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, device, pdt)
+        self.pos_embed = (Embed(cfg.max_seq_len, cfg.d_model, device, pdt)
+                          if cfg.pos_emb == "learned" else None)
         self.layers = nn.ModuleList(Block(cfg, device, pdt)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = LayerNorm(cfg.d_model, cfg.norm_eps, device, pdt)
+        self.final_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
+                               pdt)
 
-    def forward(self, tokens: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def _embed(self, tokens, positions, cfg):
+        cdt = dt(cfg.dtype)
+        x = self.embed(tokens, cdt)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed(positions, cdt)
+        return x
+
+    def forward(self, tokens: torch.Tensor, pad_mask: torch.Tensor = None,
+                cfg=None) -> torch.Tensor:
         """tokens [B, S] -> hidden [B, S, d_model] in the compute dtype."""
-        cdt = dt(self.cfg.dtype)
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.embed(tokens, cdt) + self.pos_embed(pos, cdt)
+        cfg = cfg or self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed(tokens, positions, cfg)
         for layer in self.layers:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, positions, cfg)
         return self.final_norm(x)
+
+    def load_params(self, state: Dict[str, np.ndarray]) -> "Transformer":
+        """Load a ``params_from_jax`` state (numpy arrays) in place."""
+        self.load_state_dict({k: torch.as_tensor(np.array(v))
+                              for k, v in state.items()}, strict=True)
+        return self
+
+
+class TransformerLM(Transformer):
+    """The causal LM: trunk, LM head, kv cache, prefill and decode."""
+
+    def __init__(self, cfg, device: DeviceLike = None):
+        super().__init__(cfg, resolve_device(device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Dense(cfg.d_model, cfg.vocab_size, False,
+                              self.device, dt(cfg.param_dtype)))
+
+    def logits_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            return hidden @ self.embed.table.to(hidden.dtype).T
+        return self.lm_head(hidden)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   cfg=None) -> Dict[str, torch.Tensor]:
+        cfg = cfg or self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        dtype = dtype or dt(cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                cfg=None):
+        """tokens [B, S] -> (hidden [B, S, d_model], cache of length
+        ``max_len`` (default S) holding the prompt's k and v)."""
+        cfg = cfg or self.cfg
+        B, S = tokens.shape
+        max_len = max_len or S
+        if max_len < S:
+            raise ValueError(f"max_len {max_len} < prompt length {S}")
+        positions = torch.arange(S, device=tokens.device)
+        x = self._embed(tokens, positions, cfg)
+        cache = self.init_cache(B, max_len, cfg=cfg)
+        for i, layer in enumerate(self.layers):
+            x, (k, v) = layer(x, None, positions, cfg, return_kv=True)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        return self.final_norm(x), cache
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache, pos: int, cfg=None):
+        """token [B, 1]; cache from ``prefill`` / ``init_cache``; ``pos``
+        the number of valid cache entries -> (logits [B, 1, V], cache with
+        the token's k and v written at ``pos``)."""
+        cfg = cfg or self.cfg
+        pos = int(pos)
+        x = self._embed(token, torch.full((1,), pos, device=token.device),
+                        cfg)
+        for i, layer in enumerate(self.layers):
+            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, cfg)
+        return self.logits_head(self.final_norm(x)), cache
+
+
+def init_transformer(cfg, generator: Optional[torch.Generator] = None, *,
+                     seed: int = 0, device: DeviceLike = None
+                     ) -> TransformerLM:
+    """Random weights with the reference initializers' laws: embeddings
+    truncated-normal(0.02), dense weights normal(1/sqrt(d_in)), zero
+    biases, unit norms. ``generator`` (on the model's device) defaults
+    to one seeded with ``seed``."""
+    model = TransformerLM(cfg, device)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (Dense, Embed)):
+            m.reset_parameters(generator)
+    return model
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray],
+             index: Optional[int] = None) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _flatten(val, f"{prefix}{key}.", out, index)
+        else:
+            a = np.asarray(val)
+            out[prefix + key] = a if index is None else a[index]
+
+
+def params_from_jax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The reference's ``init_transformer`` tree (nested dicts of arrays;
+    dense ``w`` is [d_in, d_out]; layers stacked on axis 0 under
+    ``dense_layers``) -> a trunk's state, keys under ``prefix``, as numpy
+    arrays. The module's names follow the tree's, so the map is a
+    flattening, ``dense_layers`` unstacked into ``layers.<i>``."""
+    if "moe_layers" in tree:
+        raise NotImplementedError("MoE trunks (models/moe.py) are not ported "
+                                  "yet (ROADMAP queue 1)")
+    state: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "dense_layers":
+            n = np.asarray(sub["attn_norm"]["scale"]).shape[0]
+            for i in range(n):
+                _flatten(sub, f"{prefix}layers.{i}.", state, i)
+        else:
+            _flatten(sub, f"{prefix}{key}.", state)
+    return state

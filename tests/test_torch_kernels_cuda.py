@@ -8,12 +8,19 @@ scores to 1e-5; packed rerank scores to 1e-5; the f32 MaxSim kernels to
 rtol 1e-5, atol 1e-4 (f32 dot products and sums in another order);
 k-means assignment ids equal except where the top two sims lie within
 1e-5 (f32 dot products in another order), best sims to 1e-5; dequantize
-+ score to atol 1e-4, the reference test's tolerance.
++ score to atol 1e-4, the reference test's tolerance; flash attention
+to 1e-5 in f32 (the online softmax rescales by the running max, the
+plain version by the row max) and to 1e-2 (atol and rtol) in bf16, where
+p and the output are rounded to bf16 at different scales on the two
+sides (about one bf16 step at values near 2), rows that see no column
+exactly 0 on both.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bh)
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.maxsim.ops import maxsim, maxsim_rerank
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
@@ -200,3 +207,95 @@ def test_wrappers_reject_bad_inputs(dev):
         maxsim(torch.randn((1, 4, 30), device=dev),
                torch.ones((1, 4), dtype=torch.bool, device=dev), d,
                torch.ones((3, 5), dtype=torch.bool, device=dev))
+
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,causal", [
+    (2, 16, 8, 300, 300, 64, True),       # GQA group 2, ragged tails
+    (1, 8, 8, 256, 256, 128, True),       # MHA, dh 128
+    (2, 4, 1, 100, 333, 64, False),       # group 4, non-causal
+    (1, 4, 2, 70, 200, 128, True),        # Sq < Skv: bottom-right anchor
+    (1, 5, 1, 1, 77, 64, True),           # one query row (decode shape)
+])
+def test_flash_attention_kernel_equals_plain(dev, dtype, B, H, KV, Sq, Skv,
+                                             dh, causal):
+    g = torch.Generator(device=dev).manual_seed(Sq * 7 + Skv)
+    q = torch.randn((B, H, Sq, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, KV, Skv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, KV, Skv, dh), generator=g, device=dev).to(dtype)
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention(q, k, v, causal=causal, impl="ref")
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_takes_the_models_strided_heads(dev, B):
+    """The model hands [B, S, H, dh] projections transposed to
+    [B, H, S, dh]; at B = 1 their [B*H, S, dh] reshape is a strided view."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    q, k, v = (torch.randn((B, 130, n, 64), generator=g, device=dev)
+               .bfloat16().transpose(1, 2) for n in (16, 8, 8))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q, k, v, causal=True, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    # written in [B, S, H, dh] memory, as the output projection reads it
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_any_aligned_strides(dev, dtype):
+    """q, k, v split from one fused [B, S, (H + 2 KV) dh] projection (rows
+    (H + 2 KV) dh apart), and a [BH, S, dh] q whose heads are not
+    contiguous: the kernel reads them where they lie."""
+    B, S, H, KV, dh = 2, 150, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn((B, S, (H + 2 * KV) * dh), generator=g,
+                      device=dev).to(dtype)
+    q, k, v = qkv.split([H * dh, KV * dh, KV * dh], dim=-1)
+    q, k, v = (t.reshape(B, S, -1, dh).transpose(1, 2) for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q, k, v, causal=True, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    qh = torch.randn((S, B * H, dh), generator=g, device=dev).to(dtype)
+    kh = torch.randn((B * KV, S, dh), generator=g, device=dev).to(dtype)
+    got = flash_attention_bh(qh.transpose(0, 1), kh, kh, causal=False)
+    want = flash_attention_bh(qh.transpose(0, 1), kh, kh, causal=False,
+                              impl="ref")
+    assert got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_without_columns_are_zero(dev, dtype):
+    """Sq > Skv: rows 0 .. Sq - Skv - 1 see no kv column and output 0."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((6, 200, 64), generator=g, device=dev).to(dtype)
+    k = torch.randn((3, 70, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn((3, 70, 64), generator=g, device=dev).to(dtype)
+    got = flash_attention_bh(q, k, v, causal=True)
+    want = flash_attention_bh(q, k, v, causal=True, impl="ref")
+    assert not got[:, :130].any() and not want[:, :130].any()
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_rejects_what_it_does_not_take(dev):
+    q = torch.randn((4, 8, 32), device=dev)
+    with pytest.raises(ValueError):               # dh 32
+        flash_attention_bh(q, q[:2], q[:2])
+    q = torch.randn((4, 8, 64), device=dev)
+    with pytest.raises(TypeError):                # mixed dtypes
+        flash_attention_bh(q, q[:2].bfloat16(), q[:2].bfloat16())
+    with pytest.raises(ValueError):               # dh not unit stride
+        flash_attention_bh(torch.randn((4, 64, 8), device=dev)
+                           .transpose(1, 2), q[:2], q[:2])
+    with pytest.raises(ValueError):               # rows not 16-byte aligned
+        flash_attention_bh(torch.randn((4, 8, 65), device=dev)[..., :64],
+                           q[:2], q[:2])

@@ -39,7 +39,11 @@ def test_port_imports_neither_jax_nor_reference():
     for m in ("kernels.ward_pool.ops", "kernels.maxsim.ops",
               "kernels.maxsim.ref", "core.persist", "core.docstore",
               "kernels.kmeans_assign.ops", "kernels.kmeans_assign.ref",
-              "kernels.quant.ops", "core.kmeans", "retrieval.cascade"):
+              "kernels.quant.ops", "core.kmeans", "retrieval.cascade",
+              "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+              "models.transformer", "models.attention", "launch.steps",
+              "configs.qwen3_0_6b", "configs.qwen1_5_0_5b",
+              "configs.qwen2_5_14b"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -54,15 +58,27 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_seven_kernels_from_six_sources():
+    """The seven retrieval kernels keep their launch counters and their
+    order in ``KERNELS``, and their six CUDA sources stay in the build."""
+    assert KERNELS[:7] == ("ward_pool", "plaid_probe", "maxsim_packed",
+                           "maxsim", "maxsim_rerank", "kmeans_assign",
+                           "dequant_score")
+    assert set(KERNELS[:7]) <= set(launch_counts())
+    assert SOURCES[:6] == ("ward_pool", "plaid_probe", "maxsim_packed",
+                           "maxsim", "kmeans_assign", "dequant_score")
+
+
+def test_every_kernel_has_a_counter_and_source():
     """Every ported TPU kernel has a launch counter, and every CUDA
-    source under ``csrc/`` is built."""
+    source under ``csrc/`` is built: eight kernels from seven sources."""
     assert KERNELS == ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
-                       "maxsim_rerank", "kmeans_assign", "dequant_score")
+                       "maxsim_rerank", "kmeans_assign", "dequant_score",
+                       "flash_attention")
     assert set(launch_counts()) == set(KERNELS)
     csrc = os.path.join(SRC, "repro_torch", "csrc")
     assert sorted(SOURCES) == sorted(f[:-3] for f in os.listdir(csrc)
                                      if f.endswith(".cu"))
-    assert len(SOURCES) == 6
+    assert len(SOURCES) == 7
 
 
 def test_entry_points_without_device_need_cuda(monkeypatch):
@@ -154,3 +170,47 @@ def test_unported_options_raise():
     idx, _ = _index(5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.add([torch.zeros(2, 16)])
+
+
+def test_lm_entry_points_without_device_need_cuda(monkeypatch):
+    import repro_torch as rt
+    cfg = rt.get_smoke_config("qwen3-0.6b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.make_lm_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.make_lm_decode_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.init_transformer(cfg)
+    model = rt.init_transformer(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    step = rt.make_lm_prefill_step(cfg, device="cpu")
+    logits, _ = step(model, {"tokens": np.zeros((1, 4), np.int32)})
+    assert logits.shape == (1, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "moonshot-v1-16b-a3b",
+                                  "dimenet", "wide-deep", "deepfm", "fm",
+                                  "dlrm-rm2"])
+def test_unported_architectures_raise(arch):
+    from repro_torch.configs import get_config, get_smoke_config
+    for get in (get_config, get_smoke_config):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_moe_config_raises_in_the_lm_entry_points():
+    import dataclasses
+    import repro_torch as rt
+    from repro_torch.models.transformer import params_from_jax
+    cfg = dataclasses.replace(rt.get_smoke_config("qwen3-0.6b"), moe=True,
+                              n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.init_transformer(cfg, device="cpu")
+    for build in (rt.make_lm_prefill_step, rt.make_lm_decode_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        params_from_jax({"moe_layers": {}})
