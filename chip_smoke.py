@@ -67,15 +67,24 @@
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
    shapes (inputs taken from the built indexes and the k-means path's
-   first encode batch; ``flash_attention`` on seeded random inputs in
-   the Qwen3, Qwen1.5 and Qwen2.5-14B head layouts, bf16 and f32,
-   Sq < Skv, Sq > Skv, non-causal, the lm_long shape, and the timed lm
-   shape), and times both with CUDA events;
+   first encode batch; ``ward_pool`` also at N = 512, where its triangle
+   lives in device memory, timed there too, and on exact duplicate tokens
+   at factors 2, 3, 4 and 6, where it must be equal or tie-equivalent;
+   ``plaid_probe`` and ``maxsim_packed`` also at Lq = 300,
+   three launches of at most 128 query tokens; ``flash_attention`` on
+   seeded random inputs in the Qwen3, Qwen1.5 and Qwen2.5-14B head
+   layouts, bf16 and f32, Sq < Skv, Sq > Skv, non-causal, the lm_long
+   shape, ragged Sq and Skv at dh 128, and the timed lm shape), and
+   times both with CUDA events (behind a sleep kernel, so that host
+   dispatch is not counted where the call does not wait on the card);
    prints each kernel's bound (bytes over 3.35 TB/s or operations over
    the f32 peak of 67 TFLOP/s — for ``flash_attention`` the bf16
    tensor-core peak of 989 TFLOP/s — the larger). ``flash_attention``
    is also timed against ``scaled_dot_product_attention`` (its
-   ``library_ms``; the port never calls it).
+   ``library_ms``; the port never calls it), with its achieved TFLOP/s,
+   and its SASS is read with ``cuobjdump -sass``: it fails unless the
+   tool is there and the bf16 body issues HMMA (tensor-core)
+   instructions.
 4. Re-runs the main search with the plain versions (``impl="ref"``): the
    ids must agree tie-aware and the scores to 1e-4.
 
@@ -107,6 +116,7 @@ QUERY_LEN = 32                     # ColBERTv2 query_maxlen
 TOP_K = 10
 NDOCS = 1024                       # PLAID's k=100 setting: engages the prune
 SEED = 0
+SLEEP_CYCLES = 100_000_000         # ~50 ms: longer than the host queues
 SCORE_ATOL = 1e-4                  # f32 sums in another order
 DENSE_DOCS = 512
 FLAT_DOCS = 4096
@@ -116,6 +126,7 @@ SEQUENTIAL_DOCS = 1024
 CASCADE_DOCS = 4096
 ENCODE_BATCH = 128
 NEAR_TIE = 1e-5                    # kmeans_assign: top-two sims this close
+LONG_LQ = 300                      # a query above the kernels' 128 a launch
 LM_ARCH = "qwen3-0.6b"
 LM_BATCH = 8
 LM_PROMPT = 2048
@@ -145,6 +156,7 @@ FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
     ("Sq > Skv", 1, 16, 8, 4096, 1000, 64, True, "bfloat16"),
     ("non-causal", 1, 16, 8, 4096, 4096, 64, False, "bfloat16"),
     ("lm_long 16/8/64", 1, 16, 8, 8192, 8192, 64, True, "bfloat16"),
+    ("ragged 40/8/128", 1, 40, 8, 1000, 1333, 128, True, "bfloat16"),
 ]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
@@ -179,12 +191,17 @@ def _card() -> str:
 
 def _time_ms(fn, reps: int = 5) -> float:
     """Mean ms per call on the card: CUDA events around ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call. A sleep kernel queued before the first event
+    holds the card while the host queues the calls, so a call that does
+    not wait on the card is timed by its device work, not by the host's
+    dispatch (which varies across machines several-fold); a call that
+    does wait is timed as before."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -342,27 +359,58 @@ def _candidate_report(torch, index, qv):
           f"{float(owners.median()):.0f} max {int(owners.max())}")
 
 
-def check_ward(torch, dev):
-    from repro_torch.core.ward import ward_targets
-    from repro_torch.kernels.ward_pool.ops import ward_assign
-    B, N, d, f = 64, 256, 128, 2
-    g = torch.Generator(device=dev).manual_seed(SEED)
+def _ward_inputs(torch, dev, B, N, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((B, N, d), generator=g, device=dev)
     n_valid = torch.randint(N // 2, N + 1, (B,), generator=g, device=dev)
     mask = torch.arange(N, device=dev)[None, :] < n_valid[:, None]
-    got = ward_assign(x, mask, f)
-    want = ward_assign(x, mask, f, impl="ref")
-    torch.cuda.synchronize()
-    bad = int((got != want).any(dim=1).sum())
-    if bad:
-        raise AssertionError(f"ward_pool: {bad}/{B} docs differ from the "
-                             f"plain version")
+    return x, mask
+
+
+def check_ward(torch, dev):
+    """At the build's shape (B = 64, N = 256, d = 128) and at N = 512 (a
+    doc_maxlen of 512: above 330 tokens the kernel keeps the distance
+    triangle in device memory), assignments equal the plain version's in
+    every document; on exact duplicate tokens (ties) at factors 2, 3, 4,
+    6 they are equal or tie-equivalent (``ward_agree``: as many clusters,
+    Ward objectives within 1e-5; the kernel's duplicates are exactly 0
+    apart, the plain version's nearly so). Timed at both N."""
+    from repro_torch.core.ward import ward_targets
+    from repro_torch.kernels.ward_pool.ops import ward_assign
+    from repro_torch.kernels.ward_pool.ref import ward_agree
+    B, N, d, f = 64, 256, 128, 2
+    x, mask = _ward_inputs(torch, dev, B, N, d, SEED)
+    x512, mask512 = _ward_inputs(torch, dev, B, 512, d, SEED + 1)
+    checked = []
+    for what, xs, ms, fs in [("build shape", x, mask, f),
+                             ("N=512", x512, mask512, f)] + [
+            (f"duplicates f={t}", *_ward_ties(torch, dev, N, d, t), t)
+            for t in (2, 3, 4, 6)]:
+        got = ward_assign(xs, ms, fs)
+        want = ward_assign(xs, ms, fs, impl="ref")
+        torch.cuda.synchronize()
+        equal = int((got == want).all(dim=1).sum())
+        ties = what.startswith("duplicates")
+        bad = int((~ward_agree(xs, ms, got, want)).sum()) if ties else (
+            xs.shape[0] - equal)
+        n = xs.shape[1]
+        print(f"ward_pool {what} (B={xs.shape[0]}, N={n}): {equal} docs "
+              f"equal to the plain version, {bad} "
+              f"{'not tie-equivalent' if ties else 'differ'}")
+        if bad:
+            raise AssertionError(f"ward_pool {what}: {bad} docs disagree "
+                                 f"with the plain version")
+        checked.append(f"{what} (B={xs.shape[0]}, N={n}): {equal} equal"
+                       + (", the rest tie-equivalent" if ties else ""))
     _, steps = ward_targets(mask, f)
     n_steps = int(steps.sum())
     P = N * (N - 1) // 2
-    # Gram (upper triangle) + per merge: argmin scan and Lance-Williams row
-    ops = B * P * d * 2 + n_steps * (P + 10 * N)
+    # the distances (upper triangle and norms, 2 d each) and, per merge,
+    # an O(N) argmin and Lance-Williams row update (~12 operations a token)
+    ops = B * (P + N) * d * 2 + n_steps * 12 * N
     bound, by = _bound_ms(_nbytes(x, mask) + B * N * 4, ops)
+    ms512 = _time_ms(lambda: ward_assign(x512, mask512, f))
+    print(f"ward_pool at B={B}, N=512, d={d}: {ms512:.4f} ms")
     return dict(name="ward_pool", route="cuda",
                 source="src/repro_torch/csrc/ward_pool.cu",
                 replaces="src/repro/kernels/ward_pool/kernel.py:63",
@@ -371,8 +419,22 @@ def check_ward(torch, dev):
                 plain_ms=_time_ms(lambda: ward_assign(x, mask, f, impl="ref"),
                                   reps=1),
                 bound_ms=bound, bound_by=by, library_ms=None,
-                check=f"assignments equal in all {B} docs "
-                      f"(B={B}, N={N}, d={d}, f={f})")
+                check=f"{'; '.join(checked)}; timed at B={B}, N={N}, d={d}, "
+                      f"f={f}; at N=512 {ms512:.4f} ms")
+
+
+def _ward_ties(torch, dev, N, d, factor):
+    """Docs whose tokens are each repeated ``factor`` times, shuffled (exact
+    duplicates: zero-distance ties); one half-padded doc, one all-pad."""
+    g = torch.Generator(device=dev).manual_seed(SEED + factor)
+    B, n = 8, N // factor
+    base = torch.randn((B, n, d), generator=g, device=dev)
+    x = base.repeat(1, factor, 1)[:, torch.randperm(n * factor, generator=g,
+                                                    device=dev)]
+    mask = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    mask[1, n * factor // 2:] = False
+    mask[2] = False
+    return x, mask
 
 
 def check_plaid_probe(torch, dev, index, qv):
@@ -400,6 +462,19 @@ def check_plaid_probe(torch, dev, index, qv):
     err = float((got[fin] - want[fin]).abs().max())
     if not torch.allclose(got[fin], want[fin], rtol=1e-5, atol=SCORE_ATOL):
         raise AssertionError(f"plaid_probe: max abs err {err}")
+    # a long query (Lq = 300): three launches of at most 128 tokens, summed
+    q_long, qm_long = _long_queries(torch, dev, Nq, qv.shape[2], SEED + 5)
+    long_args = (q_long, qm_long, cen, gcodes, gmask, cmask)
+    got = plaid_probe_scores(*long_args, t_cs=index.t_cs)
+    want = plaid_probe_scores(*long_args, t_cs=index.t_cs, impl="ref")
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    long_err = float((got[fin] - want[fin]).abs().max())
+    print(f"plaid_probe at Lq={LONG_LQ}: max abs err {long_err:.3g}")
+    if not (torch.equal(torch.isinf(got), torch.isinf(want)) and
+            torch.allclose(got[fin], want[fin], rtol=1e-5, atol=SCORE_ATOL)):
+        raise AssertionError(f"plaid_probe at Lq={LONG_LQ}: disagrees")
+    err = max(err, long_err)
     K, dim = cen.shape
     L = gcodes.shape[2]
     ops = Nq * Lq * K * dim * 2 + int(gmask.sum()) * Lq * 2
@@ -414,7 +489,8 @@ def check_plaid_probe(torch, dev, index, qv):
                     *args, t_cs=index.t_cs, impl="ref"), reps=2),
                 bound_ms=bound, bound_by=by, library_ms=None,
                 check=f"-inf slots equal, finite allclose rtol 1e-5 atol "
-                      f"{SCORE_ATOL} (Nq={Nq}, Lq={Lq}, C={C}, L={L}, K={K})")
+                      f"{SCORE_ATOL} (Nq={Nq}, Lq={Lq}, C={C}, L={L}, K={K}; "
+                      f"and at Lq={LONG_LQ}, three launches)")
 
 
 def check_maxsim_packed(torch, dev, index, qv):
@@ -456,6 +532,22 @@ def check_maxsim_packed(torch, dev, index, qv):
             ops = n_tok * (Lq * dim * 2 + dim * 4)
             bounds = _bound_ms(_nbytes(*args) + Nq * S * 4, ops)
         records.append(f"b={bits} W={w.shape[-1]}")
+    # a long query (Lq = 300): three launches of at most 128 tokens, summed
+    q_long, qm_long = _long_queries(torch, dev, Nq, dim, SEED + 6)
+    c_long = cand[:, :256]            # the plain version holds [.., Lq, Ld]
+    w, a = words[c_long], ids[c_long]
+    dm = tmask[c_long] & cm[:, :256, None]
+    long_args = (q_long, qm_long, w, a, dm, p.codec.centroids.contiguous(),
+                 p.codec.values.contiguous())
+    got = maxsim_packed_rerank(*long_args, bits=p.codec.bits)
+    want = maxsim_packed_rerank(*long_args, bits=p.codec.bits, impl="ref")
+    torch.cuda.synchronize()
+    errs.append(float((got - want).abs().max()))
+    print(f"maxsim_packed at Lq={LONG_LQ}: max abs err {errs[-1]:.3g}")
+    if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
+        raise AssertionError(f"maxsim_packed at Lq={LONG_LQ}: disagrees")
+    records.append(f"Lq={LONG_LQ}, S=256 at b={p.codec.bits} (three "
+                   f"launches)")
     return dict(name="maxsim_packed", route="cuda",
                 source="src/repro_torch/csrc/maxsim_packed.cu",
                 replaces="src/repro/kernels/maxsim_packed/kernel.py:66",
@@ -465,6 +557,14 @@ def check_maxsim_packed(torch, dev, index, qv):
                 check=f"allclose rtol 1e-5 atol {SCORE_ATOL} at "
                       f"{', '.join(records)} (Nq={Nq}, S={S}, "
                       f"Ld={ids.shape[1]}); timed at b={p.codec.bits}")
+
+
+def _long_queries(torch, dev, Nq, dim, seed):
+    """Unit query vectors of LONG_LQ tokens, about a tenth masked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((Nq, LONG_LQ, dim), generator=g, device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    return q, torch.rand((Nq, LONG_LQ), generator=g, device=dev) > 0.1
 
 
 def persist_path(rt, torch, model, queries, stats, S, I):
@@ -1220,7 +1320,9 @@ def check_flash_attention(torch, dev):
         kl = k.repeat_interleave(H // KV, dim=1)
         vl = v.repeat_interleave(H // KV, dim=1)
         gqa = {}
-    ms = _time_ms(lambda: flash_attention(q, k, v, causal=True))
+    pairs = B * H * S * (S + 1) // 2
+    flop = 4 * dh * pairs
+    ms = _time_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
     plain_ms = _time_ms(lambda: flash_attention(q, k, v, causal=True,
                                                 impl="ref"))
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
@@ -1234,9 +1336,13 @@ def check_flash_attention(torch, dev):
     if not torch.allclose(got, want, rtol=tol, atol=tol):
         raise AssertionError("flash_attention: disagrees at the lm shape")
     del got, want
-    pairs = B * H * S * (S + 1) // 2
     bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
-                          4 * dh * pairs, BF16_OPS_PER_S)
+                          flop, BF16_OPS_PER_S)
+    print(f"flash_attention at the lm shape: {ms:.4f} ms, "
+          f"{flop / ms / 1e9:.1f} TFLOP/s ({flop / 1e9:.2f} GFLOP of visible "
+          f"pairs); scaled_dot_product_attention {library_ms:.4f} ms "
+          f"({flop / library_ms / 1e9:.1f} TFLOP/s): "
+          f"{ms / library_ms:.2f}x its time; {_hmma_count()}")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:91",
@@ -1254,6 +1360,25 @@ def check_flash_attention(torch, dev):
                       f"peak, 4 dh x {pairs} visible pairs; library_ms: "
                       f"scaled_dot_product_attention(is_causal=True"
                       f"{', enable_gqa=True' if gqa else ', k/v repeated'})")
+
+
+def _hmma_count() -> str:
+    """HMMA (tensor-core) instructions in the built flash_attention
+    library's SASS, by ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError("cuobjdump not found: the flash_attention "
+                             "library's HMMA instructions cannot be counted")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(
+        "flash_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    n = sum(" HMMA." in line for line in sass.splitlines())
+    if n == 0:
+        raise AssertionError("flash_attention: no HMMA instruction in its "
+                             "SASS")
+    return f"SASS has {n} HMMA instructions (cuobjdump -sass)"
 
 
 def main() -> int:

@@ -33,7 +33,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int SUBS = 8;                     // threads sharing a query token
 constexpr int GROUPS = THREADS / SUBS;      // query tokens per pass
-constexpr int MAX_Q_PER_THREAD = 4;         // Lq <= GROUPS * 4 = 128
+constexpr int MAX_Q_PER_THREAD = 4;         // Lq <= GROUPS * 4 = 128 a launch;
+                                            // the wrapper splits longer queries
 constexpr int CHUNK = 32;                   // doc tokens per shared pass
 constexpr int CANDS_PER_BLOCK = 4;
 
@@ -130,11 +131,10 @@ extern "C" size_t maxsim_packed_smem_bytes(int Lq, int dim, int bits) {
          sizeof(int) * CHUNK;
 }
 
-extern "C" int maxsim_packed_max_lq() { return GROUPS * MAX_Q_PER_THREAD; }
-
 // q [Nq, Lq, dim] f32; qmask [Nq, Lq] u8; words [Nq, S, Ld, W] u32;
 // ids / dmask [Nq, S, Ld] i32 / u8; centroids [K, dim]; values
-// [dim, 2^bits] -> out [Nq, S] f32. Returns cudaGetLastError().
+// [dim, 2^bits] -> out [Nq, S] f32, Lq <= 128. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a longer query).
 extern "C" int maxsim_packed_launch(const float* q, const uint8_t* qmask,
                                     const uint32_t* words,
                                     const int32_t* ids, const uint8_t* dmask,
@@ -142,6 +142,7 @@ extern "C" int maxsim_packed_launch(const float* q, const uint8_t* qmask,
                                     const float* values, float* out, int Nq,
                                     int Lq, int dim, int S, int Ld, int W,
                                     int bits, void* stream) {
+  if (Lq > GROUPS * MAX_Q_PER_THREAD) return (int)cudaErrorInvalidValue;
   const size_t smem = maxsim_packed_smem_bytes(Lq, dim, bits);
   cudaFuncSetAttribute(maxsim_packed_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,

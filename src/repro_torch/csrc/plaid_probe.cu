@@ -30,7 +30,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE_C = 256;
-constexpr int MAX_R = 4;                   // Lq <= 32 * MAX_R = 128
+constexpr int MAX_R = 4;                   // Lq <= 32 * MAX_R = 128 a launch;
+                                           // the wrapper splits longer queries
 constexpr int CT = 32;                     // centroid rows per stage-1 tile
 
 __global__ void __launch_bounds__(THREADS) plaid_probe_kernel(
@@ -117,17 +118,17 @@ extern "C" size_t plaid_probe_smem_bytes(int Lq, int K, int dim) {
                           (size_t)CT * (dim + 1));
 }
 
-extern "C" int plaid_probe_max_lq() { return 32 * MAX_R; }
-
 // q [Nq, Lq, dim] f32; qmask [Nq, Lq] u8; centroids [K, dim] f32;
 // codes [Nq, C, L] i32; cmask [Nq, C, L] u8; vmask [Nq, C] u8
-// -> out [Nq, C] f32. Returns cudaGetLastError().
+// -> out [Nq, C] f32, Lq <= 128. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a longer query).
 extern "C" int plaid_probe_launch(const float* q, const uint8_t* qmask,
                                   const float* centroids,
                                   const int32_t* codes, const uint8_t* cmask,
                                   const uint8_t* vmask, float* out, int Nq,
                                   int Lq, int dim, int K, int C, int L,
                                   float t_cs, void* stream) {
+  if (Lq > 32 * MAX_R) return (int)cudaErrorInvalidValue;
   const size_t smem = plaid_probe_smem_bytes(Lq, K, dim);
   cudaFuncSetAttribute(plaid_probe_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -63,3 +63,24 @@ def check_cuda(name: str, **tensors) -> None:
 def check_dtype(name: str, key: str, t, dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+
+
+def query_chunks(Lq: int, max_lq: int):
+    """[lo, hi) ranges of at most ``max_lq`` query tokens covering Lq
+    (one range when Lq <= max_lq)."""
+    return [(lo, min(lo + max_lq, Lq)) for lo in range(0, max(Lq, 1), max_lq)]
+
+
+def sum_over_query_chunks(fn, q, q_mask, max_lq: int):
+    """``fn(q, q_mask)`` for a score that is a sum of per-query-token terms
+    (a masked token adding 0, -inf staying -inf), taken over chunks of at
+    most ``max_lq`` tokens and summed: exact up to f32 summation order.
+    At Lq <= max_lq, one call on the tensors as given."""
+    chunks = query_chunks(q.shape[1], max_lq)
+    if len(chunks) == 1:
+        return fn(q, q_mask)
+    out = None
+    for lo, hi in chunks:
+        part = fn(q[:, lo:hi].contiguous(), q_mask[:, lo:hi].contiguous())
+        out = part if out is None else out + part
+    return out

@@ -14,8 +14,10 @@ projections go in as transposed views without a copy, and
 as the [B, H, S, dh] view), the layout the output projection reads.
 
 bf16 or f32 in (q, k and v of one dtype), output in q's dtype, dh 64 or
-128. CPU tensors (or ``impl="ref"``) run the plain version; CUDA tensors
-launch the kernel on the current stream or raise.
+128. bf16 runs on the tensor cores (``mma.sync``); f32 runs the f32 FMA
+body, which keeps the f32 contract. CPU tensors (or ``impl="ref"``) run
+the plain version; CUDA tensors launch the kernel on the current stream
+or raise.
 """
 from __future__ import annotations
 

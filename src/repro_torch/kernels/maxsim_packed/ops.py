@@ -3,6 +3,8 @@
 Same argument layout as ``src/repro/kernels/maxsim_packed/ops.py``
 ``maxsim_packed_rerank``. CPU tensors (or ``impl="ref"``) run the plain
 version; CUDA tensors launch the kernel on the current stream or raise.
+A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
+into chunks of that many, one launch each, and the partial scores summed.
 """
 from __future__ import annotations
 
@@ -11,12 +13,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl)
+                                 check_dtype, check_impl,
+                                 sum_over_query_chunks)
 from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "maxsim_packed"
 _SMEM_LIMIT = 232448
+MAX_LQ = 128        # query tokens a launch (csrc: GROUPS * MAX_Q_PER_THREAD)
 _lib = None
 
 
@@ -29,8 +33,6 @@ def _load():
         lib.maxsim_packed_launch.restype = I
         lib.maxsim_packed_smem_bytes.argtypes = [I, I, I]
         lib.maxsim_packed_smem_bytes.restype = ctypes.c_size_t
-        lib.maxsim_packed_max_lq.argtypes = []
-        lib.maxsim_packed_max_lq.restype = I
         _lib = lib
     return _lib
 
@@ -70,17 +72,19 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
                          f"centroids {tuple(centroids.shape)} "
                          f"values {tuple(values.shape)}")
     lib = _load()
-    if Lq > lib.maxsim_packed_max_lq():
-        raise ValueError(f"{_NAME}: Lq={Lq} above the kernel's "
-                         f"{lib.maxsim_packed_max_lq()}")
-    if lib.maxsim_packed_smem_bytes(Lq, dim, bits) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: Lq={Lq}, dim={dim} exceed shared memory")
-    out = torch.empty((Nq, S), dtype=torch.float32, device=q.device)
+    lq = min(Lq, MAX_LQ)
+    if lib.maxsim_packed_smem_bytes(lq, dim, bits) > _SMEM_LIMIT:
+        raise ValueError(f"{_NAME}: Lq={lq}, dim={dim} exceed shared memory")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.maxsim_packed_launch(
-        q.data_ptr(), q_mask.data_ptr(), words.data_ptr(), ids.data_ptr(),
-        d_mask.data_ptr(), centroids.data_ptr(), values.data_ptr(),
-        out.data_ptr(), Nq, Lq, dim, S, Ld, W, bits, stream)
-    build.check(code, _NAME)
-    LAUNCHES.count += 1
-    return out
+
+    def launch(qc, qmc):
+        out = torch.empty((Nq, S), dtype=torch.float32, device=q.device)
+        code = lib.maxsim_packed_launch(
+            qc.data_ptr(), qmc.data_ptr(), words.data_ptr(), ids.data_ptr(),
+            d_mask.data_ptr(), centroids.data_ptr(), values.data_ptr(),
+            out.data_ptr(), Nq, qc.shape[1], dim, S, Ld, W, bits, stream)
+        build.check(code, _NAME)
+        LAUNCHES.count += 1
+        return out
+
+    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)

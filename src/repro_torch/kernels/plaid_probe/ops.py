@@ -3,6 +3,8 @@
 Same argument layout as ``src/repro/kernels/plaid_probe/ops.py``
 ``plaid_probe_scores``. CPU tensors (or ``impl="ref"``) run the plain
 version; CUDA tensors launch the kernel on the current stream or raise.
+A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
+into chunks of that many, one launch each, and the partial scores summed.
 """
 from __future__ import annotations
 
@@ -11,12 +13,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl)
+                                 check_dtype, check_impl,
+                                 sum_over_query_chunks)
 from repro_torch.kernels.plaid_probe.ref import plaid_probe_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "plaid_probe"
 _SMEM_LIMIT = 232448
+MAX_LQ = 128                # query tokens a launch (csrc: 32 * MAX_R)
 _lib = None
 
 
@@ -30,8 +34,6 @@ def _load():
         lib.plaid_probe_launch.restype = I
         lib.plaid_probe_smem_bytes.argtypes = [I, I, I]
         lib.plaid_probe_smem_bytes.restype = ctypes.c_size_t
-        lib.plaid_probe_max_lq.argtypes = []
-        lib.plaid_probe_max_lq.restype = I
         _lib = lib
     return _lib
 
@@ -65,18 +67,21 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
                          f"centroids {tuple(centroids.shape)} "
                          f"codes {tuple(codes.shape)}")
     lib = _load()
-    if Lq > lib.plaid_probe_max_lq():
-        raise ValueError(f"{_NAME}: Lq={Lq} above the kernel's "
-                         f"{lib.plaid_probe_max_lq()}")
-    if lib.plaid_probe_smem_bytes(Lq, K, dim) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: Lq={Lq}, K={K}, dim={dim} exceed "
+    lq = min(Lq, MAX_LQ)
+    if lib.plaid_probe_smem_bytes(lq, K, dim) > _SMEM_LIMIT:
+        raise ValueError(f"{_NAME}: Lq={lq}, K={K}, dim={dim} exceed "
                          f"shared memory")
-    out = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.plaid_probe_launch(
-        q.data_ptr(), q_mask.data_ptr(), centroids.data_ptr(),
-        codes.data_ptr(), code_mask.data_ptr(), cand_mask.data_ptr(),
-        out.data_ptr(), Nq, Lq, dim, K, C, L, float(t_cs), stream)
-    build.check(code, _NAME)
-    LAUNCHES.count += 1
-    return out
+
+    def launch(qc, qmc):
+        out = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
+        code = lib.plaid_probe_launch(
+            qc.data_ptr(), qmc.data_ptr(), centroids.data_ptr(),
+            codes.data_ptr(), code_mask.data_ptr(), cand_mask.data_ptr(),
+            out.data_ptr(), Nq, qc.shape[1], dim, K, C, L, float(t_cs),
+            stream)
+        build.check(code, _NAME)
+        LAUNCHES.count += 1
+        return out
+
+    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)

@@ -1,10 +1,14 @@
 """Wrapper of the Ward pooling kernel (``csrc/ward_pool.cu``).
 
 Same contract as ``src/repro/kernels/ward_pool/ops.py`` ``ward_assign``:
-the wrapper normalizes the token vectors as the reference does, computes
-each document's merge budget, and launches one block per document. CPU
-tensors (or ``impl="ref"``) run the plain version; CUDA tensors launch
-the kernel on the current stream or raise.
+the wrapper normalizes the token vectors as the reference does and
+launches one block per document, which computes the norms, Gram matrix
+and distances of its unit vectors and derives its merge budget from its
+mask as ``ward_targets`` does. The kernel keeps a document's distance
+triangle in shared memory up to 330 tokens; above that the wrapper gives
+it a [B, N(N-1)/2] scratch in device memory. CPU tensors (or
+``impl="ref"``) run the plain version; CUDA tensors launch the kernel on
+the current stream or raise.
 """
 from __future__ import annotations
 
@@ -12,14 +16,13 @@ import ctypes
 
 import torch
 
-from repro_torch.core.ward import normalize_masked, ward_targets
+from repro_torch.core.ward import normalize_masked
 from repro_torch.kernels import (LaunchCounter, build, check_cuda,
                                  check_dtype, check_impl)
 from repro_torch.kernels.ward_pool.ref import ward_assign_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "ward_pool"
-_SMEM_LIMIT = 232448
 _lib = None
 
 
@@ -28,10 +31,10 @@ def _load():
     if _lib is None:
         lib = build.load(_NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ward_pool_launch.argtypes = [P] * 4 + [I] * 3 + [P]
+        lib.ward_pool_launch.argtypes = [P, P, I, P, P, I, I, I, P]
         lib.ward_pool_launch.restype = I
-        lib.ward_pool_smem_bytes.argtypes = [I, I]
-        lib.ward_pool_smem_bytes.restype = ctypes.c_size_t
+        lib.ward_pool_scratch_floats.argtypes = [I]
+        lib.ward_pool_scratch_floats.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -49,18 +52,23 @@ def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
     if tuple(mask.shape) != (B, N):
         raise ValueError(f"{_NAME}: mask {tuple(mask.shape)} does not match "
                          f"x {tuple(x.shape)}")
+    if int(factor) < 1:
+        raise ValueError(f"{_NAME}: factor must be >= 1, got {factor}")
+    if N * N >= 2 ** 31 or d < 1:
+        raise ValueError(f"{_NAME}: N={N}, d={d} not taken by the kernel")
     xu = normalize_masked(x, mask).contiguous()
     mask = mask.contiguous()
-    _, steps = ward_targets(mask, int(factor))
-    check_cuda(_NAME, x=xu, mask=mask, steps=steps)
+    check_cuda(_NAME, x=xu, mask=mask)
     lib = _load()
-    if lib.ward_pool_smem_bytes(N, d) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: N={N}, d={d} exceed shared memory")
+    per_doc = lib.ward_pool_scratch_floats(N)
+    scratch = (torch.empty((B, per_doc), dtype=torch.float32,
+                           device=x.device) if per_doc else None)
     out = torch.empty((B, N), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.ward_pool_launch(xu.data_ptr(), mask.data_ptr(),
-                                steps.data_ptr(), out.data_ptr(), B, N, d,
-                                stream)
+    code = lib.ward_pool_launch(
+        xu.data_ptr(), mask.data_ptr(), int(factor),
+        scratch.data_ptr() if per_doc else None, out.data_ptr(), B, N, d,
+        stream)
     build.check(code, _NAME)
     LAUNCHES.count += 1
     return out

@@ -3,8 +3,10 @@ card. Marked ``cuda``; each test skips where no CUDA device exists (the
 fixture decides at run time). Run on a card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 
-Tolerances: Ward assignments equal; probe -inf slots equal and finite
-scores to 1e-5; packed rerank scores to 1e-5; the f32 MaxSim kernels to
+Tolerances: Ward assignments equal (also at N = 512, on exact duplicate
+tokens and on all-pad documents); probe -inf slots equal and finite
+scores to 1e-5; packed rerank scores to 1e-5 (both also at Lq = 300, one
+launch a chunk of 128 query tokens); the f32 MaxSim kernels to
 rtol 1e-5, atol 1e-4 (f32 dot products and sums in another order);
 k-means assignment ids equal except where the top two sims lie within
 1e-5 (f32 dot products in another order), best sims to 1e-5; dequantize
@@ -27,6 +29,7 @@ from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
 from repro_torch.kernels.quant.ops import dequant_score
 from repro_torch.kernels.ward_pool.ops import ward_assign
+from repro_torch.kernels.ward_pool.ref import ward_agree, ward_objective
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +46,8 @@ def _unit(g, shape, dev):
     return x / x.norm(dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("N,d", [(20, 16), (256, 128), (300, 128)])
+@pytest.mark.parametrize("N,d", [(20, 16), (256, 128), (300, 128),
+                                 (512, 128)])
 def test_ward_kernel_equals_plain(dev, N, d):
     g = torch.Generator(device=dev).manual_seed(N)
     x = torch.randn((6, N, d), generator=g, device=dev)
@@ -56,26 +60,66 @@ def test_ward_kernel_equals_plain(dev, N, d):
     assert torch.equal(got, ward_assign(x, mask, 2, impl="ref"))
 
 
-def test_probe_kernel_equals_plain(dev):
+@pytest.mark.parametrize("factor", [2, 3, 4, 6])
+def test_ward_kernel_on_duplicate_tokens_ties_as_plain(dev, factor):
+    """Each token repeated ``factor`` times and shuffled: exact
+    zero-distance ties. The kernel's duplicates are exactly 0 apart, the
+    plain version's (a torch sum and ``torch.bmm``) nearly so, so each
+    breaks the ties along its own rounding: per document the assignments
+    are equal or tie-equivalent (``ward_agree``: as many clusters, Ward
+    objectives within 1e-5). N about 512 puts the triangle in device
+    memory, about 256 in shared memory."""
+    for n in (256 // factor, 512 // factor):
+        g = torch.Generator(device=dev).manual_seed(factor * n)
+        base = torch.randn((4, n, 128), generator=g, device=dev)
+        x = base.repeat(1, factor, 1)[:, torch.randperm(
+            n * factor, generator=g, device=dev)]
+        mask = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+        mask[1, n * factor // 2:] = False
+        got = ward_assign(x, mask, factor)
+        want = ward_assign(x, mask, factor, impl="ref")
+        assert ward_agree(x, mask, got, want, atol=1e-5).all()
+        assert float(ward_objective(x, mask, got)[0]) < 1e-5
+
+
+@pytest.mark.parametrize("N", [256, 512])
+def test_ward_kernel_all_pad_document(dev, N):
+    """A batch whose documents hold no valid token: no merge, each token
+    its own representative, as the plain version."""
+    x = torch.randn((3, N, 128), device=dev)
+    mask = torch.zeros((3, N), dtype=torch.bool, device=dev)
+    mask[1, :7] = True
+    got = ward_assign(x, mask, 2)
+    assert torch.equal(got, ward_assign(x, mask, 2, impl="ref"))
+    assert torch.equal(got[0], torch.arange(N, device=dev,
+                                            dtype=torch.int32))
+
+
+@pytest.mark.parametrize("Lq", [32, 300])
+def test_probe_kernel_equals_plain(dev, Lq):
     g = torch.Generator(device=dev).manual_seed(1)
-    Nq, Lq, dim, K, C, L = 4, 32, 128, 256, 700, 50
+    Nq, dim, K, C, L = 4, 128, 256, 700, 50
     q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
     qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.8
     codes = torch.randint(0, K, (Nq, C, L), generator=g, device=dev,
                           dtype=torch.int32)
     cm = torch.rand((Nq, C, L), generator=g, device=dev) < 0.7
     vm = torch.rand((Nq, C), generator=g, device=dev) < 0.8
+    before = launch_counts()["plaid_probe"]
     got = plaid_probe_scores(q, qm, cen, codes, cm, vm, t_cs=0.1)
+    # one launch for each chunk of at most 128 query tokens
+    assert launch_counts()["plaid_probe"] == before + -(-Lq // 128)
     want = plaid_probe_scores(q, qm, cen, codes, cm, vm, t_cs=0.1, impl="ref")
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("Lq", [32, 300])
 @pytest.mark.parametrize("bits", [2, 4])
-def test_packed_kernel_equals_plain(dev, bits):
+def test_packed_kernel_equals_plain(dev, bits, Lq):
     g = torch.Generator(device=dev).manual_seed(bits)
-    Nq, Lq, dim, K, S, L = 4, 32, 128, 256, 37, 50
+    Nq, dim, K, S, L = 4, 128, 256, 37, 50
     q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
     qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.8
     W = dim * bits // 32
@@ -86,7 +130,9 @@ def test_packed_kernel_equals_plain(dev, bits):
     dm = torch.rand((Nq, S, L), generator=g, device=dev) < 0.5
     dm[0, 0] = False                             # a fully masked candidate
     vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
+    before = launch_counts()["maxsim_packed"]
     got = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits)
+    assert launch_counts()["maxsim_packed"] == before + -(-Lq // 128)
     want = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits,
                                 impl="ref")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -220,6 +266,8 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
     (2, 4, 1, 100, 333, 64, False),       # group 4, non-causal
     (1, 4, 2, 70, 200, 128, True),        # Sq < Skv: bottom-right anchor
     (1, 5, 1, 1, 77, 64, True),           # one query row (decode shape)
+    (2, 8, 2, 333, 517, 128, True),       # ragged Sq < Skv at dh 128
+    (1, 8, 4, 517, 333, 128, True),       # ragged Sq > Skv at dh 128
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, H, KV, Sq, Skv,
                                              dh, causal):
@@ -233,6 +281,19 @@ def test_flash_attention_kernel_equals_plain(dev, dtype, B, H, KV, Sq, Skv,
     want = flash_attention(q, k, v, causal=causal, impl="ref")
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_bf16_at_the_lm_shape(dev):
+    """Qwen3-0.6B's per-layer prefill shape (8 x 2,048 tokens, 16 heads
+    over 8 kv heads, dh 64) in the model's [B, S, H, dh] layout, on the
+    tensor-core body."""
+    g = torch.Generator(device=dev).manual_seed(2048)
+    q, k, v = (torch.randn((8, 2048, n, 64), generator=g, device=dev)
+               .bfloat16().transpose(1, 2) for n in (16, 8, 8))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q, k, v, causal=True, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("B", [1, 2])

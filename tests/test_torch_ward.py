@@ -17,6 +17,7 @@ from repro_torch.core.pooling import compact_pooled, pool_doc_embeddings
 from repro_torch.core.ward import ward_cluster_batch
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.ward_pool.ops import ward_assign
+from repro_torch.kernels.ward_pool.ref import ward_agree, ward_objective
 
 
 def _inputs(seed, B=6, N=40, d=16):
@@ -88,6 +89,30 @@ def test_ward_wrapper_runs_plain_version_on_cpu():
     with pytest.raises(ValueError):
         ward_assign(torch.from_numpy(x), torch.from_numpy(mask), 2,
                     impl="kernel")
+
+
+@pytest.mark.parametrize("factor", [2, 4])
+def test_ward_agree_is_tie_aware(factor):
+    """``ward_agree`` on duplicate tokens: leaving one group or another one
+    token short is a tie; moving a token between distinct groups is not,
+    even at the same number of clusters."""
+    n, d = 6, 16
+    base = np.random.default_rng(11).normal(size=(n, d)).astype(np.float32)
+    x = torch.from_numpy(np.repeat(base, factor, axis=0)[None])
+    mask = torch.ones((1, n * factor), dtype=torch.bool)
+    full = torch.arange(n * factor) // factor * factor   # groups merged
+    a, b, c = full.clone(), full.clone(), full.clone()
+    a[factor - 1] = factor - 1              # group 0 one token short
+    b[2 * factor - 1] = 2 * factor - 1      # group 1 one token short
+    c[factor - 1], c[2 * factor - 1] = factor - 1, 2 * factor - 1
+    c[c == 2 * factor] = factor             # groups 1 and 2 joined
+    a, b, c = (t[None].int() for t in (a, b, c))
+    assert float(ward_objective(x, mask, a)) < 1e-10
+    assert float(ward_objective(x, mask, c)) > 0.1
+    assert ward_agree(x, mask, a, a).all()
+    assert ward_agree(x, mask, a, b).all()
+    assert not ward_agree(x, mask, a, c).any()
+    assert not ward_agree(x, mask, a, full[None].int()).any()   # one fewer
 
 
 def test_unpooled_and_unported_methods():
