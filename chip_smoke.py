@@ -2,6 +2,9 @@
 """On-card smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card; no network
+    python3 chip_smoke.py --parent DIR   # also time the single-kernel
+                                         # plaid_probe and maxsim_packed of
+                                         # an earlier checkout inside this one
 
 1. Builds the seven CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
@@ -71,7 +74,13 @@
    lives in device memory, timed there too, and on exact duplicate tokens
    at factors 2, 3, 4 and 6, where it must be equal or tie-equivalent;
    ``plaid_probe`` and ``maxsim_packed`` also at Lq = 300,
-   three launches of at most 128 query tokens; ``flash_attention`` on
+   three launches of at most 128 query tokens, at the main path's own
+   inputs (the arguments of one search batch's two calls, captured), on
+   uniformly random codes (``plaid_probe``: the index's crowded codes
+   take its distinct-code lookups, uniform ones the full read) and at
+   b = 4 (``maxsim_packed``, whose SASS must
+   hold HMMA instructions: its products run on the tensor cores);
+   ``flash_attention`` on
    seeded random inputs in the Qwen3, Qwen1.5 and Qwen2.5-14B head
    layouts, bf16 and f32, Sq < Skv, Sq > Skv, non-causal, the lm_long
    shape, ragged Sq and Skv at dh 128, and the timed lm shape), and
@@ -79,7 +88,16 @@
    dispatch is not counted where the call does not wait on the card);
    prints each kernel's bound (bytes over 3.35 TB/s or operations over
    the f32 peak of 67 TFLOP/s — for ``flash_attention`` the bf16
-   tensor-core peak of 989 TFLOP/s — the larger). ``flash_attention``
+   tensor-core peak of 989 TFLOP/s, for ``maxsim_packed``'s products
+   three passes at the TF32 peak of 494.7 TFLOP/s — the larger). With
+   ``--parent``, the earlier checkout's ``plaid_probe`` and
+   ``maxsim_packed`` (their C entries checked against ``PARENT_ABI``)
+   are built and timed on the same inputs. One main-path
+   ``search_encoded`` batch is traced with ``torch.profiler`` and split
+   by its ``search.*`` ranges (centroid scores, ``probe_members`` and
+   compaction, the code gather, ``plaid_probe``, the ``stable_topk``
+   prune, the packed gather, ``maxsim_packed``, the top-k), with the
+   device's idle share over the batch. ``flash_attention``
    is also timed against ``scaled_dot_product_attention`` (its
    ``library_ms``; the port never calls it), with its achieved TFLOP/s,
    and its SASS is read with ``cuobjdump -sass``: it fails unless the
@@ -109,6 +127,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_OPS_PER_S = 67e12              # H100 SXM f32, outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 494.7e12          # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3                    # 3xTF32: hi*hi + hi*lo + lo*hi
 N_DOCS = 16384
 N_QUERIES = 64
 QUERY_BATCH = 32
@@ -211,9 +231,12 @@ def _time_ms(fn, reps: int = 5) -> float:
 
 
 def _bound_ms(n_bytes: float, n_ops: float,
-              ops_per_s: float = F32_OPS_PER_S):
+              ops_per_s: float = F32_OPS_PER_S, more=()):
+    """The larger of the bytes over the HBM rate and the operations over
+    their peak rate; ``more``: further (operations, rate) pairs of other
+    types, whose times add to the first."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = (n_ops / ops_per_s + sum(o / r for o, r in more)) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -437,12 +460,55 @@ def _ward_ties(torch, dev, N, d, factor):
     return x, mask
 
 
-def check_plaid_probe(torch, dev, index, qv):
+def _hold(what, torch, got, want, err_list):
+    """-inf slots equal and finite values to rtol 1e-5 / atol SCORE_ATOL;
+    appends the max abs error of the finite values."""
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    err_list.append(err)
+    if not (torch.equal(torch.isinf(got), torch.isinf(want)) and
+            torch.allclose(got[fin], want[fin], rtol=1e-5, atol=SCORE_ATOL)):
+        raise AssertionError(f"{what}: disagrees with the plain version "
+                             f"(max abs err {err})")
+    return err
+
+
+def _probe_bound(q, qm, cen, codes, cmask, vmask):
+    """Bytes: the query, centroids and slot flags, the codes and masks of
+    the valid slots only, the scores; operations: the [Lq, K] table a
+    query and a lookup and a max per valid token and query token."""
+    Nq, Lq, dim = q.shape
+    K = cen.shape[0]
+    L = codes.shape[2]
+    n_valid = int(vmask.sum())
+    n_bytes = (_nbytes(q, qm, cen, vmask) + n_valid * L * 5
+               + vmask.numel() * 4)
+    ops = Nq * Lq * K * dim * 2 + int(cmask.sum()) * Lq * 2
+    return _bound_ms(n_bytes, ops)
+
+
+def _crowded_share(codes, cmask, vmask):
+    """Share of the valid slots on which ``plaid_probe`` takes its
+    distinct-code lookups: the first 32 tokens repeat their first code
+    (a masked token counting as one more code) in more than a quarter of
+    places."""
+    n = min(32, codes.shape[2])
+    first = codes[..., :n].masked_fill(~cmask[..., :n], -1)
+    crowded = 4 * (first == first[..., :1]).sum(-1) > n
+    return float(crowded[vmask].float().mean())
+
+
+def check_plaid_probe(torch, dev, index, qv, path_args, parent):
+    """At the synthetic shape (each query scores every doc of the corpus,
+    9 in 10 slots valid, the index's own codes), on uniformly random codes
+    at that shape, at the main path's own inputs (``path_args``) and at
+    Lq = 300; timed beside the parent design where ``parent`` holds it."""
     from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
     p = index._plaid
     codes, tok_mask = p.padded_codes()
     Nq, Lq, _ = qv.shape
     C = p.n_docs
+    t_cs = index.t_cs
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     cand = torch.stack([torch.randperm(C, generator=g, device=dev)
                         for _ in range(Nq)])
@@ -452,49 +518,87 @@ def check_plaid_probe(torch, dev, index, qv):
     gcodes = codes[cand]
     gmask = tok_mask[cand] & cmask[:, :, None]
     cen = p.codec.centroids.contiguous()
-    args = (qv, qm, cen, gcodes, gmask, cmask)
-    got = plaid_probe_scores(*args, t_cs=index.t_cs)
-    want = plaid_probe_scores(*args, t_cs=index.t_cs, impl="ref")
-    torch.cuda.synchronize()
-    if not torch.equal(torch.isinf(got), torch.isinf(want)):
-        raise AssertionError("plaid_probe: -inf slots differ")
-    fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max())
-    if not torch.allclose(got[fin], want[fin], rtol=1e-5, atol=SCORE_ATOL):
-        raise AssertionError(f"plaid_probe: max abs err {err}")
+    K, dim = cen.shape
+    L = gcodes.shape[2]
+    ucodes = torch.randint(0, K, gcodes.shape, generator=g, device=dev,
+                           dtype=torch.int32)
+    cases = {"synthetic": (qv, qm, cen, gcodes, gmask, cmask),
+             "uniform": (qv, qm, cen, ucodes, gmask, cmask),
+             "path": path_args}
+    errs = []
+
+    def run(args, impl="auto"):
+        return plaid_probe_scores(*args, t_cs=t_cs, impl=impl)
+
+    times = {}
+    for what, args in cases.items():
+        _hold(f"plaid_probe {what}", torch, run(args), run(args, "ref"), errs)
+        times[what] = _time_ms(lambda: run(args))
+        if parent:
+            got = parent["plaid_probe"](*args, t_cs)
+            if not torch.equal(got, run(args)):
+                raise AssertionError(f"plaid_probe {what}: differs from the "
+                                     f"parent design's scores")
+            times[what + " parent"] = _time_ms(
+                lambda: parent["plaid_probe"](*args, t_cs))
     # a long query (Lq = 300): three launches of at most 128 tokens, summed
     q_long, qm_long = _long_queries(torch, dev, Nq, qv.shape[2], SEED + 5)
     long_args = (q_long, qm_long, cen, gcodes, gmask, cmask)
-    got = plaid_probe_scores(*long_args, t_cs=index.t_cs)
-    want = plaid_probe_scores(*long_args, t_cs=index.t_cs, impl="ref")
-    torch.cuda.synchronize()
-    fin = torch.isfinite(want)
-    long_err = float((got[fin] - want[fin]).abs().max())
+    long_err = _hold(f"plaid_probe at Lq={LONG_LQ}", torch, run(long_args),
+                     run(long_args, "ref"), errs)
     print(f"plaid_probe at Lq={LONG_LQ}: max abs err {long_err:.3g}")
-    if not (torch.equal(torch.isinf(got), torch.isinf(want)) and
-            torch.allclose(got[fin], want[fin], rtol=1e-5, atol=SCORE_ATOL)):
-        raise AssertionError(f"plaid_probe at Lq={LONG_LQ}: disagrees")
-    err = max(err, long_err)
-    K, dim = cen.shape
-    L = gcodes.shape[2]
-    ops = Nq * Lq * K * dim * 2 + int(gmask.sum()) * Lq * 2
-    bound, by = _bound_ms(_nbytes(qv, qm, cen, gcodes, gmask, cmask)
-                          + Nq * C * 4, ops)
+    plain_ms = _time_ms(lambda: run(cases["synthetic"], "ref"), reps=2)
+    path_plain_ms = _time_ms(lambda: run(path_args, "ref"), reps=2)
+    bound, by = _probe_bound(*cases["synthetic"])
+    path_bound, path_by = _probe_bound(*path_args)
+    pc, pm, pv = path_args[3:]
+    print(f"plaid_probe path inputs: Nq={pc.shape[0]} x C={pc.shape[1]} "
+          f"slots, {int(pv.sum())} valid, L={pc.shape[2]}; bound "
+          f"{path_bound:.4f} ms ({path_by}), plain {path_plain_ms:.4f} ms")
+    print("plaid_probe times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    print("plaid_probe share of valid slots taking the distinct-code "
+          "lookups: " + ", ".join(f"{k} {_crowded_share(*a[3:]):.4f}"
+                                  for k, a in cases.items()))
     return dict(name="plaid_probe", route="cuda",
                 source="src/repro_torch/csrc/plaid_probe.cu",
                 replaces="src/repro/kernels/plaid_probe/kernel.py:62",
-                **_launches("plaid_probe"), max_abs_err=err,
-                ms=_time_ms(lambda: plaid_probe_scores(*args, t_cs=index.t_cs)),
-                plain_ms=_time_ms(lambda: plaid_probe_scores(
-                    *args, t_cs=index.t_cs, impl="ref"), reps=2),
-                bound_ms=bound, bound_by=by, library_ms=None,
+                **_launches("plaid_probe"), max_abs_err=max(errs),
+                ms=times["synthetic"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, path_ms=times["path"],
+                path_plain_ms=path_plain_ms, path_bound_ms=path_bound,
+                parent_ms=times.get("synthetic parent"),
+                parent_path_ms=times.get("path parent"), times_ms=times,
                 check=f"-inf slots equal, finite allclose rtol 1e-5 atol "
-                      f"{SCORE_ATOL} (Nq={Nq}, Lq={Lq}, C={C}, L={L}, K={K}; "
-                      f"and at Lq={LONG_LQ}, three launches)")
+                      f"{SCORE_ATOL} (synthetic Nq={Nq}, Lq={Lq}, C={C}, "
+                      f"L={L}, K={K}; uniformly random codes; the main "
+                      f"path's own inputs"
+                      f"{'; equal to the parent design' if parent else ''};"
+                      f" and at Lq={LONG_LQ}, three launches of two "
+                      f"kernels); bound: valid slots' bytes, f32 rate")
 
 
-def check_maxsim_packed(torch, dev, index, qv):
-    from repro_torch.core.quantization import ResidualCodec
+def _packed_bound(q, qm, w, a, dm, cen, vals):
+    """Bytes: the query, the token masks, the words and ids of the valid
+    tokens only, the codec, the scores; operations: per valid query and
+    doc token 2 dim at 3xTF32 (three passes at the TF32 tensor-core
+    rate), and the reconstruction's 4 dim per valid doc token at f32."""
+    Nq, Lq, dim = q.shape
+    W = w.shape[-1]
+    n_tok = int(dm.sum())
+    pairs = int((qm.sum(1) * dm.flatten(1).sum(1)).sum())
+    n_bytes = (_nbytes(q, qm, dm, cen, vals) + n_tok * (4 * W + 4)
+               + dm.shape[0] * dm.shape[1] * 4)
+    return _bound_ms(n_bytes, n_tok * dim * 4, F32_OPS_PER_S,
+                     more=[(pairs * dim * 2 * TF32_PASSES, TF32_OPS_PER_S)])
+
+
+def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
+    """At the synthetic shape (S = 1,024 random docs of the index a query,
+    19 in 20 valid) at b = 2 (the index's codes) and b = 4 (random
+    codes), at the main path's own inputs (``path_args``) and at
+    Lq = 300; timed beside the parent design where ``parent`` holds it.
+    Fails unless the built library issues HMMA (tensor-core) instructions."""
     from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
     p = index._plaid
     ids, words, tmask = p.padded_packed()
@@ -504,7 +608,7 @@ def check_maxsim_packed(torch, dev, index, qv):
     cand = torch.randint(0, p.n_docs, (Nq, S), generator=g, device=dev)
     cm = torch.rand((Nq, S), generator=g, device=dev) < 0.95
     qm = torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
-    records, errs, got_ms, plain_ms, bounds = [], [], 0.0, 0.0, []
+    cases, errs, times = {}, [], {}
     for bits in (2, 4):
         if bits == p.codec.bits:
             w, cen, vals = words[cand], p.codec.centroids, p.codec.values
@@ -514,49 +618,60 @@ def check_maxsim_packed(torch, dev, index, qv):
                               generator=g, device=dev, dtype=torch.int32)
             cen = p.codec.centroids
             vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.05
-        a = ids[cand]
-        dm = tmask[cand] & cm[:, :, None]
-        args = (qv, qm, w, a, dm, cen.contiguous(), vals.contiguous())
-        got = maxsim_packed_rerank(*args, bits=bits)
-        want = maxsim_packed_rerank(*args, bits=bits, impl="ref")
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
-            raise AssertionError(f"maxsim_packed b={bits}: max abs err {err}")
-        errs.append(err)
-        if bits == p.codec.bits:
-            got_ms = _time_ms(lambda: maxsim_packed_rerank(*args, bits=bits))
-            plain_ms = _time_ms(lambda: maxsim_packed_rerank(
-                *args, bits=bits, impl="ref"), reps=2)
-            n_tok = int(dm.sum())
-            ops = n_tok * (Lq * dim * 2 + dim * 4)
-            bounds = _bound_ms(_nbytes(*args) + Nq * S * 4, ops)
-        records.append(f"b={bits} W={w.shape[-1]}")
+        cases[f"b={bits}"] = ((qv, qm, w, ids[cand], tmask[cand] & cm[:, :, None],
+                               cen.contiguous(), vals.contiguous()), bits)
+    cases["path"] = (path_args, p.codec.bits)
+
+    def run(args, bits, impl="auto"):
+        return maxsim_packed_rerank(*args, bits=bits, impl=impl)
+
+    for what, (args, bits) in cases.items():
+        _hold(f"maxsim_packed {what}", torch, run(args, bits),
+              run(args, bits, "ref"), errs)
+        times[what] = _time_ms(lambda: run(args, bits))
+        if parent:
+            got = parent["maxsim_packed"](*args, bits)
+            _hold(f"maxsim_packed {what}, parent design", torch, got,
+                  run(args, bits, "ref"), [])
+            times[what + " parent"] = _time_ms(
+                lambda: parent["maxsim_packed"](*args, bits))
     # a long query (Lq = 300): three launches of at most 128 tokens, summed
     q_long, qm_long = _long_queries(torch, dev, Nq, dim, SEED + 6)
     c_long = cand[:, :256]            # the plain version holds [.., Lq, Ld]
-    w, a = words[c_long], ids[c_long]
-    dm = tmask[c_long] & cm[:, :256, None]
-    long_args = (q_long, qm_long, w, a, dm, p.codec.centroids.contiguous(),
-                 p.codec.values.contiguous())
-    got = maxsim_packed_rerank(*long_args, bits=p.codec.bits)
-    want = maxsim_packed_rerank(*long_args, bits=p.codec.bits, impl="ref")
-    torch.cuda.synchronize()
-    errs.append(float((got - want).abs().max()))
-    print(f"maxsim_packed at Lq={LONG_LQ}: max abs err {errs[-1]:.3g}")
-    if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
-        raise AssertionError(f"maxsim_packed at Lq={LONG_LQ}: disagrees")
-    records.append(f"Lq={LONG_LQ}, S=256 at b={p.codec.bits} (three "
-                   f"launches)")
+    long_args = (q_long, qm_long, words[c_long], ids[c_long],
+                 tmask[c_long] & cm[:, :256, None],
+                 p.codec.centroids.contiguous(), p.codec.values.contiguous())
+    long_err = _hold(f"maxsim_packed at Lq={LONG_LQ}", torch,
+                     run(long_args, p.codec.bits),
+                     run(long_args, p.codec.bits, "ref"), errs)
+    print(f"maxsim_packed at Lq={LONG_LQ}: max abs err {long_err:.3g}")
+    syn, bits = cases[f"b={p.codec.bits}"]
+    plain_ms = _time_ms(lambda: run(syn, bits, "ref"), reps=2)
+    path_plain_ms = _time_ms(lambda: run(path_args, bits, "ref"), reps=2)
+    bound, by = _packed_bound(*syn)
+    path_bound, path_by = _packed_bound(*path_args)
+    pdm = path_args[4]
+    print(f"maxsim_packed path inputs: Nq={pdm.shape[0]}, S={pdm.shape[1]}, "
+          f"Ld={pdm.shape[2]}, {int(pdm.any(2).sum())} candidates with a "
+          f"valid token, {int(pdm.sum())} valid tokens; bound "
+          f"{path_bound:.4f} ms ({path_by}), plain {path_plain_ms:.4f} ms")
+    print("maxsim_packed times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + f"; {_hmma_count('maxsim_packed')}")
     return dict(name="maxsim_packed", route="cuda",
                 source="src/repro_torch/csrc/maxsim_packed.cu",
                 replaces="src/repro/kernels/maxsim_packed/kernel.py:66",
                 **_launches("maxsim_packed"), max_abs_err=max(errs),
-                ms=got_ms, plain_ms=plain_ms, bound_ms=bounds[0],
-                bound_by=bounds[1], library_ms=None,
-                check=f"allclose rtol 1e-5 atol {SCORE_ATOL} at "
-                      f"{', '.join(records)} (Nq={Nq}, S={S}, "
-                      f"Ld={ids.shape[1]}); timed at b={p.codec.bits}")
+                ms=times[f"b={bits}"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, path_ms=times["path"],
+                path_plain_ms=path_plain_ms, path_bound_ms=path_bound,
+                parent_ms=times.get(f"b={bits} parent"),
+                parent_path_ms=times.get("path parent"), times_ms=times,
+                check=f"allclose rtol 1e-5 atol {SCORE_ATOL} at b=2 and b=4 "
+                      f"(Nq={Nq}, S={S}, Ld={ids.shape[1]}), at the main "
+                      f"path's own inputs and at Lq={LONG_LQ}, S=256 (three "
+                      f"launches); timed at b={bits}; bound: valid tokens' "
+                      f"bytes, products at 3 passes of the TF32 rate "
+                      f"{TF32_OPS_PER_S:.4g}/s, reconstruction at f32")
 
 
 def _long_queries(torch, dev, Nq, dim, seed):
@@ -807,6 +922,189 @@ def cascade_from_dir_path(rt, torch, model, queries, cascade, S, I):
                              "in-memory cascade's")
     print("cascade_from_dir: results equal the in-memory cascade's exactly")
     shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+
+
+def capture_path_args(torch, searcher, queries):
+    """The arguments of the ``plaid_probe`` and ``maxsim_packed`` calls of
+    the first main-path batch whose prune engages (both kernels run), and
+    that batch's encoded queries. Outside every counted run."""
+    import repro_torch.core.plaid as cp
+    seen = {}
+
+    def keep(name, fn):
+        def wrapped(*args, **kw):
+            seen.setdefault(name, args)
+            return fn(*args, **kw)
+        return wrapped
+
+    probe, packed = cp.plaid_probe_scores, cp.maxsim_packed_rerank
+    cp.plaid_probe_scores = keep("plaid_probe", probe)
+    cp.maxsim_packed_rerank = keep("maxsim_packed", packed)
+    try:
+        for lo in range(0, len(queries), QUERY_BATCH):
+            seen.clear()
+            qv = searcher.encode_queries(queries[lo:lo + QUERY_BATCH])
+            searcher.search_encoded(qv, k=TOP_K)
+            if len(seen) == 2:
+                return seen["plaid_probe"], seen["maxsim_packed"], qv
+    finally:
+        cp.plaid_probe_scores, cp.maxsim_packed_rerank = probe, packed
+    raise AssertionError("no main-path batch ran both plaid_probe and "
+                         "maxsim_packed")
+
+
+SPLIT_STAGES = ("search.centroid_scores", "search.probe_members",
+                "search.code_gather", "search.plaid_probe", "search.prune",
+                "search.packed_gather", "search.maxsim_packed",
+                "search.topk")
+
+
+# Kernels each of these stages must show in the trace.
+STAGE_KERNELS = {"search.plaid_probe": ("plaid_table_kernel",
+                                        "plaid_probe_kernel"),
+                 "search.maxsim_packed": ("maxsim_packed_kernel",)}
+
+
+def search_split(torch, searcher, qv):
+    """Device time of each stage of one main-path ``search_encoded`` batch,
+    from a ``torch.profiler`` trace of that call. Each device activity
+    (kernel or copy) is matched to the runtime call that launched it (the
+    two share an id) and given to the innermost ``search.*`` range around
+    that call (``core/plaid.py``, ``core/index.py``): ctypes launches
+    count as aten's do. The batch's time on the device's clock (CUDA
+    events around the call) against all its device work gives the
+    device's idle share. Raises where a stage shows no device time (the
+    prune must engage) or misses its kernels. -> {stage: ms, "batch": ms,
+    "device busy": ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    searcher.search_encoded(qv, k=TOP_K)            # warm
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        searcher.search_encoded(qv, k=TOP_K)
+        end.record()
+        torch.cuda.synchronize()
+    events = prof.events()
+    calls = {e.id: e for e in events                # runtime calls: cuda*
+             if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    split = dict.fromkeys(SPLIT_STAGES, 0.0)
+    names = {k: set() for k in SPLIT_STAGES}
+    busy = 0.0
+    for w in events:
+        if w.device_type != DeviceType.CUDA or w.is_user_annotation:
+            continue
+        ms = w.time_range.elapsed_us() / 1e3
+        busy += ms
+        p = calls.get(w.id)
+        while p is not None and p.name not in split:
+            p = p.cpu_parent
+        if p is not None:
+            split[p.name] += ms
+            names[p.name].add(w.name)
+    for name in SPLIT_STAGES:
+        missing = [k for k in STAGE_KERNELS.get(name, ())
+                   if not any(k in n for n in names[name])]
+        if split[name] <= 0 or missing:
+            raise AssertionError(f"split: {name} shows {split[name]} ms of "
+                                 f"device time, kernels missing {missing}")
+    staged = sum(split.values())
+    split["batch"] = start.elapsed_time(end)
+    split["device busy"] = busy
+    print(f"index search split of one {qv.shape[0]}-query batch "
+          f"(torch.profiler device time, ms; the batch "
+          f"{split['batch']:.4f} ms on CUDA events, the device busy "
+          f"{busy:.4f} ms, idle share {1 - busy / split['batch']:.3f}, "
+          f"outside the stages {busy - staged:.4f}): " + ", ".join(
+              f"{k[len('search.'):]} {split[k]:.4f}" for k in SPLIT_STAGES))
+    return split
+
+
+# The C entries an earlier checkout must declare for ``--parent``: the
+# single-kernel designs these replaced (no table scratch).
+PARENT_ABI = {
+    "plaid_probe": "int plaid_probe_launch(const float* q, const uint8_t* "
+                   "qmask, const float* centroids, const int32_t* codes, "
+                   "const uint8_t* cmask, const uint8_t* vmask, float* out, "
+                   "int Nq, int Lq, int dim, int K, int C, int L, float "
+                   "t_cs, void* stream)",
+    "maxsim_packed": "int maxsim_packed_launch(const float* q, const "
+                     "uint8_t* qmask, const uint32_t* words, const int32_t* "
+                     "ids, const uint8_t* dmask, const float* centroids, "
+                     "const float* values, float* out, int Nq, int Lq, int "
+                     "dim, int S, int Ld, int W, int bits, void* stream)",
+}
+
+
+def parent_kernels(parent):
+    """The ``plaid_probe`` and ``maxsim_packed`` of an earlier checkout at
+    ``parent``, a directory inside this checkout holding its
+    ``src/repro_torch/csrc``, built with the same nvcc flags, as callables
+    on the wrappers' arguments (at most 128 query tokens); {} without one.
+    Raises unless each source declares its ``PARENT_ABI`` entry."""
+    import ctypes
+    import re
+    import torch
+    from repro_torch.kernels import build
+    if not parent:
+        return {}
+    root = os.path.realpath(parent)
+    if not root.startswith(os.path.realpath(ROOT) + os.sep):
+        raise ValueError(f"--parent {parent}: not a directory inside "
+                         f"{ROOT}")
+    csrc = os.path.join(root, "src", "repro_torch", "csrc")
+    for name, want in PARENT_ABI.items():
+        with open(os.path.join(csrc, f"{name}.cu")) as f:
+            decl = re.search(rf'extern "C" (int {name}_launch\([^)]*\))',
+                             f.read())
+        if decl is None or " ".join(decl.group(1).split()) != want:
+            raise ValueError(f"--parent {parent}: {name}.cu does not declare"
+                             f" the entry this script calls: {want}")
+    out = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for name in PARENT_ABI:
+        lib = os.path.join(out, f"lib{name}.so")
+        jobs[name] = lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", lib,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the parent's {name} does not build:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    probe = libs["plaid_probe"].plaid_probe_launch
+    probe.argtypes = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
+    packed = libs["maxsim_packed"].maxsim_packed_launch
+    packed.argtypes = [P] * 8 + [I] * 7 + [P]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def run_probe(q, qm, cen, codes, cm, vm, t_cs):
+        (Nq, Lq, dim), (K, _), (_, C, L) = q.shape, cen.shape, codes.shape
+        o = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
+        build.check(probe(q.data_ptr(), qm.data_ptr(), cen.data_ptr(),
+                          codes.data_ptr(), cm.data_ptr(), vm.data_ptr(),
+                          o.data_ptr(), Nq, Lq, dim, K, C, L, float(t_cs),
+                          stream()), "parent plaid_probe")
+        return o
+
+    def run_packed(q, qm, w, a, dm, cen, vals, bits):
+        (Nq, Lq, dim), (_, S, Ld, W) = q.shape, w.shape
+        o = torch.empty((Nq, S), dtype=torch.float32, device=q.device)
+        build.check(packed(q.data_ptr(), qm.data_ptr(), w.data_ptr(),
+                           a.data_ptr(), dm.data_ptr(), cen.data_ptr(),
+                           vals.data_ptr(), o.data_ptr(), Nq, Lq, dim, S, Ld,
+                           W, bits, stream()), "parent maxsim_packed")
+        return o
+
+    return {"plaid_probe": run_probe, "maxsim_packed": run_packed}
 
 
 def _launches(name):
@@ -1342,7 +1640,7 @@ def check_flash_attention(torch, dev):
           f"{flop / ms / 1e9:.1f} TFLOP/s ({flop / 1e9:.2f} GFLOP of visible "
           f"pairs); scaled_dot_product_attention {library_ms:.4f} ms "
           f"({flop / library_ms / 1e9:.1f} TFLOP/s): "
-          f"{ms / library_ms:.2f}x its time; {_hmma_count()}")
+          f"{ms / library_ms:.2f}x its time; {_hmma_count('flash_attention')}")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:91",
@@ -1362,26 +1660,32 @@ def check_flash_attention(torch, dev):
                       f"{', enable_gqa=True' if gqa else ', k/v repeated'})")
 
 
-def _hmma_count() -> str:
-    """HMMA (tensor-core) instructions in the built flash_attention
-    library's SASS, by ``cuobjdump -sass``."""
+def _hmma_count(name: str) -> str:
+    """HMMA (tensor-core) instructions in the built library of
+    ``csrc/<name>.cu``, by ``cuobjdump -sass``."""
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        raise AssertionError("cuobjdump not found: the flash_attention "
-                             "library's HMMA instructions cannot be counted")
-    sass = subprocess.run([tool, "-sass", str(build._lib_path(
-        "flash_attention"))], capture_output=True, text=True,
-        check=True).stdout
+        raise AssertionError(f"cuobjdump not found: the {name} library's "
+                             f"HMMA instructions cannot be counted")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
     n = sum(" HMMA." in line for line in sass.splitlines())
     if n == 0:
-        raise AssertionError("flash_attention: no HMMA instruction in its "
-                             "SASS")
+        raise AssertionError(f"{name}: no HMMA instruction in its SASS")
     return f"SASS has {n} HMMA instructions (cuobjdump -sass)"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default="",
+                    help="a directory inside this checkout holding an "
+                         "earlier checkout's src/repro_torch/csrc whose "
+                         "plaid_probe and maxsim_packed declare PARENT_ABI;"
+                         " timed beside this one's")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1424,9 +1728,14 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
+    parent = parent_kernels(args.parent)
+    path_probe, path_packed, path_qv = capture_path_args(torch, searcher,
+                                                         queries)
+    split = search_split(torch, searcher, path_qv)
     qv = searcher.encode_queries(queries[:QUERY_BATCH])
-    kernels = [check_ward(torch, dev), check_plaid_probe(torch, dev, index, qv),
-               check_maxsim_packed(torch, dev, index, qv),
+    kernels = [check_ward(torch, dev),
+               check_plaid_probe(torch, dev, index, qv, path_probe, parent),
+               check_maxsim_packed(torch, dev, index, qv, path_packed, parent),
                check_maxsim(torch, dev, index, qv),
                check_maxsim_rerank(torch, dev, index, qv),
                check_kmeans_assign(torch, dev, model, docs),
@@ -1442,7 +1751,7 @@ def main() -> int:
     _agree("main path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "search_split_ms": split}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

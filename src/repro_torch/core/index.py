@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.docstore import DocStore
 from repro_torch.core.ivf import train_centroids
@@ -253,7 +254,8 @@ class MultiVectorIndex:
             return (np.full((Nq, k), -np.inf, np.float32),
                     np.full((Nq, k), -1, np.int64))
         scores, cand = self.scored_candidates(qs, q_mask, impl)
-        return topk_with_pads(scores, cand, k)
+        with record_function("search.topk"):
+            return topk_with_pads(scores, cand, k)
 
     def _queries(self, qs) -> torch.Tensor:
         if self.n_docs == 0:

@@ -20,7 +20,9 @@ provably the host path's and ``doc_member`` fits the gather cap
 (``probe_kernel="auto"``): at K = 256 the cap of 2**24 elements allows
 65,536 docs, and larger corpora take the host path. Index arrays the
 search reads live on the index's device; the IVF bookkeeping is host
-numpy, as in the reference.
+numpy, as in the reference. The device path's stages run inside
+``torch.profiler`` ranges named ``search.*`` (no cost without a
+profiler), so a trace splits one batch's time by stage.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.docstore import (DocStore, pad_candidate_sets,
                                        padded_scatter_index, ragged_arange)
@@ -250,29 +253,34 @@ def _device_candidates(cs, qs, qm, doc_member, live, codes, tok_mask,
     Nq = cs.shape[0]
     n_docs = live.shape[0]
     dev = cs.device
-    member, counts = probe_members(cs, qm, doc_member, live, k)
-    pos = torch.cumsum(member, dim=1) - 1
-    tpos = torch.where(member, pos, torch.full_like(pos, c_score))
-    docid = torch.arange(n_docs, device=dev).expand(Nq, n_docs)
-    cand_c = torch.zeros((Nq, c_score + 1), dtype=torch.long, device=dev)
-    cand_c.scatter_(1, tpos, docid)                         # c_score: dropped
-    cand_c = cand_c[:, :c_score]
-    mask_c = torch.arange(c_score, device=dev)[None, :] < counts[:, None]
+    with record_function("search.probe_members"):
+        member, counts = probe_members(cs, qm, doc_member, live, k)
+        pos = torch.cumsum(member, dim=1) - 1
+        tpos = torch.where(member, pos, torch.full_like(pos, c_score))
+        docid = torch.arange(n_docs, device=dev).expand(Nq, n_docs)
+        cand_c = torch.zeros((Nq, c_score + 1), dtype=torch.long,
+                             device=dev)
+        cand_c.scatter_(1, tpos, docid)                     # c_score: dropped
+        cand_c = cand_c[:, :c_score]
+        mask_c = torch.arange(c_score, device=dev)[None, :] < counts[:, None]
 
     maxc = max(int(counts.max()), 1)                        # host sync
     if _ladder(maxc) <= ndocs:
         return cand_c[:, :s_out], mask_c[:, :s_out]
     keep = min(ndocs, c_score)
-    gcodes = codes[cand_c]                                  # [Nq, C, L]
-    gmask = tok_mask[cand_c] & mask_c[:, :, None]
-    approx = plaid_probe_scores(qs, qm, centroids, gcodes, gmask, mask_c,
-                                t_cs=t_cs, impl=impl)
-    top_s, top_i = stable_topk(approx, keep)
-    cand_p = torch.gather(cand_c, 1, top_i)
-    mask_p = torch.isfinite(top_s)
-    if keep < s_out:
-        cand_p = torch.nn.functional.pad(cand_p, (0, s_out - keep))
-        mask_p = torch.nn.functional.pad(mask_p, (0, s_out - keep))
+    with record_function("search.code_gather"):
+        gcodes = codes[cand_c]                              # [Nq, C, L]
+        gmask = tok_mask[cand_c] & mask_c[:, :, None]
+    with record_function("search.plaid_probe"):
+        approx = plaid_probe_scores(qs, qm, centroids, gcodes, gmask, mask_c,
+                                    t_cs=t_cs, impl=impl)
+    with record_function("search.prune"):
+        top_s, top_i = stable_topk(approx, keep)
+        cand_p = torch.gather(cand_c, 1, top_i)
+        mask_p = torch.isfinite(top_s)
+        if keep < s_out:
+            cand_p = torch.nn.functional.pad(cand_p, (0, s_out - keep))
+            mask_p = torch.nn.functional.pad(mask_p, (0, s_out - keep))
     return cand_p, mask_p
 
 
@@ -356,7 +364,8 @@ def plaid_candidates(index: PLAIDIndex, qs: torch.Tensor, nprobe: int = 8,
                                          probe_kernel)
     qm = (torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
           if q_mask is None else q_mask.to(dev, torch.bool).contiguous())
-    cs = _centroid_scores_batch(qs, index.codec.centroids)
+    with record_function("search.centroid_scores"):
+        cs = _centroid_scores_batch(qs, index.codec.centroids)
     if not use_device:
         if isinstance(live, torch.Tensor):
             live = live.cpu().numpy()
@@ -391,8 +400,11 @@ def maxsim_packed_rerank_store(index: PLAIDIndex, q: torch.Tensor,
     for lo in range(0, cand.shape[1], slab):
         c = cand[:, lo:lo + slab]
         cm = cand_mask[:, lo:lo + slab]
-        dm = tmask[c] & cm[:, :, None]
-        s = maxsim_packed_rerank(q, q_mask, words[c], ids[c], dm, centroids,
-                                 values, bits=codec.bits, impl=impl)
-        parts.append(s.masked_fill(~cm, float("-inf")))
+        with record_function("search.packed_gather"):
+            dm = tmask[c] & cm[:, :, None]
+            w, a = words[c], ids[c]
+        with record_function("search.maxsim_packed"):
+            s = maxsim_packed_rerank(q, q_mask, w, a, dm, centroids, values,
+                                     bits=codec.bits, impl=impl)
+            parts.append(s.masked_fill(~cm, float("-inf")))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

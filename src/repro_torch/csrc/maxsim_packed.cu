@@ -9,19 +9,40 @@
 //
 // What bounds it on this card: operations. Per query/candidate token pair
 // it does `dim` multiply-adds, while the packed inputs it reads are only
-// 4 + 4W + 1 bytes per doc token (W = dim*b/32 words), so at dim = 128,
-// Lq = 32 the arithmetic intensity is ~200 FLOP/byte: above the f32
-// (non tensor core) ridge of ~20 FLOP/byte, below the bf16 tensor-core one.
+// 4 + 4W + 1 bytes per doc token (W = dim*b/32 words). The products run
+// on the tensor cores as 3xTF32 (three TF32 passes, ~165 TFLOP/s of
+// f32-accurate products at the dense TF32 peak); the reconstruction (an
+// IEEE division a dimension) runs on the f32 pipes.
 //
-// Design: one block per (query, slab of candidates). The query's token
-// vectors and the codec's value table sit in shared memory for the whole
-// slab; doc tokens are reconstructed CHUNK at a time into shared memory
-// (one warp per token row, `warp_unpack_reconstruct` from quant.cuh — the
-// centroid row is a direct indexed read, not the TPU's one-hot matmul),
-// chunks with no valid token are skipped, and each thread keeps running
-// maxima for its query tokens in registers. Rows are padded to dim + 1
-// floats so the strided row reads are bank-conflict free. Plain f32 FMA;
-// moving the dot products onto wgmma is left to a later change.
+// Design: one block per (query, CPB = 8 candidates), 8 warps.
+// - The block first compacts its candidates' valid tokens into one list
+//   (a ballot a 32 tokens): masked tokens and fully masked candidates cost
+//   nothing after that.
+// - The query's tokens are staged once, split into TF32 hi and lo parts
+//   (x = hi + lo to ~2^-22), rows padded to a multiple of 32 with zeros.
+// - Tiles of NT = 128 listed tokens: their centroid ids and packed words
+//   are fetched by the whole block into registers a tile ahead (the next
+//   tile's loads fly while the current one is multiplied) and staged in
+//   shared memory; then each warp reconstructs rows with
+//   quant.cuh's exact rounding (`__fadd_rn` of centroid and bucket value,
+//   `__fdiv_rn` by max(sqrt(ss), 1e-9), the sum of squares in the same
+//   order), four rows a pass with all their loads issued first and all
+//   their divisions before any store. The code width is a template
+//   parameter, so unpacking is shifts and masks; so is the token width
+//   where it is the model's 128 (the dot-product loop then unrolls),
+//   other widths taking it at run time.
+// - Products: warp w takes the tile's columns 16w..16w+15 (two n-tiles)
+//   against every query row: `mma.sync.m16n8k8` TF32, lo*hi + hi*lo +
+//   hi*hi into f32 register accumulators; each doc value is split once,
+//   as its fragment is loaded.
+// - The max over each candidate's tokens is taken from the accumulators:
+//   an n-tile whose 8 columns belong to one candidate reduces in registers
+//   and two shuffles, then one shared-memory atomic max per row (floats
+//   ordered as integers); an n-tile across a candidate boundary takes an
+//   atomic per value. The masked sum over query tokens (a finite max only,
+//   as the TPU kernel) is a warp shuffle tree, warp w for candidate w.
+// Rows are padded to dim + 4 floats: the fragment loads (8 rows x 4
+// columns a warp) hit 32 distinct banks.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
@@ -31,110 +52,369 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int SUBS = 8;                     // threads sharing a query token
-constexpr int GROUPS = THREADS / SUBS;      // query tokens per pass
-constexpr int MAX_Q_PER_THREAD = 4;         // Lq <= GROUPS * 4 = 128 a launch;
+constexpr int NWARPS = THREADS / 32;
+constexpr int CPB = NWARPS;                 // candidates a block: warp w's
+constexpr int NT = 128;                     // listed doc tokens a tile
+constexpr int WCOLS = NT / NWARPS;          // 16 columns a warp,
+constexpr int NTW = WCOLS / 8;              // two n-tiles of 8
+constexpr int MIN_BLOCKS = 2;               // blocks a SM, for registers
+constexpr int MAX_QCH = 4;                  // Lq <= 32 * 4 = 128 a launch;
                                             // the wrapper splits longer queries
-constexpr int CHUNK = 32;                   // doc tokens per shared pass
-constexpr int CANDS_PER_BLOCK = 4;
+constexpr int MAX_DIM = 128;                // dims a lane reconstructs: 4
+constexpr int MAX_W = MAX_DIM * 4 / 32;     // packed words a token, b <= 4
+constexpr int ROWS = 4;                     // rows a warp reconstructs a pass
 
-__global__ void __launch_bounds__(THREADS) maxsim_packed_kernel(
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a . b on the tensor cores: A [16 x 8] row-major, B [8 x 8]
+// column-major, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// *a = max(*a, v) in shared memory: non-negative floats order as signed
+// integers, negative ones in reverse as unsigned.
+__device__ __forceinline__ void atomic_max(float* a, float v) {
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(a), __float_as_uint(v));
+}
+
+// DIM: the token width when known at compile time (MAX_DIM, the model's),
+// so the dot-product loop unrolls; 0 takes it at run time.
+template <int QCH, int BITS, int DIM>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) maxsim_packed_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ qmask,
     const uint32_t* __restrict__ words, const int32_t* __restrict__ ids,
     const uint8_t* __restrict__ dmask, const float* __restrict__ centroids,
     const float* __restrict__ values, float* __restrict__ out, int Lq,
-    int dim, int S, int Ld, int W, int bits) {
-  extern __shared__ float smem[];
-  const int nb = 1 << bits;
-  const int stride = dim + 1;
-  float* qs = smem;                              // [Lq, stride]
-  float* ds = qs + Lq * stride;                  // [CHUNK, stride]
-  float* vals = ds + CHUNK * stride;             // [dim, nb]
-  float* red = vals + dim * nb;                  // [THREADS / 32]
-  int* live = reinterpret_cast<int*>(red + THREADS / 32);   // [CHUNK]
+    int width, int S, int Ld, int W) {
+  const int dim = DIM > 0 ? DIM : width;
+  constexpr int QP = 32 * QCH;              // query rows, zero-padded
+  constexpr int NB = 1 << BITS, CPW = 32 / BITS;
+  extern __shared__ int4 smem4[];
+  const int DS = dim + 4;
+  uint32_t* qhi = reinterpret_cast<uint32_t*>(smem4);      // [QP][DS]
+  uint32_t* qlo = qhi + QP * DS;                           // [QP][DS]
+  float* tile = reinterpret_cast<float*>(qlo + QP * DS);   // [NT][DS]
+  float* vt = tile + NT * DS;                              // [NB][dim]
+  float* best = vt + NB * dim;                             // [CPB][QP]
+  uint32_t* wbuf = reinterpret_cast<uint32_t*>(best + CPB * QP);  // [NT][W]
+  int* tok_id = reinterpret_cast<int*>(wbuf + NT * W);     // [NT]
+  int* col_cand = tok_id + NT;                             // [NT]
+  int* cstart = col_cand + NT;                             // [CPB + 1]
+  uint16_t* list = reinterpret_cast<uint16_t*>(cstart + CPB + 1);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = THREADS / 32;
+  const int g = lane >> 2, t = lane & 3;
   const int qi = blockIdx.y;
-  const int g = tid / SUBS, sub = tid % SUBS;
+  const int s0 = blockIdx.x * CPB;
+  const int ns = min(CPB, S - s0);
+  const size_t tok0 = ((size_t)qi * S + s0) * Ld;   // the block's first token
 
-  for (int i = tid; i < Lq * dim; i += THREADS)
-    qs[(i / dim) * stride + (i % dim)] = q[(size_t)qi * Lq * dim + i];
-  for (int i = tid; i < dim * nb; i += THREADS) vals[i] = values[i];
+  // 1. compact the valid tokens: warp w lists candidate w's, in order
+  int cnt = 0;
+  if (warp < ns)
+    for (int t0 = 0; t0 < Ld; t0 += 32)
+      cnt += __popc(__ballot_sync(
+          0xffffffffu, t0 + lane < Ld && dmask[tok0 + warp * Ld + t0 + lane]));
+  if (lane == 0) cstart[warp + 1] = cnt;
+  if (tid == 0) cstart[0] = 0;
+  __syncthreads();
+  if (tid == 0)
+    for (int c = 0; c < CPB; ++c) cstart[c + 1] += cstart[c];
+  __syncthreads();
+  const int total = cstart[CPB];
+  if (total == 0) {                         // no valid token in the block
+    if (tid < ns) out[(size_t)qi * S + s0 + tid] = 0.f;
+    return;
+  }
+  if (warp < ns) {
+    int pos = cstart[warp];
+    for (int t0 = 0; t0 < Ld; t0 += 32) {
+      const int j = t0 + lane;
+      const bool v = j < Ld && dmask[tok0 + warp * Ld + j];
+      const unsigned b = __ballot_sync(0xffffffffu, v);
+      if (v) list[pos + __popc(b & ((1u << lane) - 1u))] =
+          (uint16_t)(warp * Ld + j);
+      pos += __popc(b);
+    }
+  }
   __syncthreads();
 
-  for (int c = 0; c < CANDS_PER_BLOCK; ++c) {
-    const int s = blockIdx.x * CANDS_PER_BLOCK + c;
-    if (s >= S) break;                         // uniform across the block
-    const size_t cand = (size_t)qi * S + s;
-    float best[MAX_Q_PER_THREAD];
+  // a tile's centroid ids and packed words, fetched into registers: the
+  // first tile's while the query is staged, each next one's while the
+  // current one is multiplied
+  int pf_id = 0;
+  uint32_t pf_w[MAX_W * NT / THREADS];
+  auto fetch = [&](int t0) {
+    const int ncols = min(NT, total - t0);
+    if (tid < ncols) pf_id = ids[tok0 + list[t0 + tid]];
 #pragma unroll
-    for (int r = 0; r < MAX_Q_PER_THREAD; ++r) best[r] = -INFINITY;
+    for (int k = 0; k < MAX_W * NT / THREADS; ++k) {
+      const int i = tid + k * THREADS;
+      if (i < ncols * W)
+        pf_w[k] = __ldg(words + (tok0 + list[t0 + i / W]) * W + i % W);
+    }
+  };
+  fetch(0);
 
-    for (int t0 = 0; t0 < Ld; t0 += CHUNK) {
-      const int n = min(CHUNK, Ld - t0);
-      const size_t base = cand * Ld + t0;
-      const int valid = (tid < n) ? (int)dmask[base + tid] : 0;
-      if (tid < CHUNK) live[tid] = valid;
-      if (!__syncthreads_or(valid)) continue;  // fully masked chunk
-      for (int t = warp; t < n; t += nwarps)
-        if (live[t])
-          warp_unpack_reconstruct(words + (base + t) * W, ids[base + t],
-                                  centroids, vals, dim, bits,
-                                  ds + t * stride);
-      __syncthreads();
+  // 2. the query's tokens as TF32 hi + lo; the value table as [NB][dim]
+  for (int i = tid; i < QP * dim; i += THREADS) {
+    const int r = i / dim, e = i % dim;
+    const float x = r < Lq ? q[((size_t)qi * Lq + r) * dim + e] : 0.f;
+    const uint32_t hi = to_tf32(x);
+    qhi[r * DS + e] = hi;
+    qlo[r * DS + e] = to_tf32(x - __uint_as_float(hi));
+  }
+  for (int i = tid; i < dim * NB; i += THREADS)
+    vt[(i % NB) * dim + i / NB] = values[i];
+  for (int i = tid; i < CPB * QP; i += THREADS) best[i] = -INFINITY;
+  __syncthreads();
+
+  // this lane's dimensions lane + 32 i: their word and bit offset
+  int wi[MAX_DIM / 32], sh[MAX_DIM / 32];
 #pragma unroll
-      for (int r = 0; r < MAX_Q_PER_THREAD; ++r) {
-        const int lq = g + r * GROUPS;
-        if (lq >= Lq) break;
-        const float* qrow = qs + lq * stride;
-        for (int t = sub; t < n; t += SUBS) {
-          if (!live[t]) continue;
-          const float* drow = ds + t * stride;
-          float acc = 0.f;
-          for (int e = 0; e < dim; ++e) acc = __fmaf_rn(qrow[e], drow[e], acc);
-          best[r] = fmaxf(best[r], acc);
+  for (int i = 0; i < MAX_DIM / 32; ++i) {
+    wi[i] = (lane + 32 * i) / CPW;
+    sh[i] = (lane + 32 * i) % CPW * BITS;
+  }
+  const int c0 = warp * WCOLS;
+  for (int t0 = 0; t0 < total; t0 += NT) {
+    const int ncols = min(NT, total - t0);
+    if (tid < ncols) {
+      tok_id[tid] = pf_id;
+      col_cand[tid] = list[t0 + tid] / Ld;
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_W * NT / THREADS; ++k)
+      if (tid + k * THREADS < ncols * W) wbuf[tid + k * THREADS] = pf_w[k];
+    __syncthreads();
+
+    // 3. reconstruct the tile's rows, ROWS a warp a pass
+    for (int j = warp; j < ncols; j += ROWS * NWARPS) {
+      float v[ROWS][MAX_DIM / 32], ss[ROWS];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const int jj = min(j + u * NWARPS, ncols - 1);
+        const uint32_t* w = wbuf + jj * W;
+        const float* crow = centroids + (size_t)tok_id[jj] * dim;
+        ss[u] = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAX_DIM / 32; ++i) {
+          const int e = lane + 32 * i;
+          if (e < dim) {
+            const int code = (w[wi[i]] >> sh[i]) & (NB - 1);
+            v[u][i] = __fadd_rn(__ldg(crow + e), vt[code * dim + e]);
+            ss[u] = __fmaf_rn(v[u][i], v[u][i], ss[u]);
+          }
         }
       }
-      __syncthreads();
+      // the sums of squares (quant.cuh's warp_sum order) of all ROWS rows
+      // together, then every division before any store
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u)
+          ss[u] += __shfl_xor_sync(0xffffffffu, ss[u], o);
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const float inv = fmaxf(sqrtf(ss[u]), 1e-9f);
+#pragma unroll
+        for (int i = 0; i < MAX_DIM / 32; ++i)
+          v[u][i] = __fdiv_rn(v[u][i], inv);
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const int jj = j + u * NWARPS;
+        if (jj < ncols) {
+#pragma unroll
+          for (int i = 0; i < MAX_DIM / 32; ++i) {
+            const int e = lane + 32 * i;
+            if (e < dim) tile[jj * DS + e] = v[u][i];
+          }
+        }
+      }
     }
+    __syncthreads();
 
-    // max over the SUBS threads of a query token, then the masked sum
+    if (t0 + NT < total) fetch(t0 + NT);
+
+    // 4. scores [QP, 16] of this warp's columns on the tensor cores
+    const int ntiles = min(NTW, max(0, (ncols - c0 + 7) / 8));
+    if (ntiles > 0) {
+      float acc[QCH][2][NTW][4];
+#pragma unroll
+      for (int a = 0; a < QCH; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int n = 0; n < NTW; ++n)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[a][b][n][r] = 0.f;
+      for (int k0 = 0; k0 < dim; k0 += 8) {
+        uint32_t bh[NTW][2], bl[NTW][2];
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const float* drow = tile + (c0 + 8 * n + g) * DS + k0 + t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = drow[4 * h];
+            bh[n][h] = to_tf32(x);
+            bl[n][h] = to_tf32(x - __uint_as_float(bh[n][h]));
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < QCH; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int r0 = (32 * a + 16 * b + g) * DS + k0 + t;
+            const int rows[4] = {r0, r0 + 8 * DS, r0 + 4, r0 + 8 * DS + 4};
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              ah[r] = qhi[rows[r]];
+              al[r] = qlo[rows[r]];
+            }
+#pragma unroll
+            for (int n = 0; n < NTW; ++n)
+              if (n < ntiles) {
+                mma_tf32(acc[a][b][n], al, bh[n][0], bh[n][1]);
+                mma_tf32(acc[a][b][n], ah, bl[n][0], bl[n][1]);
+                mma_tf32(acc[a][b][n], ah, bh[n][0], bh[n][1]);
+              }
+          }
+      }
+
+      // 5. the max over each candidate's columns, into best[candidate]
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        if (n >= ntiles) break;
+        const int col0 = c0 + 8 * n;
+        const int cl = col_cand[col0];
+        const bool one = col0 + 7 < ncols && col_cand[col0 + 7] == cl;
+#pragma unroll
+        for (int a = 0; a < QCH; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const float (&c)[4] = acc[a][b][n];
+            const int row = 32 * a + 16 * b + g;
+            if (one) {
+              float m0 = fmaxf(c[0], c[1]), m8 = fmaxf(c[2], c[3]);
+#pragma unroll
+              for (int o = 1; o < 4; o <<= 1) {
+                m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+                m8 = fmaxf(m8, __shfl_xor_sync(0xffffffffu, m8, o));
+              }
+              if (t == 0) {
+                atomic_max(best + cl * QP + row, m0);
+                atomic_max(best + cl * QP + row + 8, m8);
+              }
+            } else {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int col = col0 + 2 * t + h;
+                if (col < ncols) {
+                  const int cc = col_cand[col];
+                  atomic_max(best + cc * QP + row, c[h]);
+                  atomic_max(best + cc * QP + row + 8, c[2 + h]);
+                }
+              }
+            }
+          }
+      }
+    }
+    __syncthreads();                        // tile, ids and maxima settled
+  }
+
+  // 6. the masked sum over the query's tokens, warp w for candidate w
+  if (warp < ns) {
     float part = 0.f;
 #pragma unroll
-    for (int r = 0; r < MAX_Q_PER_THREAD; ++r) {
-      float b = best[r];
-#pragma unroll
-      for (int o = SUBS / 2; o > 0; o >>= 1)
-        b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
-      const int lq = g + r * GROUPS;
-      if (sub == 0 && lq < Lq && qmask[(size_t)qi * Lq + lq] && isfinite(b))
-        part += b;
+    for (int i = 0; i < QCH; ++i) {
+      const int lq = lane + 32 * i;
+      const float b = best[warp * QP + lq];
+      if (lq < Lq && qmask[(size_t)qi * Lq + lq] && isfinite(b)) part += b;
     }
     part = warp_sum(part);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    if (tid == 0) {
-      float total = 0.f;
-      for (int w = 0; w < nwarps; ++w) total += red[w];
-      out[cand] = total;
-    }
-    __syncthreads();
+    if (lane == 0) out[(size_t)qi * S + s0 + warp] = part;
   }
+}
+
+template <int QCH, int BITS, int DIM>
+int launch_q(const float* q, const uint8_t* qmask, const uint32_t* words,
+             const int32_t* ids, const uint8_t* dmask, const float* centroids,
+             const float* values, float* out, int Nq, int Lq, int dim, int S,
+             int Ld, int W, size_t smem, cudaStream_t stream) {
+  cudaFuncSetAttribute(maxsim_packed_kernel<QCH, BITS, DIM>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid((S + CPB - 1) / CPB, Nq);
+  maxsim_packed_kernel<QCH, BITS, DIM><<<grid, THREADS, smem, stream>>>(
+      q, qmask, words, ids, dmask, centroids, values, out, Lq, dim, S, Ld, W);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int DIM>
+int launch_d(const float* q, const uint8_t* qmask, const uint32_t* words,
+             const int32_t* ids, const uint8_t* dmask, const float* centroids,
+             const float* values, float* out, int Nq, int Lq, int dim, int S,
+             int Ld, int W, size_t smem, cudaStream_t s) {
+  switch (Lq > 32 ? (Lq + 31) / 32 : 1) {
+    case 1: return launch_q<1, BITS, DIM>(q, qmask, words, ids, dmask,
+                                          centroids, values, out, Nq, Lq, dim,
+                                          S, Ld, W, smem, s);
+    case 2: return launch_q<2, BITS, DIM>(q, qmask, words, ids, dmask,
+                                          centroids, values, out, Nq, Lq, dim,
+                                          S, Ld, W, smem, s);
+    case 3: return launch_q<3, BITS, DIM>(q, qmask, words, ids, dmask,
+                                          centroids, values, out, Nq, Lq, dim,
+                                          S, Ld, W, smem, s);
+    default: return launch_q<4, BITS, DIM>(q, qmask, words, ids, dmask,
+                                           centroids, values, out, Nq, Lq,
+                                           dim, S, Ld, W, smem, s);
+  }
+}
+
+template <int BITS>
+int launch_b(const float* q, const uint8_t* qmask, const uint32_t* words,
+             const int32_t* ids, const uint8_t* dmask, const float* centroids,
+             const float* values, float* out, int Nq, int Lq, int dim, int S,
+             int Ld, int W, size_t smem, cudaStream_t s) {
+  return dim == MAX_DIM
+             ? launch_d<BITS, MAX_DIM>(q, qmask, words, ids, dmask, centroids,
+                                       values, out, Nq, Lq, dim, S, Ld, W,
+                                       smem, s)
+             : launch_d<BITS, 0>(q, qmask, words, ids, dmask, centroids,
+                                 values, out, Nq, Lq, dim, S, Ld, W, smem, s);
 }
 
 }  // namespace
 
-extern "C" size_t maxsim_packed_smem_bytes(int Lq, int dim, int bits) {
-  return sizeof(float) * ((size_t)(Lq + CHUNK) * (dim + 1) +
-                          (size_t)dim * (1 << bits) + THREADS / 32) +
-         sizeof(int) * CHUNK;
+extern "C" size_t maxsim_packed_smem_bytes(int Lq, int dim, int bits,
+                                           int Ld) {
+  const int QP = 32 * (Lq > 32 ? (Lq + 31) / 32 : 1);
+  return sizeof(uint32_t) * 2 * (size_t)QP * (dim + 4) +
+         sizeof(float) * ((size_t)NT * (dim + 4) + (size_t)dim * (1 << bits) +
+                          (size_t)CPB * QP) +
+         sizeof(uint32_t) * (size_t)NT * dim * bits / 32 +
+         sizeof(int) * (2 * NT + CPB + 1) + sizeof(uint16_t) * (size_t)CPB * Ld;
 }
 
 // q [Nq, Lq, dim] f32; qmask [Nq, Lq] u8; words [Nq, S, Ld, W] u32;
 // ids / dmask [Nq, S, Ld] i32 / u8; centroids [K, dim]; values
-// [dim, 2^bits] -> out [Nq, S] f32, Lq <= 128. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a longer query).
+// [dim, 2^bits] -> out [Nq, S] f32, Lq <= 128, dim <= 128 and a multiple
+// of 8, bits 2 or 4, CPB * Ld < 65536. Returns cudaGetLastError()
+// (cudaErrorInvalidValue outside those limits).
 extern "C" int maxsim_packed_launch(const float* q, const uint8_t* qmask,
                                     const uint32_t* words,
                                     const int32_t* ids, const uint8_t* dmask,
@@ -142,15 +422,15 @@ extern "C" int maxsim_packed_launch(const float* q, const uint8_t* qmask,
                                     const float* values, float* out, int Nq,
                                     int Lq, int dim, int S, int Ld, int W,
                                     int bits, void* stream) {
-  if (Lq > GROUPS * MAX_Q_PER_THREAD) return (int)cudaErrorInvalidValue;
-  const size_t smem = maxsim_packed_smem_bytes(Lq, dim, bits);
-  cudaFuncSetAttribute(maxsim_packed_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((S + CANDS_PER_BLOCK - 1) / CANDS_PER_BLOCK, Nq);
-  if (Nq > 0 && S > 0)
-    maxsim_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        q, qmask, words, ids, dmask, centroids, values, out, Lq, dim, S, Ld,
-        W, bits);
-  return (int)cudaGetLastError();
+  if (Lq > 32 * MAX_QCH || dim > MAX_DIM || dim % 8 != 0 ||
+      (bits != 2 && bits != 4) || (long)CPB * Ld >= 65536)
+    return (int)cudaErrorInvalidValue;
+  if (Nq == 0 || S == 0) return (int)cudaGetLastError();
+  const size_t smem = maxsim_packed_smem_bytes(Lq, dim, bits, Ld);
+  cudaStream_t s = (cudaStream_t)stream;
+  return bits == 2
+             ? launch_b<2>(q, qmask, words, ids, dmask, centroids, values,
+                           out, Nq, Lq, dim, S, Ld, W, smem, s)
+             : launch_b<4>(q, qmask, words, ids, dmask, centroids, values,
+                           out, Nq, Lq, dim, S, Ld, W, smem, s);
 }

@@ -20,7 +20,9 @@ from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref
 LAUNCHES = LaunchCounter()
 _NAME = "maxsim_packed"
 _SMEM_LIMIT = 232448
-MAX_LQ = 128        # query tokens a launch (csrc: GROUPS * MAX_Q_PER_THREAD)
+MAX_LQ = 128        # query tokens a launch (csrc: 32 * MAX_QCH)
+MAX_DIM = 128       # token width the kernel takes, a multiple of 8
+MAX_LD = 8191       # doc tokens a candidate (csrc: CPB * Ld < 65536)
 _lib = None
 
 
@@ -31,7 +33,7 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.maxsim_packed_launch.argtypes = [P] * 8 + [I] * 7 + [P]
         lib.maxsim_packed_launch.restype = I
-        lib.maxsim_packed_smem_bytes.argtypes = [I, I, I]
+        lib.maxsim_packed_smem_bytes.argtypes = [I, I, I, I]
         lib.maxsim_packed_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -71,10 +73,14 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
                          f"words {tuple(words.shape)} ids {tuple(ids.shape)} "
                          f"centroids {tuple(centroids.shape)} "
                          f"values {tuple(values.shape)}")
+    if dim > MAX_DIM or dim % 8 or Ld > MAX_LD:
+        raise ValueError(f"{_NAME}: dim={dim} (at most {MAX_DIM}, a multiple"
+                         f" of 8) or Ld={Ld} (at most {MAX_LD}) not taken")
     lib = _load()
     lq = min(Lq, MAX_LQ)
-    if lib.maxsim_packed_smem_bytes(lq, dim, bits) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: Lq={lq}, dim={dim} exceed shared memory")
+    if lib.maxsim_packed_smem_bytes(lq, dim, bits, Ld) > _SMEM_LIMIT:
+        raise ValueError(f"{_NAME}: Lq={lq}, dim={dim}, Ld={Ld} exceed "
+                         f"shared memory")
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def launch(qc, qmc):

@@ -5,6 +5,8 @@ Same argument layout as ``src/repro/kernels/plaid_probe/ops.py``
 version; CUDA tensors launch the kernel on the current stream or raise.
 A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
 into chunks of that many, one launch each, and the partial scores summed.
+A launch runs two kernels (the [Lq, K] table once per query into a
+scratch, then the probe), and the counter counts both.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ LAUNCHES = LaunchCounter()
 _NAME = "plaid_probe"
 _SMEM_LIMIT = 232448
 MAX_LQ = 128                # query tokens a launch (csrc: 32 * MAX_R)
+KERNELS_A_LAUNCH = 2        # the table kernel, then the probe kernel
 _lib = None
 
 
@@ -29,11 +32,13 @@ def _load():
     if _lib is None:
         lib = build.load(_NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.plaid_probe_launch.argtypes = ([P] * 7 + [I] * 6
+        lib.plaid_probe_launch.argtypes = ([P] * 8 + [I] * 6
                                            + [ctypes.c_float, P])
         lib.plaid_probe_launch.restype = I
         lib.plaid_probe_smem_bytes.argtypes = [I, I, I]
         lib.plaid_probe_smem_bytes.restype = ctypes.c_size_t
+        lib.plaid_probe_table_floats.argtypes = [I, I, I]
+        lib.plaid_probe_table_floats.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -66,6 +71,10 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
         raise ValueError(f"{_NAME}: inconsistent shapes q {tuple(q.shape)} "
                          f"centroids {tuple(centroids.shape)} "
                          f"codes {tuple(codes.shape)}")
+    for key, t in (("codes", codes), ("code_mask", code_mask)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{_NAME}: {key} must be 16-byte aligned "
+                             f"(read with 16-byte loads)")
     lib = _load()
     lq = min(Lq, MAX_LQ)
     if lib.plaid_probe_smem_bytes(lq, K, dim) > _SMEM_LIMIT:
@@ -75,13 +84,15 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
 
     def launch(qc, qmc):
         out = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
+        table = torch.empty(lib.plaid_probe_table_floats(Nq, qc.shape[1], K),
+                            dtype=torch.float32, device=q.device)
         code = lib.plaid_probe_launch(
             qc.data_ptr(), qmc.data_ptr(), centroids.data_ptr(),
             codes.data_ptr(), code_mask.data_ptr(), cand_mask.data_ptr(),
-            out.data_ptr(), Nq, qc.shape[1], dim, K, C, L, float(t_cs),
-            stream)
+            table.data_ptr(), out.data_ptr(), Nq, qc.shape[1], dim, K, C, L,
+            float(t_cs), stream)
         build.check(code, _NAME)
-        LAUNCHES.count += 1
+        LAUNCHES.count += KERNELS_A_LAUNCH
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)

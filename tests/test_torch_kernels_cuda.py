@@ -15,7 +15,10 @@ to 1e-5 in f32 (the online softmax rescales by the running max, the
 plain version by the row max) and to 1e-2 (atol and rtol) in bf16, where
 p and the output are rounded to bf16 at different scales on the two
 sides (about one bf16 step at values near 2), rows that see no column
-exactly 0 on both.
+exactly 0 on both. The probe and packed-rerank designs are also held on
+the shapes they were built for (a sparse path-like slate, duplicate
+codes, an all-zero table, ragged tails, Ld = 129) to 1e-5, and the packed
+kernel at each of its documented limits and one past it (a raise).
 """
 import pytest
 import torch
@@ -26,7 +29,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.maxsim.ops import maxsim, maxsim_rerank
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
-from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
+from repro_torch.kernels.plaid_probe.ops import (KERNELS_A_LAUNCH,
+                                                 plaid_probe_scores)
 from repro_torch.kernels.quant.ops import dequant_score
 from repro_torch.kernels.ward_pool.ops import ward_assign
 from repro_torch.kernels.ward_pool.ref import ward_agree, ward_objective
@@ -107,8 +111,10 @@ def test_probe_kernel_equals_plain(dev, Lq):
     vm = torch.rand((Nq, C), generator=g, device=dev) < 0.8
     before = launch_counts()["plaid_probe"]
     got = plaid_probe_scores(q, qm, cen, codes, cm, vm, t_cs=0.1)
-    # one launch for each chunk of at most 128 query tokens
-    assert launch_counts()["plaid_probe"] == before + -(-Lq // 128)
+    # one launch (the table kernel, then the probe kernel) for each chunk
+    # of at most 128 query tokens
+    assert launch_counts()["plaid_probe"] == (
+        before + KERNELS_A_LAUNCH * -(-Lq // 128))
     want = plaid_probe_scores(q, qm, cen, codes, cm, vm, t_cs=0.1, impl="ref")
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
@@ -137,6 +143,114 @@ def test_packed_kernel_equals_plain(dev, bits, Lq):
                                 impl="ref")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert float(got[0, 0]) == 0.0
+
+
+def _probe_hold(got, want):
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["sparse slate", "duplicate codes",
+                                  "all-zero table", "ragged"])
+def test_probe_kernel_design_cases(dev, case):
+    """The table-once design on the shapes it was built for: a path-like
+    slate (C = 4,096, 5% of slots valid, as a valid prefix), documents
+    whose tokens repeat one or two codes (the kernel's distinct-code
+    lookups; the other cases read every token), t_cs above every score
+    (every table entry 0), and C not a multiple of the block's slots with
+    L = 129 (codes rows at every 16-byte alignment)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    Nq, Lq, dim, K, L = 6, 32, 128, 256, 129
+    C = 1000 if case == "ragged" else 4096
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    codes = torch.randint(0, K, (Nq, C, L), generator=g, device=dev,
+                          dtype=torch.int32)
+    if case == "duplicate codes":
+        codes = (codes[:, :, :1] + torch.randint(
+            0, 2, (Nq, C, L), generator=g, device=dev,
+            dtype=torch.int32)) % K
+    cm = torch.rand((Nq, C, L), generator=g, device=dev) < 0.8
+    vm = torch.rand((Nq, C), generator=g, device=dev) < 0.9
+    if case == "sparse slate":
+        vm = torch.arange(C, device=dev)[None, :] < torch.randint(
+            150, 260, (Nq, 1), generator=g, device=dev)
+    t_cs = 2.0 if case == "all-zero table" else 0.1
+    args = (q, qm, cen, codes.contiguous(), cm, vm)
+    got = plaid_probe_scores(*args, t_cs=t_cs)
+    _probe_hold(got, plaid_probe_scores(*args, t_cs=t_cs, impl="ref"))
+    if case == "all-zero table":
+        assert (got[vm] == 0).all()
+
+
+@pytest.mark.parametrize("dim", [128, 64])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("S", [1024, 37])
+def test_packed_kernel_design_cases(dev, bits, S, dim):
+    """The tensor-core design at Ld = 129: a full slate (S = 1,024) and a
+    ragged one (S not a multiple of the block's 8 candidates), about a
+    fifth of the candidates fully masked, docs of every valid length (tiles
+    cut inside and across candidates), masked query tokens; the model's
+    width (128, compiled in) and another (64, taken at run time); to
+    rtol 1e-5, atol 1e-5 with all-masked candidates exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(S + bits + dim)
+    Nq, Lq, K, Ld = 4, 32, 256, 129
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    W = dim * bits // 32
+    w = torch.randint(-2 ** 31, 2 ** 31 - 1, (Nq, S, Ld, W), generator=g,
+                      device=dev, dtype=torch.int32)
+    ids = torch.randint(0, K, (Nq, S, Ld), generator=g, device=dev,
+                        dtype=torch.int32)
+    n_valid = torch.randint(0, Ld + 1, (Nq, S, 1), generator=g, device=dev)
+    dm = torch.arange(Ld, device=dev) < n_valid
+    dm &= torch.rand((Nq, S, 1), generator=g, device=dev) < 0.8
+    vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
+    got = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits)
+    want = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits,
+                                impl="ref")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[~dm.any(-1)] == 0).all()
+
+
+@pytest.mark.parametrize("Lq,bits,dim,Ld,takes", [
+    (128, 4, 128, 509, True),    # b = 4, 97-128 query tokens: Ld <= 509
+    (128, 4, 128, 510, False),
+    (128, 2, 128, 1149, True),   # b = 2, 97-128 query tokens: Ld <= 1,149
+    (128, 2, 128, 1150, False),
+    (32, 2, 128, 7677, True),    # b = 2, <= 32 query tokens: Ld <= 7,677
+    (32, 2, 128, 7678, False),
+    (32, 2, 64, 8191, True),     # Ld <= 8,191 (16-bit token indices)
+    (32, 2, 64, 8192, False),
+    (32, 4, 136, 16, False),     # dim <= 128
+])
+def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, takes):
+    """The packed kernel's documented limits (the plain version takes
+    any): at each limit it runs and agrees with the plain version, one
+    past it the wrapper raises before any launch."""
+    g = torch.Generator(device=dev).manual_seed(Ld)
+    Nq, S, K = 1, 9, 64
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
+    w = torch.randint(-2 ** 31, 2 ** 31 - 1, (Nq, S, Ld, dim * bits // 32),
+                      generator=g, device=dev, dtype=torch.int32)
+    ids = torch.randint(0, K, (Nq, S, Ld), generator=g, device=dev,
+                        dtype=torch.int32)
+    dm = torch.rand((Nq, S, Ld), generator=g, device=dev) < 0.9
+    vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
+    args = (q, qm, w, ids, dm, cen, vals)
+    before = launch_counts()["maxsim_packed"]
+    if not takes:
+        with pytest.raises(ValueError, match="maxsim_packed"):
+            maxsim_packed_rerank(*args, bits=bits)
+        assert launch_counts()["maxsim_packed"] == before
+        return
+    got = maxsim_packed_rerank(*args, bits=bits)
+    assert launch_counts()["maxsim_packed"] == before + 1
+    torch.testing.assert_close(
+        got, maxsim_packed_rerank(*args, bits=bits, impl="ref"),
+        rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("Nq,Lq,dim,Nd,Ld", [

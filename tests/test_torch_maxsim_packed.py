@@ -15,6 +15,8 @@ from repro.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref as j_rr
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
+from repro_torch.kernels.maxsim_packed.ref import (maxsim_packed_3xtf32_ref,
+                                                   tf32_split_ref)
 
 
 @pytest.mark.parametrize("bits", [2, 4])
@@ -86,3 +88,37 @@ def test_packed_cpu_dispatch_is_the_plain_version():
     ref, _ = _both(args, 2, impl="ref")
     np.testing.assert_array_equal(auto, ref)
     assert launch_counts()["maxsim_packed"] == before
+
+
+def test_tf32_split():
+    """hi keeps 10 mantissa bits, rounded to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``); hi + lo is within 2^-21 of x relative."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -1.0 - 2 ** -11, 3.14159265, 1e-3, 0.0])
+    hi, lo = tf32_split_ref(x)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert (lo.view(torch.int32) & 0x1FFF == 0).all()
+    np.testing.assert_array_equal(
+        hi[:4].numpy(), np.float32([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                    -1.0 - 2 ** -10]))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi, lo = tf32_split_ref(x)
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= x.double().abs() * 2 ** -21).all()
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_products_match_reference(seed, bits):
+    """The kernel's products, hi.hi + hi.lo + lo.hi of TF32 parts, at the
+    model's width (dim 128) against the JAX reference to rtol 1e-5,
+    atol 1e-5; single-pass TF32 (hi.hi) misses that tolerance."""
+    args = _inputs(seed, bits, Lq=32, S=16, Ld=40, dim=128)
+    want = _both(args, bits)[1]
+    t = [torch.from_numpy(a) for a in args]
+    t[2] = torch.from_numpy(args[2].view(np.int32))
+    got = maxsim_packed_3xtf32_ref(*t, bits=bits).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    one = maxsim_packed_3xtf32_ref(*t, bits=bits, passes=1).numpy()
+    assert not np.allclose(one, want, rtol=1e-5, atol=1e-5)
