@@ -2,9 +2,12 @@
 """On-card smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card; no network
-    python3 chip_smoke.py --parent DIR   # also time the single-kernel
-                                         # plaid_probe and maxsim_packed of
-                                         # an earlier checkout inside this one
+    python3 chip_smoke.py --parent DIR   # also build and time the parent
+                                         # commit's plaid_probe,
+                                         # maxsim_packed, kmeans_assign and
+                                         # all-pairs maxsim (their csrc
+                                         # unpacked in DIR, inside this
+                                         # checkout)
 
 1. Builds the seven CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, started together).
@@ -88,11 +91,18 @@
    dispatch is not counted where the call does not wait on the card);
    prints each kernel's bound (bytes over 3.35 TB/s or operations over
    the f32 peak of 67 TFLOP/s — for ``flash_attention`` the bf16
-   tensor-core peak of 989 TFLOP/s, for ``maxsim_packed``'s products
-   three passes at the TF32 peak of 494.7 TFLOP/s — the larger). With
-   ``--parent``, the earlier checkout's ``plaid_probe`` and
-   ``maxsim_packed`` (their C entries checked against ``PARENT_ABI``)
-   are built and timed on the same inputs. One main-path
+   tensor-core peak of 989 TFLOP/s, for the products of
+   ``maxsim_packed``, ``maxsim`` and ``kmeans_assign`` three passes at
+   the TF32 peak of 494.7 TFLOP/s, the f32 bound printed beside — the
+   larger). ``maxsim`` is also held and timed at the flat path's own
+   inputs (one search batch's arguments, captured) and ``kmeans_assign``
+   on random unit vectors at its path's shape; both are timed beside
+   ``torch.matmul`` of their product alone (f32, TF32 off; for reference
+   only: no port, no library_ms) and their SASS must hold HMMA. With
+   ``--parent``, the earlier checkout's ``plaid_probe``,
+   ``maxsim_packed``, ``kmeans_assign`` and ``maxsim`` (their C entries
+   checked against ``PARENT_ABI``) are built, held to the same limits and
+   timed on the same inputs. One main-path
    ``search_encoded`` batch is traced with ``torch.profiler`` and split
    by its ``search.*`` ranges (centroid scores, ``probe_members`` and
    compaction, the code gather, ``plaid_probe``, the ``stable_topk``
@@ -631,8 +641,9 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
         times[what] = _time_ms(lambda: run(args, bits))
         if parent:
             got = parent["maxsim_packed"](*args, bits)
-            _hold(f"maxsim_packed {what}, parent design", torch, got,
-                  run(args, bits, "ref"), [])
+            if not torch.equal(got, run(args, bits)):
+                raise AssertionError(f"maxsim_packed {what}: differs from "
+                                     f"the parent design's scores")
             times[what + " parent"] = _time_ms(
                 lambda: parent["maxsim_packed"](*args, bits))
     # a long query (Lq = 300): three launches of at most 128 tokens, summed
@@ -668,7 +679,9 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
                 parent_path_ms=times.get("path parent"), times_ms=times,
                 check=f"allclose rtol 1e-5 atol {SCORE_ATOL} at b=2 and b=4 "
                       f"(Nq={Nq}, S={S}, Ld={ids.shape[1]}), at the main "
-                      f"path's own inputs and at Lq={LONG_LQ}, S=256 (three "
+                      f"path's own inputs"
+                      f"{' (equal to the parent design)' if parent else ''}"
+                      f" and at Lq={LONG_LQ}, S=256 (three "
                       f"launches); timed at b={bits}; bound: valid tokens' "
                       f"bytes, products at 3 passes of the TF32 rate "
                       f"{TF32_OPS_PER_S:.4g}/s, reconstruction at f32")
@@ -777,7 +790,7 @@ def flat_path(rt, torch, model, docs, queries):
           f"steady {search_s:.4f}s")
     _agree("flat path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
-    return index
+    return capture_maxsim_args(torch, searcher, queries)
 
 
 def recon_path(torch, index, searcher, queries, S, I):
@@ -1023,27 +1036,36 @@ def search_split(torch, searcher, qv):
 
 
 # The C entries an earlier checkout must declare for ``--parent``: the
-# single-kernel designs these replaced (no table scratch).
+# designs of this checkout's parent (commit 62dcf7b) — the 3xTF32
+# maxsim_packed and the table-once plaid_probe, which this checkout keeps,
+# and the f32 FMA kmeans_assign and all-pairs maxsim it replaces.
 PARENT_ABI = {
     "plaid_probe": "int plaid_probe_launch(const float* q, const uint8_t* "
                    "qmask, const float* centroids, const int32_t* codes, "
-                   "const uint8_t* cmask, const uint8_t* vmask, float* out, "
-                   "int Nq, int Lq, int dim, int K, int C, int L, float "
-                   "t_cs, void* stream)",
+                   "const uint8_t* cmask, const uint8_t* vmask, float* "
+                   "table, float* out, int Nq, int Lq, int dim, int K, int "
+                   "C, int L, float t_cs, void* stream)",
     "maxsim_packed": "int maxsim_packed_launch(const float* q, const "
                      "uint8_t* qmask, const uint32_t* words, const int32_t* "
                      "ids, const uint8_t* dmask, const float* centroids, "
                      "const float* values, float* out, int Nq, int Lq, int "
                      "dim, int S, int Ld, int W, int bits, void* stream)",
+    "kmeans_assign": "int kmeans_assign_launch(const float* x, const float* "
+                     "centroids, const uint8_t* kmask, int32_t* assign, "
+                     "float* best, int B, int N, int K, int dim, void* "
+                     "stream)",
+    "maxsim": "int maxsim_launch(const float* q, const uint8_t* qmask, "
+              "const float* d, const uint8_t* dmask, float* out, int Nq, "
+              "int Lq, int dim, int Nd, int Ld, void* stream)",
 }
 
 
 def parent_kernels(parent):
-    """The ``plaid_probe`` and ``maxsim_packed`` of an earlier checkout at
-    ``parent``, a directory inside this checkout holding its
-    ``src/repro_torch/csrc``, built with the same nvcc flags, as callables
-    on the wrappers' arguments (at most 128 query tokens); {} without one.
-    Raises unless each source declares its ``PARENT_ABI`` entry."""
+    """The kernels of ``PARENT_ABI`` from an earlier checkout at ``parent``,
+    a directory inside this checkout holding its ``src/repro_torch/csrc``,
+    built with the same nvcc flags, as callables on the wrappers'
+    arguments (at most 128 query tokens); {} without one. Raises unless
+    each source declares its ``PARENT_ABI`` entry."""
     import ctypes
     import re
     import torch
@@ -1079,9 +1101,16 @@ def parent_kernels(parent):
         libs[name] = ctypes.CDLL(lib)
     P, I = ctypes.c_void_p, ctypes.c_int
     probe = libs["plaid_probe"].plaid_probe_launch
-    probe.argtypes = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
+    probe.argtypes = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+    table_floats = libs["plaid_probe"].plaid_probe_table_floats
+    table_floats.argtypes = [I, I, I]
+    table_floats.restype = ctypes.c_size_t
     packed = libs["maxsim_packed"].maxsim_packed_launch
     packed.argtypes = [P] * 8 + [I] * 7 + [P]
+    assign = libs["kmeans_assign"].kmeans_assign_launch
+    assign.argtypes = [P] * 5 + [I] * 4 + [P]
+    allpairs = libs["maxsim"].maxsim_launch
+    allpairs.argtypes = [P] * 5 + [I] * 5 + [P]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -1089,10 +1118,12 @@ def parent_kernels(parent):
     def run_probe(q, qm, cen, codes, cm, vm, t_cs):
         (Nq, Lq, dim), (K, _), (_, C, L) = q.shape, cen.shape, codes.shape
         o = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
+        table = torch.empty(table_floats(Nq, Lq, K), dtype=torch.float32,
+                            device=q.device)
         build.check(probe(q.data_ptr(), qm.data_ptr(), cen.data_ptr(),
                           codes.data_ptr(), cm.data_ptr(), vm.data_ptr(),
-                          o.data_ptr(), Nq, Lq, dim, K, C, L, float(t_cs),
-                          stream()), "parent plaid_probe")
+                          table.data_ptr(), o.data_ptr(), Nq, Lq, dim, K, C,
+                          L, float(t_cs), stream()), "parent plaid_probe")
         return o
 
     def run_packed(q, qm, w, a, dm, cen, vals, bits):
@@ -1104,7 +1135,25 @@ def parent_kernels(parent):
                            W, bits, stream()), "parent maxsim_packed")
         return o
 
-    return {"plaid_probe": run_probe, "maxsim_packed": run_packed}
+    def run_assign(x, c, km):
+        (B, N, dim), K = x.shape, c.shape[1]
+        a = torch.empty((B, N), dtype=torch.int32, device=x.device)
+        b = torch.empty((B, N), dtype=torch.float32, device=x.device)
+        build.check(assign(x.data_ptr(), c.data_ptr(), km.data_ptr(),
+                           a.data_ptr(), b.data_ptr(), B, N, K, dim,
+                           stream()), "parent kmeans_assign")
+        return a, b
+
+    def run_allpairs(q, qm, d, dm):
+        (Nq, Lq, dim), (Nd, Ld, _) = q.shape, d.shape
+        o = torch.empty((Nq, Nd), dtype=torch.float32, device=q.device)
+        build.check(allpairs(q.data_ptr(), qm.data_ptr(), d.data_ptr(),
+                             dm.data_ptr(), o.data_ptr(), Nq, Lq, dim, Nd, Ld,
+                             stream()), "parent maxsim")
+        return o
+
+    return {"plaid_probe": run_probe, "maxsim_packed": run_packed,
+            "kmeans_assign": run_assign, "maxsim": run_allpairs}
 
 
 def _launches(name):
@@ -1112,8 +1161,45 @@ def _launches(name):
     return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
 
-def check_maxsim(torch, dev, index, qv):
-    """All-pairs kernel at the recon store's full width (Nd = 16,384)."""
+def _allpairs_bound(q, qm, d, dm):
+    """Bytes: q, d and their masks read once, the scores written once;
+    operations: 2 dim x valid query tokens x valid doc tokens, three passes
+    at the TF32 tensor-core rate (-> bound, by, and the f32 bound)."""
+    dim = q.shape[2]
+    n_bytes = _nbytes(q, qm, d, dm) + q.shape[0] * d.shape[0] * 4
+    ops = 2 * dim * int(qm.sum()) * int(dm.sum())
+    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+    return bound, by, _bound_ms(n_bytes, ops)[0]
+
+
+def capture_maxsim_args(torch, searcher, queries):
+    """The arguments of the all-pairs ``maxsim`` call of one search batch
+    (the flat path's own inputs). Outside every counted run."""
+    import repro_torch.kernels.maxsim.ops as mo
+    seen = []
+    inner = mo.maxsim
+
+    def keep(*args, **kw):
+        if not seen:
+            seen.append(args)
+        return inner(*args, **kw)
+
+    mo.maxsim = keep
+    try:
+        searcher.search(queries[:QUERY_BATCH], k=TOP_K)
+    finally:
+        mo.maxsim = inner
+    if not seen:
+        raise AssertionError("the search batch made no maxsim call")
+    return seen[0]
+
+
+def check_maxsim(torch, dev, index, qv, flat_args, parent):
+    """All-pairs kernel at the recon store's full width (Nd = 16,384) and
+    at the flat path's own inputs (``flat_args``), each held to the plain
+    version; timed beside the parent design where ``parent`` holds it,
+    and beside ``torch.matmul`` of the same product alone (TF32 off): no
+    port, no library_ms (it leaves out the masked maxima and sums)."""
     from repro_torch.kernels.maxsim.ops import maxsim
     d, dm = index._plaid.recon_store().padded()
     dm = dm.clone()
@@ -1121,27 +1207,68 @@ def check_maxsim(torch, dev, index, qv):
     Nq, Lq, dim = qv.shape
     qm = torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
     qm[:, -2:] = False                           # masked query tokens
-    got = maxsim(qv, qm, d, dm)
-    want = maxsim(qv, qm, d, dm, impl="ref")
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
-        raise AssertionError(f"maxsim: max abs err {err}")
-    if float(got[:, 0].abs().max()) != 0.0:
-        raise AssertionError("maxsim: the all-masked doc did not score 0")
-    ops = 2 * dim * int(qm.sum()) * int(dm.sum())
-    bound, by = _bound_ms(_nbytes(qv, qm, d, dm) + got.numel() * 4, ops)
+    cases = {"synthetic": (qv, qm, d, dm), "flat path": flat_args}
+    errs, times = [], {}
+    for what, args in cases.items():
+        got = maxsim(*args)
+        want = maxsim(*args, impl="ref")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs.append(err)
+        if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
+            raise AssertionError(f"maxsim {what}: max abs err {err}")
+        dead = ~args[3].any(1)
+        if bool(dead.any()) and float(got[:, dead].abs().max()) != 0.0:
+            raise AssertionError(f"maxsim {what}: an all-masked doc did not "
+                                 f"score 0")
+        times[what] = _time_ms(lambda: maxsim(*args))
+        if parent:
+            pgot = parent["maxsim"](*args)
+            perr = float((pgot - want).abs().max())
+            if not torch.allclose(pgot, want, rtol=1e-5, atol=SCORE_ATOL):
+                raise AssertionError(f"maxsim {what}, parent design: max abs "
+                                     f"err {perr}")
+            times[what + " parent"] = _time_ms(lambda: parent["maxsim"](*args))
+        del got, want
+    # the product alone, [Nq Lq, dim] x [dim, Nd Ld] in f32 (TF32 off)
+    mm = {}
+    for what, (q, _, dd, _) in cases.items():
+        a, b = q.reshape(-1, q.shape[2]), dd.reshape(-1, dd.shape[2])
+        buf = torch.empty((a.shape[0], b.shape[0]), device=dev)
+        mm[what] = _time_ms(lambda: torch.matmul(a, b.T, out=buf), reps=2)
+        del buf
+    bound, by, f32_bound = _allpairs_bound(qv, qm, d, dm)
+    path_bound, path_by, path_f32 = _allpairs_bound(*flat_args)
+    fq, fqm, fd, fdm = flat_args
+    print(f"maxsim flat path inputs: Nq={fq.shape[0]}, Lq={fq.shape[1]}, "
+          f"Nd={fd.shape[0]}, Ld={fd.shape[1]}, {int(fdm.sum())} valid doc "
+          f"tokens; bound {path_bound:.4f} ms ({path_by}; f32 "
+          f"{path_f32:.4f})")
+    print("maxsim times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + "; torch.matmul of the "
+        "product alone (f32, TF32 off; for reference, no port): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in mm.items())
+        + f"; {_hmma_count('maxsim')}")
     return dict(name="maxsim", route="cuda",
                 source="src/repro_torch/csrc/maxsim.cu",
                 replaces="src/repro/kernels/maxsim/kernel.py:42",
-                **_launches("maxsim"), max_abs_err=err,
-                ms=_time_ms(lambda: maxsim(qv, qm, d, dm)),
-                plain_ms=_time_ms(lambda: maxsim(qv, qm, d, dm, impl="ref"),
-                                  reps=2),
+                **_launches("maxsim"), max_abs_err=max(errs),
+                ms=times["synthetic"],
+                plain_ms=_time_ms(lambda: maxsim(*cases["synthetic"],
+                                                 impl="ref"), reps=2),
                 bound_ms=bound, bound_by=by, library_ms=None,
+                f32_bound_ms=f32_bound, path_ms=times["flat path"],
+                path_bound_ms=path_bound,
+                parent_ms=times.get("synthetic parent"),
+                parent_path_ms=times.get("flat path parent"),
+                matmul_ms=mm["synthetic"], path_matmul_ms=mm["flat path"],
                 check=f"allclose rtol 1e-5 atol {SCORE_ATOL}, all-masked doc "
                       f"0 (Nq={Nq}, Lq={Lq} with 2 masked, Nd={d.shape[0]}, "
-                      f"Ld={d.shape[1]}); library_ms {NO_LIBRARY}")
+                      f"Ld={d.shape[1]}; and the flat path's own inputs"
+                      f"{'; the parent design too' if parent else ''}); "
+                      f"bound: products at 3 passes of the TF32 rate "
+                      f"(f32 bound {f32_bound:.4f} ms); library_ms "
+                      f"{NO_LIBRARY}")
 
 
 def check_maxsim_rerank(torch, dev, index, qv):
@@ -1178,11 +1305,40 @@ def check_maxsim_rerank(torch, dev, index, qv):
                       f"library_ms {NO_LIBRARY}")
 
 
-def check_kmeans_assign(torch, dev, model, docs):
+def _assign_hold(what, torch, x, c, km, valid, got, want):
+    """Ids equal to the plain version's except on rows whose top two sims
+    lie within NEAR_TIE, best sims allclose rtol 1e-5 atol 1e-5;
+    -> (rows that differ, valid near-tie rows, max abs err of best)."""
+    got_a, got_s = got
+    want_a, want_s = want
+    sim = torch.bmm(x, c.transpose(1, 2)).masked_fill(~km[:, None, :],
+                                                      float("-inf"))
+    top2 = sim.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
+    differ = got_a != want_a
+    n_near, n_differ = int((near & valid).sum()), int(differ.sum())
+    bad = int((differ & ~near).sum())
+    err = float((got_s - want_s).abs().max())
+    print(f"kmeans_assign {what}: {n_differ} of {got_a.numel()} rows differ "
+          f"from the plain version, {n_near} valid rows have their top two "
+          f"sims within {NEAR_TIE}; rows that differ off a near tie: {bad}; "
+          f"best max abs err {err:.3g}")
+    if bad:
+        raise AssertionError(f"kmeans_assign {what}: {bad} rows differ off a "
+                             f"near tie")
+    if not torch.allclose(got_s, want_s, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"kmeans_assign {what}: best sims max abs err "
+                             f"{err}")
+    return n_differ, n_near, err
+
+
+def check_kmeans_assign(torch, dev, model, docs, parent):
     """At the k-means path's shapes: its first encode batch (B = 128,
     N = 256, d = 128) against its centroids after the last Lloyd step
-    (K = 129). Ids must equal the plain version's except on rows whose
-    top two sims lie within NEAR_TIE (their count is printed)."""
+    (K = 129), and at that shape on random unit vectors (the synthetic
+    case). Timed at the path's inputs beside the parent design where
+    ``parent`` holds it (held to the same limits), and beside
+    ``torch.matmul`` of the product alone (TF32 off; no port)."""
     from repro_torch.core.kmeans import kmeans_fit_batch
     from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
     from repro_torch.models.colbert import encode_docs
@@ -1190,39 +1346,61 @@ def check_kmeans_assign(torch, dev, model, docs):
     B, N, d = v.shape
     x, c, km = kmeans_fit_batch(v, emit, emit.sum(-1) // 2 + 1, N // 2 + 1)
     K = c.shape[1]
-    got_a, got_s = kmeans_assign(x, c, km)
-    want_a, want_s = kmeans_assign(x, c, km, impl="ref")
-    torch.cuda.synchronize()
-    sim = torch.bmm(x, c.transpose(1, 2)).masked_fill(~km[:, None, :],
-                                                      float("-inf"))
-    top2 = sim.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
-    differ = got_a != want_a
-    n_near, n_differ = int((near & emit).sum()), int(differ.sum())
-    bad = int((differ & ~near).sum())
-    err = float((got_s - want_s).abs().max())
-    print(f"kmeans_assign: {n_differ} of {B * N} rows differ from the plain "
-          f"version, all on near-tie rows: {bad == 0}; {n_near} valid rows "
-          f"have their top two sims within {NEAR_TIE}")
-    if bad:
-        raise AssertionError(f"kmeans_assign: {bad} rows differ off a "
-                             f"near tie")
-    if not torch.allclose(got_s, want_s, rtol=1e-5, atol=1e-5):
-        raise AssertionError(f"kmeans_assign: best sims max abs err {err}")
-    ops = 2 * d * N * int(km.sum())            # valid clusters only
-    bound, by = _bound_ms(_nbytes(x, c, km) + B * N * 8, ops)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    xs = torch.randn((B, N, d), generator=g, device=dev)
+    cs = torch.randn((B, K, d), generator=g, device=dev)
+    xs, cs = xs / xs.norm(dim=-1, keepdim=True), cs / cs.norm(dim=-1,
+                                                              keepdim=True)
+    kms = torch.arange(K, device=dev)[None] < torch.randint(
+        K // 2, K + 1, (B, 1), generator=g, device=dev)
+    cases = {"path": (x, c, km, emit),
+             "synthetic": (xs, cs, kms, torch.ones_like(emit))}
+    held, errs, times = {}, [], {}
+    for what, (xx, cc, kk, valid) in cases.items():
+        want = kmeans_assign(xx, cc, kk, impl="ref")
+        n_differ, n_near, err = _assign_hold(
+            what, torch, xx, cc, kk, valid, kmeans_assign(xx, cc, kk), want)
+        held[what] = f"{n_differ} differ, {n_near} valid near-tie rows"
+        errs.append(err)
+        times[what] = _time_ms(lambda: kmeans_assign(xx, cc, kk))
+        if parent:
+            _assign_hold(f"{what}, parent design", torch, xx, cc, kk, valid,
+                         parent["kmeans_assign"](xx, cc, kk), want)
+            times[what + " parent"] = _time_ms(
+                lambda: parent["kmeans_assign"](xx, cc, kk))
+    ct = c.transpose(1, 2)
+    mm_ms = _time_ms(lambda: torch.matmul(x, ct))
+    # bytes: x, the centroids and k_mask read once, ids and best written
+    # once; operations: valid clusters only, three TF32 passes
+    n_bytes = _nbytes(x, c, km) + B * N * 8
+    ops = 2 * d * N * int(km.sum())
+    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+    f32_bound = _bound_ms(n_bytes, ops)[0]
+    print("kmeans_assign times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + f"; torch.matmul of the "
+        f"product alone (f32, TF32 off; for reference, no port) "
+        f"{mm_ms:.4f}; bound {bound:.4f} ({by}; f32 {f32_bound:.4f}); "
+        f"{_hmma_count('kmeans_assign')}")
     return dict(name="kmeans_assign", route="cuda",
                 source="src/repro_torch/csrc/kmeans_assign.cu",
                 replaces="src/repro/kernels/kmeans_assign/kernel.py:36",
-                **_launches("kmeans_assign"), max_abs_err=err,
-                ms=_time_ms(lambda: kmeans_assign(x, c, km)),
+                **_launches("kmeans_assign"), max_abs_err=max(errs),
+                ms=times["path"],
                 plain_ms=_time_ms(lambda: kmeans_assign(x, c, km,
                                                         impl="ref")),
                 bound_ms=bound, bound_by=by, library_ms=None,
-                check=f"ids equal off near ties ({n_differ} differ, {n_near}"
-                      f" valid near-tie rows), best allclose rtol 1e-5 atol "
-                      f"1e-5 (B={B}, N={N}, K={K}, d={d}); library_ms null: "
-                      f"a matmul plus a masked argmax is not one call")
+                f32_bound_ms=f32_bound, synthetic_ms=times["synthetic"],
+                parent_ms=times.get("path parent"),
+                parent_synthetic_ms=times.get("synthetic parent"),
+                matmul_ms=mm_ms,
+                check=f"ids equal off near ties, best allclose rtol 1e-5 "
+                      f"atol 1e-5 at the path's first batch ({held['path']})"
+                      f" and on random unit vectors ({held['synthetic']}) "
+                      f"(B={B}, N={N}, K={K}, d={d}"
+                      f"{'; the parent design too' if parent else ''}); "
+                      f"bound: x, centroids read once, products at 3 passes "
+                      f"of the TF32 rate; library_ms null: a matmul plus a "
+                      f"masked argmax is not one call")
 
 
 def check_dequant_score(torch, dev, index, qv):
@@ -1683,8 +1861,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default="",
                     help="a directory inside this checkout holding an "
                          "earlier checkout's src/repro_torch/csrc whose "
-                         "plaid_probe and maxsim_packed declare PARENT_ABI;"
-                         " timed beside this one's")
+                         "kernels declare PARENT_ABI; timed beside this "
+                         "one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1714,7 +1892,7 @@ def main(argv=None) -> int:
     persist_path(rt, torch, model, queries, stats, S, I)
     host_probe_path(torch, index, searcher, queries, S, I)
     dense_path(rt, torch, model, docs, queries)
-    flat_path(rt, torch, model, docs, queries)
+    flat_args = flat_path(rt, torch, model, docs, queries)
     recon_path(torch, index, searcher, queries, S, I)
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     kmeans_path(rt, torch, model, docs, queries)
@@ -1736,9 +1914,9 @@ def main(argv=None) -> int:
     kernels = [check_ward(torch, dev),
                check_plaid_probe(torch, dev, index, qv, path_probe, parent),
                check_maxsim_packed(torch, dev, index, qv, path_packed, parent),
-               check_maxsim(torch, dev, index, qv),
+               check_maxsim(torch, dev, index, qv, flat_args, parent),
                check_maxsim_rerank(torch, dev, index, qv),
-               check_kmeans_assign(torch, dev, model, docs),
+               check_kmeans_assign(torch, dev, model, docs, parent),
                check_dequant_score(torch, dev, index, qv),
                check_flash_attention(torch, dev)]
     for k in kernels:

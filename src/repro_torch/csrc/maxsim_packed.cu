@@ -48,6 +48,7 @@
 #include <math.h>
 
 #include "quant.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -63,31 +64,6 @@ constexpr int MAX_QCH = 4;                  // Lq <= 32 * 4 = 128 a launch;
 constexpr int MAX_DIM = 128;                // dims a lane reconstructs: 4
 constexpr int MAX_W = MAX_DIM * 4 / 32;     // packed words a token, b <= 4
 constexpr int ROWS = 4;                     // rows a warp reconstructs a pass
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a . b on the tensor cores: A [16 x 8] row-major, B [8 x 8]
-// column-major, TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// *a = max(*a, v) in shared memory: non-negative floats order as signed
-// integers, negative ones in reverse as unsigned.
-__device__ __forceinline__ void atomic_max(float* a, float v) {
-  if (__float_as_int(v) >= 0)
-    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
-  else
-    atomicMin(reinterpret_cast<unsigned*>(a), __float_as_uint(v));
-}
 
 // DIM: the token width when known at compile time (MAX_DIM, the model's),
 // so the dot-product loop unrolls; 0 takes it at run time.

@@ -5,7 +5,8 @@ Same contract as ``src/repro/kernels/kmeans_assign/ops.py``
 over documents (x [B, N, dim], centroids [B, K, dim], k_mask [B, K]),
 which per-document k-means pooling needs: one launch per Lloyd step for
 a whole encode batch. x and the centroids may be f32 or bf16; both are
-read as f32, as the reference kernel casts them. CPU tensors (or
+read as f32, as the reference kernel casts them, and the token width is
+zero-padded to a multiple of 8 where it is not one. CPU tensors (or
 ``impl="ref"``) run the plain version; CUDA tensors launch the kernel on
 the current stream or raise.
 """
@@ -66,6 +67,17 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor,
     return (a[0], s[0]) if single else (a, s)
 
 
+def _aligned(t):
+    """f32, contiguous, the last axis zero-padded to a multiple of 8 (the
+    mma's k-step; zeros add nothing to a dot product) and 16-byte aligned
+    (the kernel's 16-byte copies)."""
+    t = t.float().contiguous()
+    pad = -t.shape[-1] % 8
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x, centroids, k_mask):
     if x.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x.device}")
@@ -74,8 +86,7 @@ def _launch(x, centroids, k_mask):
             raise TypeError(f"{_NAME}: {key} must be float32 or bfloat16, "
                             f"got {t.dtype}")
     check_dtype(_NAME, "k_mask", k_mask, torch.bool)
-    x = x.float().contiguous()
-    centroids = centroids.float().contiguous()
+    x, centroids = _aligned(x), _aligned(centroids)
     k_mask = k_mask.contiguous()
     check_cuda(_NAME, x=x, centroids=centroids, k_mask=k_mask)
     B, N, dim = x.shape

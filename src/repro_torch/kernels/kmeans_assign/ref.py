@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.maxsim.ref import einsum_3xtf32
+
 
 def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor,
                       k_mask: torch.Tensor
@@ -18,6 +20,20 @@ def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor,
     """x [B, N, dim]; centroids [B, K, dim]; k_mask [B, K] bool ->
     (assign [B, N] int32, best [B, N] f32)."""
     sim = torch.bmm(x.float(), centroids.float().transpose(1, 2))
+    return _first_argmax(sim, k_mask)
+
+
+def kmeans_assign_3xtf32_ref(x, centroids, k_mask, *, passes: int = 3):
+    """``kmeans_assign_ref`` with the kernel's products: 3xTF32 parts of
+    x and the centroids (``passes=1``: single-pass TF32). Called on no
+    path; the tests hold it to the JAX package."""
+    sim = einsum_3xtf32("bnd,bkd->bnk", x.float(), centroids.float(),
+                        passes=passes)
+    return _first_argmax(sim, k_mask)
+
+
+def _first_argmax(sim, k_mask):
+    """sim [B, N, K] -> (first argmax over unmasked k, max)."""
     sim = sim.masked_fill(~k_mask[:, None, :], float("-inf"))
     best = sim.amax(dim=-1)
     K = sim.shape[-1]

@@ -3,7 +3,9 @@
 Same argument layout as ``src/repro/kernels/maxsim/ops.py`` ``maxsim``
 and ``maxsim_rerank``. CPU tensors (or ``impl="ref"``) run the plain
 versions; CUDA tensors launch the kernel on the current stream or raise.
-Each entry has its own launch counter.
+Each entry has its own launch counter. An all-pairs launch takes at most
+``MAX_LQ`` query tokens; longer queries are split into chunks of that
+many, one launch each, and the partial scores summed.
 """
 from __future__ import annotations
 
@@ -12,13 +14,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl)
+                                 check_dtype, check_impl,
+                                 sum_over_query_chunks)
 from repro_torch.kernels.maxsim.ref import maxsim_ref, maxsim_rerank_ref
 
 LAUNCHES = LaunchCounter()            # maxsim (all-pairs)
 RERANK_LAUNCHES = LaunchCounter()     # maxsim_rerank (per-query candidates)
 _NAME = "maxsim"
 _SMEM_LIMIT = 232448
+MAX_LQ = 128        # query tokens an all-pairs launch (csrc: QR)
 _lib = None
 
 
@@ -67,16 +71,20 @@ def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
     if q.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {q.device}")
     lib = _checked(_NAME, q, q_mask, d, d_mask, (d.shape[0],))
-    Nq, Lq, dim = q.shape
+    Nq, _, dim = q.shape
     Nd, Ld, _ = d.shape
-    out = torch.empty((Nq, Nd), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.maxsim_launch(q.data_ptr(), q_mask.data_ptr(), d.data_ptr(),
-                             d_mask.data_ptr(), out.data_ptr(), Nq, Lq, dim,
-                             Nd, Ld, stream)
-    build.check(code, _NAME)
-    LAUNCHES.count += 1
-    return out
+
+    def launch(qc, qmc):
+        out = torch.empty((Nq, Nd), dtype=torch.float32, device=q.device)
+        code = lib.maxsim_launch(qc.data_ptr(), qmc.data_ptr(), d.data_ptr(),
+                                 d_mask.data_ptr(), out.data_ptr(), Nq,
+                                 qc.shape[1], dim, Nd, Ld, stream)
+        build.check(code, _NAME)
+        LAUNCHES.count += 1
+        return out
+
+    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)
 
 
 def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):

@@ -4,6 +4,11 @@ Counterparts of ``src/repro/kernels/maxsim/ref.py``: einsum, mask, max
 over doc tokens, masked sum over query tokens. The all-pairs version is
 blocked over docs (as ``repro.core.maxsim.maxsim_scores_blocked``), so
 its [Nq, block, Lq, Ld] intermediate stays bounded at corpus scale.
+
+``tf32_split_ref`` and ``einsum_3xtf32`` repeat the tensor-core kernels'
+arithmetic (3xTF32) on the CPU; ``maxsim_3xtf32_ref`` is the all-pairs
+kernel's twin, held against the JAX package by the tests and called on
+no path.
 """
 from __future__ import annotations
 
@@ -41,3 +46,35 @@ def maxsim_rerank_ref(q, q_mask, d, d_mask):
     -> scores [Nq, S] f32 (each query scores only its own docs)."""
     sim = torch.einsum("qld,qskd->qslk", q.float(), d.float())
     return _reduce(sim, d_mask[:, :, None, :], q_mask[:, None, :])
+
+
+def tf32_split_ref(x, *, round_lo: bool = False):
+    """x (f32, finite) -> (hi, lo) as the kernels' tensor cores read them:
+    hi rounded to TF32 (10 mantissa bits, to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32``), lo = x - hi truncated to TF32 (the tensor
+    cores ignore an operand's low 13 bits; the all-pairs and k-means
+    kernels) or, ``round_lo``, rounded as hi (``maxsim_packed``)."""
+    def bits(v):
+        return v.float().contiguous().view(torch.int32)
+    hi = ((bits(x) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = bits(x.float() - hi)
+    lo = ((lo + 0x1000) if round_lo else lo) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def einsum_3xtf32(eq, a, b, *, passes: int = 3, round_lo: bool = False):
+    """``torch.einsum(eq, a, b)`` with the kernels' products: hi.hi +
+    hi.lo + lo.hi of ``tf32_split_ref`` parts (``passes=1``: hi.hi
+    alone, single-pass TF32), each product exact in f32."""
+    ah, al = tf32_split_ref(a, round_lo=round_lo)
+    bh, bl = tf32_split_ref(b, round_lo=round_lo)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        out = out + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+    return out
+
+
+def maxsim_3xtf32_ref(q, q_mask, d, d_mask, *, passes: int = 3):
+    """``maxsim_ref`` with the all-pairs kernel's products (3xTF32)."""
+    sim = einsum_3xtf32("qld,nkd->qnlk", q, d, passes=passes)
+    return _reduce(sim, d_mask[None, :, None, :], q_mask[:, None, :])

@@ -4,7 +4,11 @@ Same argument layout as ``src/repro/kernels/maxsim_packed/ops.py``
 ``maxsim_packed_rerank``. CPU tensors (or ``impl="ref"``) run the plain
 version; CUDA tensors launch the kernel on the current stream or raise.
 A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
-into chunks of that many, one launch each, and the partial scores summed.
+into chunks, one launch each, and the partial scores summed. The chunk is
+the widest of ``CHUNK_WIDTHS`` whose shared memory fits beside the
+candidates' token list (which grows with Ld): at dim 128 and 4 bits,
+128 query tokens a launch up to Ld 509, 96 up to 2,685, 64 up to 4,861,
+32 up to 7,037 (2 bits: 1,149, 3,325, 5,501, 7,677).
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ LAUNCHES = LaunchCounter()
 _NAME = "maxsim_packed"
 _SMEM_LIMIT = 232448
 MAX_LQ = 128        # query tokens a launch (csrc: 32 * MAX_QCH)
+# query tokens a launch, widest first: the query rows take most of a
+# block's shared memory, so a long document narrows the chunk
+CHUNK_WIDTHS = (MAX_LQ, 96, 64, 32)
 MAX_DIM = 128       # token width the kernel takes, a multiple of 8
 MAX_LD = 8191       # doc tokens a candidate (csrc: CPB * Ld < 65536)
 _lib = None
@@ -77,10 +84,14 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
         raise ValueError(f"{_NAME}: dim={dim} (at most {MAX_DIM}, a multiple"
                          f" of 8) or Ld={Ld} (at most {MAX_LD}) not taken")
     lib = _load()
-    lq = min(Lq, MAX_LQ)
-    if lib.maxsim_packed_smem_bytes(lq, dim, bits, Ld) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: Lq={lq}, dim={dim}, Ld={Ld} exceed "
-                         f"shared memory")
+    # the widest query chunk whose shared memory fits: at Lq <= 128 and
+    # short documents one launch on the tensors as given
+    fits = [w for w in CHUNK_WIDTHS
+            if lib.maxsim_packed_smem_bytes(min(Lq, w), dim, bits, Ld)
+            <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"{_NAME}: dim={dim}, Ld={Ld} exceed shared memory "
+                         f"at {CHUNK_WIDTHS[-1]} query tokens a launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def launch(qc, qmc):
@@ -93,4 +104,4 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
         LAUNCHES.count += 1
         return out
 
-    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)
+    return sum_over_query_chunks(launch, q, q_mask, fits[0])

@@ -6,10 +6,11 @@ fixture decides at run time). Run on a card with
 Tolerances: Ward assignments equal (also at N = 512, on exact duplicate
 tokens and on all-pad documents); probe -inf slots equal and finite
 scores to 1e-5; packed rerank scores to 1e-5 (both also at Lq = 300, one
-launch a chunk of 128 query tokens); the f32 MaxSim kernels to
-rtol 1e-5, atol 1e-4 (f32 dot products and sums in another order);
-k-means assignment ids equal except where the top two sims lie within
-1e-5 (f32 dot products in another order), best sims to 1e-5; dequantize
+launch a chunk of 128 query tokens); the MaxSim kernels to rtol 1e-5,
+atol 1e-4 (f32 FMA or, all-pairs, 3xTF32 tensor-core products, and sums
+in another order); k-means assignment ids equal except where the top two
+sims lie within 1e-5 (3xTF32 products in another order), best sims to
+1e-5; dequantize
 + score to atol 1e-4, the reference test's tolerance; flash attention
 to 1e-5 in f32 (the online softmax rescales by the running max, the
 plain version by the row max) and to 1e-2 (atol and rtol) in bf16, where
@@ -17,8 +18,14 @@ p and the output are rounded to bf16 at different scales on the two
 sides (about one bf16 step at values near 2), rows that see no column
 exactly 0 on both. The probe and packed-rerank designs are also held on
 the shapes they were built for (a sparse path-like slate, duplicate
-codes, an all-zero table, ragged tails, Ld = 129) to 1e-5, and the packed
-kernel at each of its documented limits and one past it (a raise).
+codes, an all-zero table, ragged tails, Ld = 129) to 1e-5; the packed
+kernel past the shared memory of 128 query tokens a launch (narrower
+chunks, counted) and past its last limits (a raise); the all-pairs MaxSim
+on the tile edges of its tensor-core design (one-token, short, long and
+fully masked docs, sparse masks, a doc over two tiles, Lq = 40 and 300)
+and the k-means assignment on its pass and row edges (K below 8, 136,
+200 and 257; N not a multiple of 16; dims not a multiple of 8 or above
+128; bf16).
 """
 import pytest
 import torch
@@ -214,21 +221,30 @@ def test_packed_kernel_design_cases(dev, bits, S, dim):
     assert (got[~dm.any(-1)] == 0).all()
 
 
-@pytest.mark.parametrize("Lq,bits,dim,Ld,takes", [
-    (128, 4, 128, 509, True),    # b = 4, 97-128 query tokens: Ld <= 509
-    (128, 4, 128, 510, False),
-    (128, 2, 128, 1149, True),   # b = 2, 97-128 query tokens: Ld <= 1,149
-    (128, 2, 128, 1150, False),
-    (32, 2, 128, 7677, True),    # b = 2, <= 32 query tokens: Ld <= 7,677
-    (32, 2, 128, 7678, False),
-    (32, 2, 64, 8191, True),     # Ld <= 8,191 (16-bit token indices)
-    (32, 2, 64, 8192, False),
-    (32, 4, 136, 16, False),     # dim <= 128
+@pytest.mark.parametrize("Lq,bits,dim,Ld,launches", [
+    (128, 4, 128, 509, 1),       # b = 4: 128 query tokens a launch to 509
+    (128, 4, 128, 510, 2),       # then chunks of 96 (two launches),
+    (300, 4, 128, 512, 4),       # a long query on an unpooled document,
+    (128, 4, 128, 2686, 2),      # chunks of 64 past 2,685,
+    (128, 4, 128, 4862, 4),      # chunks of 32 past 4,861,
+    (32, 4, 128, 7037, 1),
+    (32, 4, 128, 7038, 0),       # and no chunk past 7,037
+    (128, 2, 128, 1149, 1),      # b = 2: 128 query tokens a launch to 1,149
+    (128, 2, 128, 1150, 2),
+    (300, 2, 128, 1500, 4),
+    (32, 2, 128, 7677, 1),
+    (32, 2, 128, 7678, 0),       # no chunk past 7,677
+    (32, 2, 64, 8191, 1),        # Ld <= 8,191 (16-bit token indices)
+    (32, 2, 64, 8192, 0),
+    (32, 4, 136, 16, 0),         # dim <= 128
 ])
-def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, takes):
-    """The packed kernel's documented limits (the plain version takes
-    any): at each limit it runs and agrees with the plain version, one
-    past it the wrapper raises before any launch."""
+def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, launches):
+    """The packed kernel's limits (the plain version takes any): the
+    shared memory of a launch grows with Ld, so the wrapper takes the
+    widest query chunk of 128, 96, 64 or 32 tokens that fits and sums the
+    chunks; each case agrees with the plain version in that many
+    launches. Past the last chunk, Ld 8,191 and dim 128 (``launches``
+    0) the wrapper raises before any launch."""
     g = torch.Generator(device=dev).manual_seed(Ld)
     Nq, S, K = 1, 9, 64
     q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
@@ -241,24 +257,33 @@ def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, takes):
     vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
     args = (q, qm, w, ids, dm, cen, vals)
     before = launch_counts()["maxsim_packed"]
-    if not takes:
+    if not launches:
         with pytest.raises(ValueError, match="maxsim_packed"):
             maxsim_packed_rerank(*args, bits=bits)
         assert launch_counts()["maxsim_packed"] == before
         return
     got = maxsim_packed_rerank(*args, bits=bits)
-    assert launch_counts()["maxsim_packed"] == before + 1
+    assert launch_counts()["maxsim_packed"] == before + launches
     torch.testing.assert_close(
         got, maxsim_packed_rerank(*args, bits=bits, impl="ref"),
         rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("Nq,Lq,dim,Nd,Ld", [
-    (5, 32, 128, 300, 129),      # several doc blocks, three token chunks
-    (3, 40, 64, 17, 20),         # two query tiles, a ragged doc block
+    (5, 32, 128, 300, 129),      # several doc runs, tiles across docs
+    (3, 40, 64, 17, 20),         # a tile over several docs, Lq = 40
     (2, 8, 128, 1, 64),
+    (4, 32, 128, 1000, 1),       # one-token docs: narrow tiles
+    (3, 32, 128, 50, 300),       # docs longer than two tiles
+    (2, 40, 128, 1, 129),        # Nd = 1: a doc over two tiles
+    (33, 32, 128, 700, 129),     # nine query groups (Nq * Lq > 128)
+    (4, 16, 36, 40, 50),         # dim not a multiple of 8
+    (3, 32, 256, 40, 50),        # dim above 132: the f32 body
 ])
 def test_maxsim_kernel_equals_plain(dev, Nq, Lq, dim, Nd, Ld):
+    """One launch a call (Lq <= 128), rtol 1e-5 / atol 1e-4 against the
+    plain version; a query with no valid token and a doc with none score
+    0."""
     g = torch.Generator(device=dev).manual_seed(Nd)
     q, d = _unit(g, (Nq, Lq, dim), dev), _unit(g, (Nd, Ld, dim), dev)
     qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.8
@@ -271,6 +296,39 @@ def test_maxsim_kernel_equals_plain(dev, Nq, Lq, dim, Nd, Ld):
     want = maxsim(q, qm, d, dm, impl="ref")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert (got[:, -1] == 0).all() and (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["ragged docs", "long query",
+                                  "masked runs", "short docs",
+                                  "sparse mask"])
+def test_maxsim_kernel_design_cases(dev, case):
+    """The tensor-core design on what its tiles must get right: docs of
+    every valid length at Ld = 129 (segment maxima across tile and warp
+    boundaries), a query of 300 tokens (three launches of at most 128,
+    summed), runs of fully masked docs (never listed, scoring 0), docs of
+    at most 10 valid rows (many documents a warp and a tile), and 3% of
+    rows valid at random (tiles listed over several scans); to rtol 1e-5
+    / atol 1e-4."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    Nq, Lq, dim, Nd, Ld = 6, 32, 128, 500, 129
+    if case == "long query":
+        Lq = 300
+    q, d = _unit(g, (Nq, Lq, dim), dev), _unit(g, (Nd, Ld, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    n_valid = torch.randint(0, (11 if case == "short docs" else Ld + 1),
+                            (Nd, 1), generator=g, device=dev)
+    dm = torch.arange(Ld, device=dev) < n_valid
+    if case == "masked runs":
+        dm[100:200] = False
+        dm[300:303, 5:] = False
+    if case == "sparse mask":
+        dm = torch.rand((Nd, Ld), generator=g, device=dev) < 0.03
+    before = launch_counts()["maxsim"]
+    got = maxsim(q, qm, d, dm)
+    assert launch_counts()["maxsim"] == before + -(-Lq // 128)
+    torch.testing.assert_close(got, maxsim(q, qm, d, dm, impl="ref"),
+                               rtol=1e-5, atol=1e-4)
+    assert (got[:, ~dm.any(1)] == 0).all()
 
 
 def test_maxsim_rerank_kernel_equals_plain(dev):
@@ -292,9 +350,18 @@ def test_maxsim_rerank_kernel_equals_plain(dev):
     (1, 257, 32, 128, torch.float32),      # the reference's standalone shape
     (1, 100, 8, 64, torch.bfloat16),
     (6, 256, 129, 128, torch.float32),     # k-means pooling at f=2
-    (3, 70, 200, 32, torch.float32),       # K above one centroid chunk
+    (3, 70, 200, 32, torch.float32),       # K above one pass of 136
+    (4, 256, 136, 128, torch.float32),     # K exactly one pass
+    (4, 250, 200, 128, torch.bfloat16),    # two passes, N % 16 != 0
+    (4, 256, 5, 128, torch.float32),       # K below one n-tile of 8
+    (3, 513, 257, 128, torch.float32),     # k-means at N = 512, 3 row blocks
+    (2, 40, 20, 36, torch.float32),        # dim not a multiple of 8
+    (2, 60, 30, 200, torch.float32),       # dim above one register chunk
 ])
 def test_kmeans_assign_kernel_equals_plain(dev, B, N, K, dim, dtype):
+    """One launch a call; ids equal to the plain version's except where
+    the top two sims lie within 1e-5, best sims to 1e-5; a document with
+    every cluster masked gets index 0 and -inf."""
     g = torch.Generator(device=dev).manual_seed(N + K)
     x = torch.randn((B, N, dim), generator=g, device=dev).to(dtype)
     c = torch.randn((B, K, dim), generator=g, device=dev).to(dtype)

@@ -6,7 +6,9 @@ Tolerances:
 * ``kmeans_assign``: ids equal; best sims to the reference test's
   tolerance (``tests/test_kernels.py``: rtol 2e-4 in f32, 2e-2 in bf16,
   atol 1e-2), since the two frameworks sum the dot products in another
-  order.
+  order. The kernel's 3xTF32 products (``kmeans_assign_3xtf32_ref``) in
+  f32: ids equal except on rows whose top two sims lie within 1e-5, best
+  sims to rtol 1e-5 / atol 1e-5.
 * ``kmeans_cluster_batch``, ``sequential_assign`` and the ``kmeans`` /
   ``sequential`` branches of ``pool_doc_embeddings``: assignments and
   masks equal; pooled rows allclose at 1e-5 (f32 segment sums in
@@ -45,6 +47,7 @@ from repro_torch.core.pooling import (pool_doc_embeddings, sequential_assign,
 from repro_torch.core.spec import POOL_METHODS, PORTED_POOL_METHODS
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_3xtf32_ref
 from repro_torch.models import colbert as tcol
 
 N, D = J_SMOKE.doc_maxlen, J_SMOKE.proj_dim       # SMOKE pooling shapes
@@ -214,3 +217,40 @@ def test_slice_flat_index_matches_jax(smoke_pair, method):
     assert tie_aware_mismatches(np.asarray(jI), np.asarray(jS), tI, tS,
                                 1e-4) == 0
     np.testing.assert_allclose(tS, np.asarray(jS), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,k,dim,unit", [
+    (256, 129, 128, True),       # k-means pooling at f=2 (unit vectors)
+    (257, 32, 128, False),       # the reference's standalone shape
+    (100, 8, 64, False),
+])
+def test_kmeans_assign_3xtf32_matches_jax(n, k, dim, unit):
+    """The kernel's products (``kmeans_assign_3xtf32_ref``: hi.hi + hi.lo
+    + lo.hi of TF32 parts) against the Pallas kernel (interpret mode) and
+    the JAX reference: ids equal except where the reference's top two
+    sims lie within 1e-5, best sims to rtol 1e-5 / atol 1e-5. One TF32
+    pass (``passes=1``) misses those tolerances."""
+    rng = np.random.default_rng(n + k + dim)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    c = rng.normal(size=(k, dim)).astype(np.float32)
+    if unit:
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    km = np.arange(k) < max(k - 2, 1)
+    ja, js = j_kmeans_assign(jnp.asarray(x), jnp.asarray(c), jnp.asarray(km),
+                             block_n=64)
+    ra, rs = j_assign_ref(jnp.asarray(x), jnp.asarray(c), jnp.asarray(km))
+    sim = np.where(km[None], x.astype(np.float64) @ c.T.astype(np.float64),
+                   -np.inf)
+    top2 = np.sort(sim, axis=-1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= 1e-5
+    args = (torch.from_numpy(x)[None], torch.from_numpy(c)[None],
+            torch.from_numpy(km)[None])
+    a, s = (v[0].numpy() for v in kmeans_assign_3xtf32_ref(*args))
+    for want_a, want_s in ((ja, js), (ra, rs)):
+        assert not ((a != np.asarray(want_a)) & ~near).any()
+        np.testing.assert_allclose(s, np.asarray(want_s), rtol=1e-5,
+                                   atol=1e-5)
+    a1, s1 = (v[0].numpy() for v in kmeans_assign_3xtf32_ref(*args,
+                                                              passes=1))
+    assert not np.allclose(s1, np.asarray(rs), rtol=1e-5, atol=1e-5)

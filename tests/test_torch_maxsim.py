@@ -12,7 +12,8 @@ token, and Nd across the plain version's doc block (256) and the JAX
 CPU path's (2048).
 
 Tolerance: rtol 1e-5, atol 1e-4 — f32 dot products and sums in another
-order; the padded views are equal.
+order, also for the all-pairs kernel's 3xTF32 products
+(``maxsim_3xtf32_ref``); the padded views are equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +29,7 @@ from repro_torch.core import maxsim as tms
 from repro_torch.core.docstore import DocStore
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.maxsim import ops
+from repro_torch.kernels.maxsim.ref import maxsim_3xtf32_ref
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -154,3 +156,27 @@ def test_wrappers_check_impl():
         ops.maxsim(q, qm, d, dm, impl="kernel")
     np.testing.assert_array_equal(ops.maxsim(q, qm, d, dm, impl="ref"),
                                   ops.maxsim(q, qm, d, dm))
+
+
+@pytest.mark.parametrize("nq,lq,nd,ld,dim", [
+    (3, 32, 20, 129, 128),      # the flat path's widths
+    (4, 40, 9, 30, 128),
+    (2, 16, 33, 12, 64),
+])
+def test_maxsim_3xtf32_matches_jax(nq, lq, nd, ld, dim):
+    """The all-pairs kernel's products (``maxsim_3xtf32_ref``: hi.hi +
+    hi.lo + lo.hi of TF32 parts) against the Pallas kernel (interpret
+    mode) and the JAX reference to rtol 1e-5, atol 1e-4; one TF32 pass
+    (``passes=1``) misses that tolerance."""
+    q, qm, d, dm = _inputs(lq + nd, nq, lq, nd, ld, dim)
+    kern = np.asarray(jops.maxsim(jnp.asarray(q), jnp.asarray(qm),
+                                  jnp.asarray(d), jnp.asarray(dm),
+                                  block_q=4, block_d=8))
+    ref = np.asarray(j_ref(q, qm, d, dm))
+    args = _t(q, qm, d, dm)
+    got = maxsim_3xtf32_ref(*args).numpy()
+    np.testing.assert_allclose(got, kern, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert (got[:, 0] == 0).all() and (got[-1] == 0).all()
+    one = maxsim_3xtf32_ref(*args, passes=1).numpy()
+    assert not np.allclose(one, ref, rtol=RTOL, atol=ATOL)

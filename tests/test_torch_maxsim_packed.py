@@ -15,8 +15,8 @@ from repro.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref as j_rr
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
-from repro_torch.kernels.maxsim_packed.ref import (maxsim_packed_3xtf32_ref,
-                                                   tf32_split_ref)
+from repro_torch.kernels.maxsim.ref import tf32_split_ref
+from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_3xtf32_ref
 
 
 @pytest.mark.parametrize("bits", [2, 4])
