@@ -13,7 +13,8 @@
    ``nvcc`` (one process per source, started together).
 2. Drives each path through the user entry points, every kernel's launch
    counter set to 0 just before the path and read just after; a path
-   fails unless each of its kernels launched:
+   fails unless each of its kernels launched, and where it ran
+   ``DocStore.gather`` (the f32 rerank reads its candidates in place):
    * main: full-width ColBERTv2 (random weights from a seed), a
      16,384-doc synthetic corpus, ``Indexer.build(out_dir=...)`` with
      Ward pooling at factor 2 on the default PLAID index (K = 256,
@@ -33,8 +34,9 @@
      all-pairs ``maxsim`` scan;
    * flat: a 4,096-doc flat index (Ward f=2), 64 queries, ``maxsim``;
    * recon_rerank: the 16,384-doc index with ``packed_rerank=False``
-     (the ``maxsim_rerank`` kernel over the f32 reconstruction store);
-     results equal the packed path's tie-aware, scores to 1e-4;
+     (the ``maxsim_rerank`` kernel reading the candidates from the f32
+     reconstruction store in place); results equal the packed path's
+     tie-aware, scores to 1e-4;
    * kmeans: a 4,096-doc plaid index pooled by per-document k-means at
      factor 2 (the ``kmeans_assign`` kernel, 11 launches per encode
      batch: 10 Lloyd steps and the final assignment), searched with
@@ -46,8 +48,8 @@
      factor 2 (``maxsim``); each doc stores exactly ceil(n_valid / 2);
    * cascade: ``build_cascade`` over 4,096 docs with the reference's
      defaults (Ward, coarse 6, fine 2, 32 candidates), 64 queries
-     (``ward_pool``, ``maxsim`` for stage 1, ``maxsim_rerank`` for
-     stage 2);
+     (``ward_pool``, ``maxsim`` for stage 1, ``maxsim_rerank`` reading
+     the fine store in place for stage 2);
    * cascade_from_dir: the cascade saved and served by
      ``Searcher.from_dir``; results equal the in-memory cascade's
      exactly;
@@ -98,17 +100,25 @@
    inputs (one search batch's arguments, captured) and ``kmeans_assign``
    on random unit vectors at its path's shape; both are timed beside
    ``torch.matmul`` of their product alone (f32, TF32 off; for reference
-   only: no port, no library_ms) and their SASS must hold HMMA. With
-   ``--parent``, the earlier checkout's ``plaid_probe``,
-   ``maxsim_packed``, ``kmeans_assign`` and ``maxsim`` (their C entries
-   checked against ``PARENT_ABI``) are built, held to the same limits and
-   timed on the same inputs. One main-path
+   only: no port, no library_ms) and their SASS must hold HMMA.
+   ``maxsim_rerank`` is held and timed from gathered candidates (one
+   slab of the recon store) and read in place at the recon_rerank
+   path's own slate and the cascade's stage 2 (both captured from one
+   batch); ``dequant_score`` on the main index's candidate rows (its
+   SASS must hold HMMA too). With ``--parent``, the earlier checkout's
+   C entries (checked against ``PARENT_ABI``) are built, held to the
+   same limits and timed on the same inputs: its ``plaid_probe``,
+   ``maxsim_packed``, ``kmeans_assign`` and all-pairs ``maxsim`` must
+   give this checkout's results bit for bit; its rerank is timed at the
+   slates with the gather it needs. One main-path
    ``search_encoded`` batch is traced with ``torch.profiler`` and split
    by its ``search.*`` ranges (centroid scores, ``probe_members`` and
    compaction, the code gather, ``plaid_probe``, the ``stable_topk``
    prune, the packed gather, ``maxsim_packed``, the top-k), with the
-   device's idle share over the batch. ``flash_attention``
-   is also timed against ``scaled_dot_product_attention`` (its
+   device's idle share over the batch, and so is one recon_rerank batch
+   (the same candidate stages, then ``search.maxsim_rerank``).
+   ``flash_attention`` is also timed against
+   ``scaled_dot_product_attention`` (its
    ``library_ms``; the port never calls it), with its achieved TFLOP/s,
    and its SASS is read with ``cuobjdump -sass``: it fails unless the
    tool is there and the bf16 body issues HMMA (tensor-core)
@@ -256,11 +266,25 @@ def _nbytes(*tensors) -> int:
 
 def run_path(name, torch, fn):
     """Drive one path with every launch counter at 0 just before it and
-    read just after; fails unless each of the path's kernels launched."""
+    read just after; fails unless each of the path's kernels launched,
+    and where a ``DocStore.gather`` ran (the f32 rerank reads its
+    candidates from the store in place)."""
+    from repro_torch.core.docstore import DocStore
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    reset_launch_counts()
-    out = fn()
-    torch.cuda.synchronize()
+    gathers = []
+    gather = DocStore.gather
+
+    def counted(self, cand):
+        gathers.append(tuple(cand.shape))
+        return gather(self, cand)
+
+    DocStore.gather = counted
+    try:
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        DocStore.gather = gather
     launches = launch_counts()
     PATH_LAUNCHES[name] = launches
     print(f"{name} path launches: {launches}")
@@ -268,6 +292,9 @@ def run_path(name, torch, fn):
     if missing:
         raise AssertionError(f"kernels not launched on the {name} path: "
                              f"{missing}")
+    if gathers:
+        raise AssertionError(f"the {name} path ran DocStore.gather "
+                             f"{len(gathers)} times: {gathers}")
     return out
 
 
@@ -794,16 +821,42 @@ def flat_path(rt, torch, model, docs, queries):
 
 
 def recon_path(torch, index, searcher, queries, S, I):
-    """The main index reranked from the f32 reconstruction store."""
+    """The main index reranked from the f32 reconstruction store; returns
+    the ``maxsim_rerank_indexed`` arguments of its first batch (the
+    path's own slate, read from the store in place)."""
     index.packed_rerank = False
     S1, I1 = run_path("recon_rerank", torch,
                       lambda: _search_all(searcher, queries))
     recon_s = _steady_search_s(torch, searcher,
                                searcher.encode_queries(queries))
+    args = capture_rerank_args(torch, searcher, queries)
     index.packed_rerank = True
     print(f"recon rerank: store {index._plaid.recon.device_nbytes()} device "
           f"bytes; index search {N_QUERIES} queries steady {recon_s:.4f}s")
     _agree("recon rerank vs packed rerank", S, I, S1, I1)
+    return args
+
+
+def capture_rerank_args(torch, searcher, queries):
+    """The arguments of the ``maxsim_rerank_indexed`` call of one search
+    batch. Outside every counted run."""
+    import repro_torch.kernels.maxsim.ops as mo
+    seen = []
+    inner = mo.maxsim_rerank_indexed
+
+    def keep(*args, **kw):
+        if not seen:
+            seen.append(args)
+        return inner(*args, **kw)
+
+    mo.maxsim_rerank_indexed = keep
+    try:
+        searcher.search(queries[:QUERY_BATCH], k=TOP_K)
+    finally:
+        mo.maxsim_rerank_indexed = inner
+    if not seen:
+        raise AssertionError("the search batch made no maxsim_rerank call")
+    return seen[0]
 
 
 def _n_valid(cfg, docs):
@@ -905,7 +958,7 @@ def cascade_path(rt, torch, model, docs, queries):
           f"queries steady {search_s:.4f}s")
     _agree("cascade vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
-    return cascade, S, I
+    return cascade, S, I, capture_rerank_args(torch, searcher, queries)
 
 
 def cascade_from_dir_path(rt, torch, model, queries, cascade, S, I):
@@ -966,21 +1019,26 @@ def capture_path_args(torch, searcher, queries):
                          "maxsim_packed")
 
 
-SPLIT_STAGES = ("search.centroid_scores", "search.probe_members",
-                "search.code_gather", "search.plaid_probe", "search.prune",
-                "search.packed_gather", "search.maxsim_packed",
-                "search.topk")
+# The ``search.*`` ranges of one batch: the main path's (packed rerank)
+# and the recon_rerank path's (the f32 rerank from the store)
+CANDIDATE_STAGES = ("search.centroid_scores", "search.probe_members",
+                    "search.code_gather", "search.plaid_probe",
+                    "search.prune")
+SPLIT_STAGES = CANDIDATE_STAGES + ("search.packed_gather",
+                                   "search.maxsim_packed", "search.topk")
+RECON_STAGES = CANDIDATE_STAGES + ("search.maxsim_rerank", "search.topk")
 
 
 # Kernels each of these stages must show in the trace.
 STAGE_KERNELS = {"search.plaid_probe": ("plaid_table_kernel",
                                         "plaid_probe_kernel"),
-                 "search.maxsim_packed": ("maxsim_packed_kernel",)}
+                 "search.maxsim_packed": ("maxsim_packed_kernel",),
+                 "search.maxsim_rerank": ("maxsim_tc_kernel",)}
 
 
-def search_split(torch, searcher, qv):
-    """Device time of each stage of one main-path ``search_encoded`` batch,
-    from a ``torch.profiler`` trace of that call. Each device activity
+def search_split(torch, searcher, qv, stages=SPLIT_STAGES, label="main"):
+    """Device time of each stage (``stages``) of one ``search_encoded``
+    batch, from a ``torch.profiler`` trace of that call. Each device activity
     (kernel or copy) is matched to the runtime call that launched it (the
     two share an id) and given to the innermost ``search.*`` range around
     that call (``core/plaid.py``, ``core/index.py``): ctypes launches
@@ -1003,8 +1061,8 @@ def search_split(torch, searcher, qv):
     events = prof.events()
     calls = {e.id: e for e in events                # runtime calls: cuda*
              if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
-    split = dict.fromkeys(SPLIT_STAGES, 0.0)
-    names = {k: set() for k in SPLIT_STAGES}
+    split = dict.fromkeys(stages, 0.0)
+    names = {k: set() for k in stages}
     busy = 0.0
     for w in events:
         if w.device_type != DeviceType.CUDA or w.is_user_annotation:
@@ -1017,7 +1075,7 @@ def search_split(torch, searcher, qv):
         if p is not None:
             split[p.name] += ms
             names[p.name].add(w.name)
-    for name in SPLIT_STAGES:
+    for name in stages:
         missing = [k for k in STAGE_KERNELS.get(name, ())
                    if not any(k in n for n in names[name])]
         if split[name] <= 0 or missing:
@@ -1026,46 +1084,60 @@ def search_split(torch, searcher, qv):
     staged = sum(split.values())
     split["batch"] = start.elapsed_time(end)
     split["device busy"] = busy
-    print(f"index search split of one {qv.shape[0]}-query batch "
+    print(f"{label} index search split of one {qv.shape[0]}-query batch "
           f"(torch.profiler device time, ms; the batch "
           f"{split['batch']:.4f} ms on CUDA events, the device busy "
           f"{busy:.4f} ms, idle share {1 - busy / split['batch']:.3f}, "
           f"outside the stages {busy - staged:.4f}): " + ", ".join(
-              f"{k[len('search.'):]} {split[k]:.4f}" for k in SPLIT_STAGES))
+              f"{k[len('search.'):]} {split[k]:.4f}" for k in stages))
     return split
 
 
-# The C entries an earlier checkout must declare for ``--parent``: the
-# designs of this checkout's parent (commit 62dcf7b) — the 3xTF32
-# maxsim_packed and the table-once plaid_probe, which this checkout keeps,
-# and the f32 FMA kmeans_assign and all-pairs maxsim it replaces.
+# The C entries an earlier checkout must declare for ``--parent``, by
+# source: the designs of this checkout's parent (commit a762eb8). The
+# plaid_probe, maxsim_packed, kmeans_assign and all-pairs maxsim entries
+# are this checkout's designs too, so their scores must be bit-equal; the
+# rerank (f32 FMA from gathered candidates) and dequant_score (f32 FMA)
+# are the designs this checkout replaces.
 PARENT_ABI = {
-    "plaid_probe": "int plaid_probe_launch(const float* q, const uint8_t* "
-                   "qmask, const float* centroids, const int32_t* codes, "
-                   "const uint8_t* cmask, const uint8_t* vmask, float* "
-                   "table, float* out, int Nq, int Lq, int dim, int K, int "
-                   "C, int L, float t_cs, void* stream)",
-    "maxsim_packed": "int maxsim_packed_launch(const float* q, const "
-                     "uint8_t* qmask, const uint32_t* words, const int32_t* "
-                     "ids, const uint8_t* dmask, const float* centroids, "
-                     "const float* values, float* out, int Nq, int Lq, int "
-                     "dim, int S, int Ld, int W, int bits, void* stream)",
-    "kmeans_assign": "int kmeans_assign_launch(const float* x, const float* "
-                     "centroids, const uint8_t* kmask, int32_t* assign, "
-                     "float* best, int B, int N, int K, int dim, void* "
-                     "stream)",
-    "maxsim": "int maxsim_launch(const float* q, const uint8_t* qmask, "
-              "const float* d, const uint8_t* dmask, float* out, int Nq, "
-              "int Lq, int dim, int Nd, int Ld, void* stream)",
+    "plaid_probe": {
+        "plaid_probe_launch": "int plaid_probe_launch(const float* q, const "
+        "uint8_t* qmask, const float* centroids, const int32_t* codes, const "
+        "uint8_t* cmask, const uint8_t* vmask, float* table, float* out, int "
+        "Nq, int Lq, int dim, int K, int C, int L, float t_cs, void* "
+        "stream)"},
+    "maxsim_packed": {
+        "maxsim_packed_launch": "int maxsim_packed_launch(const float* q, "
+        "const uint8_t* qmask, const uint32_t* words, const int32_t* ids, "
+        "const uint8_t* dmask, const float* centroids, const float* values, "
+        "float* out, int Nq, int Lq, int dim, int S, int Ld, int W, int "
+        "bits, void* stream)"},
+    "kmeans_assign": {
+        "kmeans_assign_launch": "int kmeans_assign_launch(const float* x, "
+        "const float* centroids, const uint8_t* kmask, int32_t* assign, "
+        "float* best, int B, int N, int K, int dim, void* stream)"},
+    "maxsim": {
+        "maxsim_launch": "int maxsim_launch(const float* q, const uint8_t* "
+        "qmask, const float* d, const uint8_t* dmask, float* out, int Nq, "
+        "int Lq, int dim, int Nd, int Ld, void* stream)",
+        "maxsim_rerank_launch": "int maxsim_rerank_launch(const float* q, "
+        "const uint8_t* qmask, const float* d, const uint8_t* dmask, float* "
+        "out, int Nq, int Lq, int dim, int S, int Ld, void* stream)"},
+    "dequant_score": {
+        "dequant_score_launch": "int dequant_score_launch(const uint32_t* "
+        "words, const int32_t* ids, const float* centroids, const float* "
+        "values, const float* q, float* out, int M, int Lq, int dim, int W, "
+        "int bits, void* stream)"},
 }
 
 
 def parent_kernels(parent):
-    """The kernels of ``PARENT_ABI`` from an earlier checkout at ``parent``,
-    a directory inside this checkout holding its ``src/repro_torch/csrc``,
-    built with the same nvcc flags, as callables on the wrappers'
+    """The entries of ``PARENT_ABI`` from an earlier checkout at
+    ``parent``, a directory inside this checkout holding its
+    ``src/repro_torch/csrc``, built with the same nvcc flags (one process
+    per source, started together), as callables on the wrappers'
     arguments (at most 128 query tokens); {} without one. Raises unless
-    each source declares its ``PARENT_ABI`` entry."""
+    each source declares its ``PARENT_ABI`` entries."""
     import ctypes
     import re
     import torch
@@ -1077,13 +1149,15 @@ def parent_kernels(parent):
         raise ValueError(f"--parent {parent}: not a directory inside "
                          f"{ROOT}")
     csrc = os.path.join(root, "src", "repro_torch", "csrc")
-    for name, want in PARENT_ABI.items():
+    for name, entries in PARENT_ABI.items():
         with open(os.path.join(csrc, f"{name}.cu")) as f:
-            decl = re.search(rf'extern "C" (int {name}_launch\([^)]*\))',
-                             f.read())
-        if decl is None or " ".join(decl.group(1).split()) != want:
-            raise ValueError(f"--parent {parent}: {name}.cu does not declare"
-                             f" the entry this script calls: {want}")
+            text = f.read()
+        for fn, want in entries.items():
+            decl = re.search(rf'extern "C" (int {fn}\([^)]*\))', text)
+            if decl is None or " ".join(decl.group(1).split()) != want:
+                raise ValueError(f"--parent {parent}: {name}.cu does not "
+                                 f"declare the entry this script calls: "
+                                 f"{want}")
     out = os.path.join(ROOT, "build", "parent_kernels")
     os.makedirs(out, exist_ok=True)
     jobs = {}
@@ -1111,6 +1185,10 @@ def parent_kernels(parent):
     assign.argtypes = [P] * 5 + [I] * 4 + [P]
     allpairs = libs["maxsim"].maxsim_launch
     allpairs.argtypes = [P] * 5 + [I] * 5 + [P]
+    rerank = libs["maxsim"].maxsim_rerank_launch
+    rerank.argtypes = [P] * 5 + [I] * 5 + [P]
+    dequant = libs["dequant_score"].dequant_score_launch
+    dequant.argtypes = [P] * 6 + [I] * 5 + [P]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -1152,8 +1230,26 @@ def parent_kernels(parent):
                              stream()), "parent maxsim")
         return o
 
+    def run_rerank(q, qm, d, dm):
+        (Nq, Lq, dim), (_, S, Ld, _) = q.shape, d.shape
+        o = torch.empty((Nq, S), dtype=torch.float32, device=q.device)
+        build.check(rerank(q.data_ptr(), qm.data_ptr(), d.data_ptr(),
+                           dm.data_ptr(), o.data_ptr(), Nq, Lq, dim, S, Ld,
+                           stream()), "parent maxsim_rerank")
+        return o
+
+    def run_dequant(w, cid, cen, vals, q, bits):
+        (M, W), (Lq, dim) = w.shape, q.shape
+        o = torch.empty((M, Lq), dtype=torch.float32, device=q.device)
+        build.check(dequant(w.data_ptr(), cid.data_ptr(), cen.data_ptr(),
+                            vals.data_ptr(), q.data_ptr(), o.data_ptr(), M,
+                            Lq, dim, W, bits, stream()),
+                    "parent dequant_score")
+        return o
+
     return {"plaid_probe": run_probe, "maxsim_packed": run_packed,
-            "kmeans_assign": run_assign, "maxsim": run_allpairs}
+            "kmeans_assign": run_assign, "maxsim": run_allpairs,
+            "maxsim_rerank": run_rerank, "dequant_score": run_dequant}
 
 
 def _launches(name):
@@ -1197,9 +1293,10 @@ def capture_maxsim_args(torch, searcher, queries):
 def check_maxsim(torch, dev, index, qv, flat_args, parent):
     """All-pairs kernel at the recon store's full width (Nd = 16,384) and
     at the flat path's own inputs (``flat_args``), each held to the plain
-    version; timed beside the parent design where ``parent`` holds it,
-    and beside ``torch.matmul`` of the same product alone (TF32 off): no
-    port, no library_ms (it leaves out the masked maxima and sums)."""
+    version; timed beside the parent design where ``parent`` holds it
+    (whose scores must be equal), and beside ``torch.matmul`` of the same
+    product alone (TF32 off): no port, no library_ms (it leaves out the
+    masked maxima and sums)."""
     from repro_torch.kernels.maxsim.ops import maxsim
     d, dm = index._plaid.recon_store().padded()
     dm = dm.clone()
@@ -1223,11 +1320,9 @@ def check_maxsim(torch, dev, index, qv, flat_args, parent):
                                  f"score 0")
         times[what] = _time_ms(lambda: maxsim(*args))
         if parent:
-            pgot = parent["maxsim"](*args)
-            perr = float((pgot - want).abs().max())
-            if not torch.allclose(pgot, want, rtol=1e-5, atol=SCORE_ATOL):
-                raise AssertionError(f"maxsim {what}, parent design: max abs "
-                                     f"err {perr}")
+            if not torch.equal(parent["maxsim"](*args), got):
+                raise AssertionError(f"maxsim {what}: differs from the "
+                                     f"parent design's scores")
             times[what + " parent"] = _time_ms(lambda: parent["maxsim"](*args))
         del got, want
     # the product alone, [Nq Lq, dim] x [dim, Nd Ld] in f32 (TF32 off)
@@ -1271,9 +1366,31 @@ def check_maxsim(torch, dev, index, qv, flat_args, parent):
                       f"{NO_LIBRARY}")
 
 
-def check_maxsim_rerank(torch, dev, index, qv):
-    """Per-query rerank at one slab of the main path (S = 1024)."""
-    from repro_torch.kernels.maxsim.ops import maxsim_rerank
+def _rerank_bound(q, qm, pair_dm, read_dm, n_slots):
+    """Bytes: q and its mask, the doc masks read (``read_dm``) and their
+    valid rows, 8 + 1 bytes a slot of ids and flags where the layout has
+    them (``n_slots``), the scores; operations: 2 dim x valid query tokens
+    x each query's valid candidate rows (``pair_dm`` [Nq, S, Ld]), three
+    passes at the TF32 tensor-core rate."""
+    dim = q.shape[2]
+    n_bytes = (_nbytes(q, qm, read_dm) + int(read_dm.sum()) * dim * 4
+               + n_slots * 9 + pair_dm.shape[0] * pair_dm.shape[1] * 4)
+    ops = 2 * dim * int((qm.sum(1)[:, None] * pair_dm.sum(2)).sum())
+    return _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+
+
+def check_maxsim_rerank(torch, dev, index, qv, recon_args, cascade_args,
+                        parent):
+    """The gathered entry at one slab of the recon store (S = 1,024 random
+    candidates a query, 19 in 20 valid), and the indexed entry at the
+    recon_rerank path's own slate (``recon_args``, one batch's arguments)
+    and at the cascade's stage 2 (``cascade_args``), each held to its
+    plain version. Where ``parent`` holds the parent design (the f32 FMA
+    rerank of gathered candidates) it is held to the same limits and
+    timed on the same inputs, at the slates with the gather it needs
+    (``DocStore.gather``'s ``d[cand]``) inside its time."""
+    from repro_torch.kernels.maxsim.ops import (maxsim_rerank,
+                                                maxsim_rerank_indexed)
     store = index._plaid.recon_store()
     Nq, Lq, dim = qv.shape
     S = 1024
@@ -1284,25 +1401,78 @@ def check_maxsim_rerank(torch, dev, index, qv):
     dm = dm & cm[:, :, None]
     qm = torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
     qm[:, -2:] = False
-    got = maxsim_rerank(qv, qm, d, dm)
-    want = maxsim_rerank(qv, qm, d, dm, impl="ref")
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
-        raise AssertionError(f"maxsim_rerank: max abs err {err}")
-    ops = 2 * dim * int((qm.sum(1)[:, None] * dm.sum(2)).sum())
-    bound, by = _bound_ms(_nbytes(qv, qm, d, dm) + got.numel() * 4, ops)
+    errs, times = [], {}
+
+    def hold(what, got, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs.append(err)
+        if not torch.allclose(got, want, rtol=1e-5, atol=SCORE_ATOL):
+            raise AssertionError(f"maxsim_rerank {what}: max abs err {err}")
+
+    syn = (qv, qm, d, dm)
+    want = maxsim_rerank(*syn, impl="ref")
+    hold("synthetic", maxsim_rerank(*syn), want)
+    times["synthetic"] = _time_ms(lambda: maxsim_rerank(*syn))
+    if parent:
+        hold("synthetic, parent design", parent["maxsim_rerank"](*syn), want)
+        times["synthetic parent"] = _time_ms(
+            lambda: parent["maxsim_rerank"](*syn))
+    slates, path = {}, {}
+    for what, args in (("recon", recon_args), ("cascade", cascade_args)):
+        pq, pqm, pd, pdm, pc, pcm = args
+        want = maxsim_rerank_indexed(*args, impl="ref")
+        hold(what, maxsim_rerank_indexed(*args), want)
+        times[what] = _time_ms(lambda: maxsim_rerank_indexed(*args))
+        if parent:
+            def gathered():                   # the parent's way: gather, score
+                c = torch.where(pcm, pc, torch.zeros_like(pc))
+                return parent["maxsim_rerank"](pq, pqm, pd[c],
+                                               pdm[c] & pcm[:, :, None])
+            hold(f"{what}, parent design", gathered(), want)
+            times[what + " parent (gather + kernel)"] = _time_ms(gathered)
+        # the rows each query's valid candidates hold, and the distinct
+        # candidates' (read once: the guide's bound) against all pairs'
+        sdm = pdm[torch.where(pcm, pc, torch.zeros_like(pc))] & pcm[:, :, None]
+        distinct = torch.unique(pc[pcm])
+        path[what] = dict(
+            ms=times[what],
+            bound_ms=_rerank_bound(pq, pqm, sdm, pdm[distinct],
+                                   pc.numel())[0],
+            pairs_bound_ms=_rerank_bound(pq, pqm, sdm, sdm, pc.numel())[0],
+            parent_ms=times.get(what + " parent (gather + kernel)"))
+        slates[what] = (f"{what}: Nq={pq.shape[0]}, Lq={pq.shape[1]}, "
+                        f"S={pc.shape[1]}, {int(pcm.sum())} valid candidates "
+                        f"({distinct.numel()} distinct) of {pd.shape[0]} "
+                        f"docs, Ld={pd.shape[1]}, {int(sdm.sum())} valid rows "
+                        f"of all pairs, {int(pdm[distinct].sum())} of the "
+                        f"distinct candidates; bound "
+                        f"{path[what]['bound_ms']:.4f} ms (distinct rows "
+                        f"read once), "
+                        f"{path[what]['pairs_bound_ms']:.4f} ms (every "
+                        f"pair's rows)")
+    bound, by = _rerank_bound(qv, qm, dm, dm, 0)
+    print("maxsim_rerank slates: " + "; ".join(slates.values()))
+    print("maxsim_rerank times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items())
+        + f"; {_hmma_count('maxsim', 'maxsim_tc_kernel')}")
     return dict(name="maxsim_rerank", route="cuda",
                 source="src/repro_torch/csrc/maxsim.cu",
                 replaces="src/repro/kernels/maxsim/kernel.py:85",
-                **_launches("maxsim_rerank"), max_abs_err=err,
-                ms=_time_ms(lambda: maxsim_rerank(qv, qm, d, dm)),
-                plain_ms=_time_ms(lambda: maxsim_rerank(qv, qm, d, dm,
-                                                        impl="ref"), reps=2),
+                **_launches("maxsim_rerank"), max_abs_err=max(errs),
+                ms=times["synthetic"],
+                plain_ms=_time_ms(lambda: maxsim_rerank(*syn, impl="ref"),
+                                  reps=2),
                 bound_ms=bound, bound_by=by, library_ms=None,
-                check=f"allclose rtol 1e-5 atol {SCORE_ATOL} (Nq={Nq}, "
-                      f"Lq={Lq} with 2 masked, S={S}, Ld={d.shape[2]}); "
-                      f"library_ms {NO_LIBRARY}")
+                parent_ms=times.get("synthetic parent"), slates_ms=path,
+                times_ms=times,
+                check=f"allclose rtol 1e-5 atol {SCORE_ATOL} (gathered: "
+                      f"Nq={Nq}, Lq={Lq} with 2 masked, S={S}, "
+                      f"Ld={d.shape[2]}; indexed: the recon_rerank and "
+                      f"cascade slates"
+                      f"{'; the parent design too' if parent else ''}); "
+                      f"bound: the valid rows read once, products at 3 "
+                      f"passes of the TF32 rate; library_ms {NO_LIBRARY}")
 
 
 def _assign_hold(what, torch, x, c, km, valid, got, want):
@@ -1337,7 +1507,7 @@ def check_kmeans_assign(torch, dev, model, docs, parent):
     N = 256, d = 128) against its centroids after the last Lloyd step
     (K = 129), and at that shape on random unit vectors (the synthetic
     case). Timed at the path's inputs beside the parent design where
-    ``parent`` holds it (held to the same limits), and beside
+    ``parent`` holds it (whose ids and sims must be equal), and beside
     ``torch.matmul`` of the product alone (TF32 off; no port)."""
     from repro_torch.core.kmeans import kmeans_fit_batch
     from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
@@ -1358,14 +1528,17 @@ def check_kmeans_assign(torch, dev, model, docs, parent):
     held, errs, times = {}, [], {}
     for what, (xx, cc, kk, valid) in cases.items():
         want = kmeans_assign(xx, cc, kk, impl="ref")
-        n_differ, n_near, err = _assign_hold(
-            what, torch, xx, cc, kk, valid, kmeans_assign(xx, cc, kk), want)
+        got = kmeans_assign(xx, cc, kk)
+        n_differ, n_near, err = _assign_hold(what, torch, xx, cc, kk, valid,
+                                             got, want)
         held[what] = f"{n_differ} differ, {n_near} valid near-tie rows"
         errs.append(err)
         times[what] = _time_ms(lambda: kmeans_assign(xx, cc, kk))
         if parent:
-            _assign_hold(f"{what}, parent design", torch, xx, cc, kk, valid,
-                         parent["kmeans_assign"](xx, cc, kk), want)
+            pa, pb = parent["kmeans_assign"](xx, cc, kk)
+            if not (torch.equal(pa, got[0]) and torch.equal(pb, got[1])):
+                raise AssertionError(f"kmeans_assign {what}: differs from "
+                                     f"the parent design's")
             times[what + " parent"] = _time_ms(
                 lambda: parent["kmeans_assign"](xx, cc, kk))
     ct = c.transpose(1, 2)
@@ -1403,9 +1576,12 @@ def check_kmeans_assign(torch, dev, model, docs, parent):
                       f"masked argmax is not one call")
 
 
-def check_dequant_score(torch, dev, index, qv):
+def check_dequant_score(torch, dev, index, qv, parent):
     """On the main index's rows: the packed tokens of every candidate doc
-    of the first query batch, scored against one query's tokens."""
+    of the first query batch, scored against one query's tokens; held to
+    the plain version and, per document, to ``maxsim_packed``. Where
+    ``parent`` holds the parent design (f32 FMA) it is held to the same
+    limits and timed on the same inputs."""
     from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
     from repro_torch.kernels.quant.ops import dequant_score
     p = index._plaid
@@ -1437,27 +1613,44 @@ def check_dequant_score(torch, dev, index, qv):
     if not torch.allclose(best.sum(1), packed, rtol=0, atol=SCORE_ATOL):
         raise AssertionError(f"dequant_score: per-doc MaxSim differs from "
                              f"maxsim_packed by {doc_err}")
-    ops = M * (2 * Lq * dim + 4 * dim)
+    times = {"new": _time_ms(lambda: dequant_score(*args, bits=bits))}
+    if parent:
+        perr = float((parent["dequant_score"](*args, bits) - want).abs().max())
+        if perr > SCORE_ATOL:
+            raise AssertionError(f"dequant_score, parent design: max abs err "
+                                 f"{perr}")
+        times["parent"] = _time_ms(lambda: parent["dequant_score"](*args,
+                                                                   bits))
+    # operations: the products at 3 passes of the TF32 rate, the
+    # reconstruction's ~4 dim a row at f32
+    ops = [(M * 2 * Lq * dim * TF32_PASSES, TF32_OPS_PER_S)]
     out_bytes = M * Lq * 4
-    bound, by = _bound_ms(_nbytes(*args) + out_bytes, ops)
+    bound, by = _bound_ms(_nbytes(*args) + out_bytes, M * 4 * dim,
+                          more=ops)
     rows_bound, rows_by = _bound_ms(_nbytes(w, cid, vals, q) + M * dim * 4
-                                    + out_bytes, ops)
+                                    + out_bytes, M * 4 * dim, more=ops)
+    print("dequant_score times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items())
+        + f"; {_hmma_count('dequant_score')}")
     return dict(name="dequant_score", route="cuda",
                 source="src/repro_torch/csrc/dequant_score.cu",
                 replaces="src/repro/kernels/quant/kernel.py:62",
                 **_launches("dequant_score"), max_abs_err=err,
-                ms=_time_ms(lambda: dequant_score(*args, bits=bits)),
+                ms=times["new"],
                 plain_ms=_time_ms(lambda: dequant_score(*args, bits=bits,
                                                         impl="ref")),
                 bound_ms=bound, bound_by=by, library_ms=None,
+                parent_ms=times.get("parent"),
                 check=f"allclose atol {SCORE_ATOL}; per-doc max summed over "
                       f"the query equals maxsim_packed to {SCORE_ATOL} (max "
                       f"diff {doc_err:.3g}) (M={M} rows of {len(docs)} "
-                      f"candidate docs, Lq={Lq}, dim={dim}, b={bits}); bound "
-                      f"with a centroid row read per row {rows_bound:.4f} ms "
-                      f"({rows_by}); launches 0: no path of the JAX package "
-                      f"calls it; library_ms null: unpack + reconstruct + "
-                      f"score is not one call")
+                      f"candidate docs, Lq={Lq}, dim={dim}, b={bits}"
+                      f"{'; the parent design too' if parent else ''}); "
+                      f"bound: products at 3 passes of the TF32 rate, "
+                      f"reconstruction at f32; with a centroid row read per "
+                      f"row {rows_bound:.4f} ms ({rows_by}); launches 0: no "
+                      f"path of the JAX package calls it; library_ms null: "
+                      f"unpack + reconstruct + score is not one call")
 
 
 def _errors(got, want):
@@ -1838,9 +2031,10 @@ def check_flash_attention(torch, dev):
                       f"{', enable_gqa=True' if gqa else ', k/v repeated'})")
 
 
-def _hmma_count(name: str) -> str:
+def _hmma_count(name: str, kernel: str = "") -> str:
     """HMMA (tensor-core) instructions in the built library of
-    ``csrc/<name>.cu``, by ``cuobjdump -sass``."""
+    ``csrc/<name>.cu``, by ``cuobjdump -sass``: in all, and in each of its
+    functions whose (mangled) name holds ``kernel``; fails on none."""
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1849,10 +2043,23 @@ def _hmma_count(name: str) -> str:
                              f"HMMA instructions cannot be counted")
     sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    n = sum(" HMMA." in line for line in sass.splitlines())
+    per_fn, fn = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif " HMMA." in line:
+            per_fn[fn] = per_fn.get(fn, 0) + 1
+    n = sum(per_fn.values())
     if n == 0:
         raise AssertionError(f"{name}: no HMMA instruction in its SASS")
-    return f"SASS has {n} HMMA instructions (cuobjdump -sass)"
+    if not kernel:
+        return f"SASS has {n} HMMA instructions (cuobjdump -sass)"
+    each = {f: c for f, c in per_fn.items() if kernel in f}
+    if not each:
+        raise AssertionError(f"{name}: no HMMA instruction in {kernel}")
+    return (f"SASS has {n} HMMA instructions (cuobjdump -sass), by "
+            f"{kernel} instance: " + ", ".join(
+                f"{f} {c}" for f, c in sorted(each.items())))
 
 
 def main(argv=None) -> int:
@@ -1893,11 +2100,12 @@ def main(argv=None) -> int:
     host_probe_path(torch, index, searcher, queries, S, I)
     dense_path(rt, torch, model, docs, queries)
     flat_args = flat_path(rt, torch, model, docs, queries)
-    recon_path(torch, index, searcher, queries, S, I)
+    recon_args = recon_path(torch, index, searcher, queries, S, I)
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     kmeans_path(rt, torch, model, docs, queries)
     sequential_path(rt, torch, model, docs, queries)
-    cascade, cS, cI = cascade_path(rt, torch, model, docs, queries)
+    cascade, cS, cI, cascade_args = cascade_path(rt, torch, model, docs,
+                                                 queries)
     cascade_from_dir_path(rt, torch, model, queries, cascade, cS, cI)
     del cascade
     lm_cfg, lm = _lm_model(rt, torch)
@@ -1910,14 +2118,19 @@ def main(argv=None) -> int:
     path_probe, path_packed, path_qv = capture_path_args(torch, searcher,
                                                          queries)
     split = search_split(torch, searcher, path_qv)
+    index.packed_rerank = False
+    recon_split = search_split(torch, searcher, path_qv, RECON_STAGES,
+                               "recon_rerank")
+    index.packed_rerank = True
     qv = searcher.encode_queries(queries[:QUERY_BATCH])
     kernels = [check_ward(torch, dev),
                check_plaid_probe(torch, dev, index, qv, path_probe, parent),
                check_maxsim_packed(torch, dev, index, qv, path_packed, parent),
                check_maxsim(torch, dev, index, qv, flat_args, parent),
-               check_maxsim_rerank(torch, dev, index, qv),
+               check_maxsim_rerank(torch, dev, index, qv, recon_args,
+                                   cascade_args, parent),
                check_kmeans_assign(torch, dev, model, docs, parent),
-               check_dequant_score(torch, dev, index, qv),
+               check_dequant_score(torch, dev, index, qv, parent),
                check_flash_attention(torch, dev)]
     for k in kernels:
         lib = (f", library {k['library_ms']:.4f} ms" if k["library_ms"]
@@ -1929,7 +2142,8 @@ def main(argv=None) -> int:
     _agree("main path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
 
-    print(json.dumps({"kernels": kernels, "search_split_ms": split}))
+    print(json.dumps({"kernels": kernels, "search_split_ms": split,
+                      "recon_split_ms": recon_split}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

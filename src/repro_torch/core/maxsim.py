@@ -1,9 +1,9 @@
 """MaxSim scoring entry points and the top-k epilogue of every search.
 
 Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_all_docs`` (flat
-search and the dense corpus-wide fallback), ``maxsim_rerank`` and the
-slabbed ``maxsim_rerank_store`` (gathered f32 candidates), both through
-the ``maxsim`` kernels (``kernels/maxsim``), and ``topk_with_pads``.
+search and the dense corpus-wide fallback) and ``maxsim_rerank_store``
+(candidates read from a ``DocStore``), both through the ``maxsim``
+kernels (``kernels/maxsim``), and ``topk_with_pads``.
 
 ``torch.topk`` does not order ties by lowest index; ``jax.lax.top_k``
 does, and the candidate slates depend on it. ``stable_topk`` sorts
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.maxsim import ops as maxsim_ops
 
@@ -68,24 +69,24 @@ def maxsim_all_docs(q, q_mask, d, d_mask, impl: str = "auto"):
                              d, d_mask, impl=impl)
 
 
-def maxsim_rerank(q, q_mask, d, d_mask, impl: str = "auto"):
-    """Per-query gathered-candidate scores [Nq, S]."""
-    return maxsim_ops.maxsim_rerank(q.float().contiguous(),
-                                    q_mask.contiguous(), d, d_mask,
-                                    impl=impl)
-
-
 def maxsim_rerank_store(store, q, q_mask, cand, cand_mask, *,
                         slab: int = 1024, impl: str = "auto"):
-    """Gather candidates from ``store`` (a ``DocStore``) and rerank,
-    slabbed over the candidate axis so the [Nq, slab, Ld, dim] gather
-    stays bounded. cand/cand_mask [Nq, C] (device) -> scores [Nq, C]
-    (-inf invalid)."""
+    """Rerank candidates read from ``store`` (a ``DocStore``): the
+    ``maxsim_rerank`` kernel reads each candidate's rows from the store's
+    padded view in place, one launch for all of them; the plain version
+    gathers them, slabbed over the candidate axis so the
+    [Nq, slab, Ld, dim] gather stays bounded. cand/cand_mask [Nq, C]
+    (device) -> scores [Nq, C] (-inf invalid)."""
+    d, dm = store.padded()
+    q, q_mask = q.float().contiguous(), q_mask.contiguous()
+    plain = impl == "ref" or q.device.type != "cuda"
+    width = slab if plain else max(cand.shape[1], 1)
     parts = []
-    for lo in range(0, cand.shape[1], slab):
-        c = cand[:, lo:lo + slab]
-        cm = cand_mask[:, lo:lo + slab]
-        d, dm = store.gather(c)
-        s = maxsim_rerank(q, q_mask, d, dm & cm[:, :, None], impl=impl)
-        parts.append(s.masked_fill(~cm, float("-inf")))
+    with record_function("search.maxsim_rerank"):
+        for lo in range(0, cand.shape[1], width):
+            c = cand[:, lo:lo + width]
+            cm = cand_mask[:, lo:lo + width]
+            s = maxsim_ops.maxsim_rerank_indexed(q, q_mask, d, dm, c, cm,
+                                                 impl=impl)
+            parts.append(s.masked_fill(~cm, float("-inf")))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

@@ -1,69 +1,95 @@
 // MaxSim late-interaction scoring over f32 token vectors for Hopper (sm_90a).
 //
-// Two entries, one per TPU kernel of src/repro/kernels/maxsim/kernel.py:
+// Three entries, for the two TPU kernels of src/repro/kernels/maxsim/kernel.py:
 //   * maxsim_launch replaces `maxsim_pallas` (`_maxsim_kernel`): all-pairs
 //     scores q [Nq, Lq, dim] x d [Nd, Ld, dim] -> [Nq, Nd] (flat search,
 //     PLAID's dense corpus-wide fallback, the cascade's first stage);
 //   * maxsim_rerank_launch replaces `maxsim_rerank_pallas`
 //     (`_maxsim_rerank_kernel`): each query against its own gathered
-//     candidates d [Nq, S, Ld, dim] -> [Nq, S] (PLAID's rerank from the f32
-//     reconstruction store, the cascade's second stage).
-// Both compute sum_{valid q tokens} max_{valid d tokens} q . d; a masked doc
+//     candidates d [Nq, S, Ld, dim] -> [Nq, S];
+//   * maxsim_rerank_indexed_launch computes the same function as the JAX
+//     package's candidate gather followed by `maxsim_rerank_pallas`, reading
+//     the candidates in place: d [Nd, Ld, dim] is a store's padded view and
+//     cand [Nq, S] the ids of each query's candidates (PLAID's rerank from
+//     the f32 reconstruction store, the cascade's second stage), so the
+//     [Nq, S, Ld, dim] gather is never written. An invalid candidate
+//     (cand_mask false) scores 0 and no row of it is read, whatever id it
+//     holds.
+// All compute sum_{valid q tokens} max_{valid d tokens} q . d; a masked doc
 // token is -inf, and a query token that is masked or whose best is not
 // finite contributes 0 (a doc with no valid token scores 0).
 //
-// All-pairs: bound by operations (each doc token is scored against every
-// token of Nq queries: at Nq = 32, Lq = 32, dim = 128 ~40 FLOP per byte it
-// must read). Its products run on the tensor cores as 3xTF32 (tf32.cuh:
-// f32's accuracy over three TF32 passes). Design (`maxsim_tc_kernel`):
-// - One flat stream of the valid doc rows of [Nd * Ld, dim]: masked rows
-//   (a pooled document's padding) cost nothing. A block owns whole queries
-//   (QR = 128 query rows: 128 / Lq queries) and a run of whole documents,
-//   and walks the run's valid rows in tiles of up to TR = 128 that cross
-//   document boundaries: the block lists a tile's rows two tiles ahead
-//   (a ballot over 256 mask bytes a step), copies them by 16-byte cp.async
-//   one tile ahead into a double buffer, and multiplies the current one.
-//   blockIdx.x walks the query groups, so the blocks sharing a run of
-//   documents run side by side and read it once from device memory.
-// - The block's query rows are staged once. Warp (rg, cg) scores query
-//   rows 64 rg .. + 63 against tile rows 32 cg .. + 31: per k-step of 8,
-//   four A fragments (query rows) and four B fragments (doc rows) come from
-//   shared memory by six `ldmatrix.x4` (a step ahead of their use) and are
-//   split into TF32 hi and lo in registers, then 16 x 3 `mma.sync.m16n8k8`
-//   (lo.hi + hi.lo + hi.hi) into f32 registers, each pass over all 16
-//   tiles before the next, with no branch among them (a branch there cuts
-//   the warp's instruction stream into blocks the compiler cannot
-//   interleave). A warp past the tile's listed rows takes no product.
-// - Segmented maxima from the accumulators. Where a warp's 32 listed rows
-//   lie in at most two documents (always where documents hold 32 valid
-//   rows or more), each side of the boundary reduces in registers and two
-//   shuffles, then one shared-memory atomic max per query row and side
-//   (floats ordered as integers); otherwise each value takes its own
+// What bounds them on this card. All-pairs: operations (each doc token is
+// scored against every token of Nq queries: at Nq = 32, Lq = 32,
+// dim = 128 ~40 FLOP per byte it must read). Rerank: bytes (each candidate
+// row is read for one query: Lq / 2 FLOP per byte, 16 at Lq = 32, under
+// the ~50 at which 3xTF32 products at the TF32 peak take as long as the
+// bytes). Both run one tensor-core body (`maxsim_tc_kernel`), whose products
+// are 3xTF32 (tf32.cuh: f32's accuracy over three TF32 passes):
+// - One stream of the valid doc rows of a block's run of documents: masked
+//   rows (a pooled document's padding, ~20%) and documents whose candidate
+//   is invalid are never read. A block owns whole queries and a run of
+//   whole documents (all-pairs: QR / Lq queries against documents shared by
+//   all; rerank: one query against a run of its own candidates), and walks
+//   the run's valid rows in tiles of up to TR rows (`Shape`: 128, or 64 at
+//   QR = 32) that cross document boundaries: the block lists a tile's rows
+//   ahead (a ballot over a mask byte a thread a step; in the indexed layout
+//   each document's rows start at cand[i, s] * Ld) and copies them by
+//   16-byte cp.async into a ring of NBUF tile buffers (three at QR = 32,
+//   else two). While the block multiplies tile j, the tiles after it land,
+//   and each warp copies its rows of tile j + NBUF - 1 a row a k-step,
+//   between its products. Measured on the rerank (NVIDIA H100 80GB HBM3,
+//   S = 1,024, 1.51 GB of valid rows): with a tile's copies asked in one
+//   burst after the products, the burst stalled every warp once the SM's
+//   copies in flight were at their limit, and the device then idled
+//   during the products (0.88 ms); spread over the k-steps, 0.80 ms; with
+//   two blocks of four warps a SM at QR = 32 (one block's lists and
+//   barriers overlap the other's products), 0.72 ms. (TMA bulk copies of
+//   a 512-byte row each: 1.36 ms; their cost is per request.)
+//   blockIdx.x walks the queries (groups), so the all-pairs blocks sharing a
+//   run of documents run side by side and read it once from device memory.
+// - The block's query rows: QR = 128 for all-pairs, and for the rerank the
+//   smallest of 32, 64, 128 that holds Lq, so that every warp multiplies
+//   document rows (QR = 128 would waste 3/4 of the products at Lq = 32).
+//   Warps form RG groups along the query rows and CG along a tile's rows
+//   (`Shape`). At QR = 32 each warp's query fragments (16 rows, hi and lo)
+//   stay in registers for the whole kernel, read once from device memory,
+//   so shared memory carries only doc rows and holds a third tile buffer;
+//   above, they are held raw in shared memory. Per k-step of 8 a warp
+//   loads its fragments from shared memory by `ldmatrix.x4` (a step ahead
+//   of their use), splits raw values into TF32 hi and lo in registers, and
+//   issues 3 WM WN `mma.sync.m16n8k8` (lo.hi + hi.lo + hi.hi) into f32
+//   registers, each pass over all its tiles before the next, with no
+//   branch among them (a branch there cuts the warp's instruction stream
+//   into blocks the compiler cannot interleave). A warp past the tile's
+//   listed rows takes no product.
+// - Segmented maxima from the accumulators. Where a warp's listed rows lie
+//   in at most two documents (always where documents hold as many valid
+//   rows as a warp takes), each side of the boundary reduces in registers
+//   and two shuffles, then one shared-memory atomic max per query row and
+//   side (floats ordered as integers); otherwise each value takes its own
 //   atomic into its document's slot. A tile touches at most SLOTS
-//   documents; one spanning two tiles carries its maxima into slot 0 of
-//   the next tile's `best` (two sets of slots, one reset while the other
-//   fills).
+//   documents; one spanning two tiles carries its maxima into slot 0 of the
+//   next tile's `best` (two sets of slots, one reset while the other fills).
 // - After a tile, each document that ended in it is summed over each
 //   query's valid rows (a finite max only) by one warp and written; a
 //   document without a valid row keeps the 0 the block wrote first.
 // Shared memory holds the tensor-core body up to dim = 132; wider tokens
-// take the f32 body below.
+// take the f32 body below (both layouts of the rerank too).
 //
-// Rerank (and all-pairs above dim 132): the f32 body, bound by bytes for
-// the rerank (every gathered doc is read once for one query, ~16 FLOP per
-// byte at Lq = 32). One block per (QB queries, run of DOCS_PER_BLOCK
-// docs); blockIdx.x walks queries, so the blocks reading one doc run side
-// by side and share it through L2, and each doc chunk staged in shared
-// memory is scored against QB queries (2 for all-pairs; 1 for the rerank,
-// whose docs belong to one query). Query tiles (QT tokens) are staged once
-// per block, k-major ([dim][QT]); doc tokens are staged DT rows at a time
-// as one contiguous, coalesced float4 copy into rows padded to dim + 4
-// floats (bank-conflict-free float4 reads across rows). Each thread owns a
-// TQ x TD tile of (query token, doc token) dot products per query in
-// registers in plain f32 FMA, explicitly rounded so nvcc cannot
-// reassociate them. Running maxima per query token are reduced over the
-// block with shuffles and the sum goes through shared memory. Chunks whose
-// doc tokens are all masked are skipped.
+// The f32 body: one block per (QB queries, run of DOCS_PER_BLOCK docs);
+// blockIdx.x walks queries, so the blocks reading one doc run side by side
+// and share it through L2, and each doc chunk staged in shared memory is
+// scored against QB queries (2 for all-pairs; 1 for the rerank, whose docs
+// belong to one query). Query tiles (QT tokens) are staged once per block,
+// k-major ([dim][QT]); doc tokens are staged DT rows at a time as one
+// contiguous, coalesced float4 copy into rows padded to dim + 4 floats
+// (bank-conflict-free float4 reads across rows). Each thread owns a TQ x TD
+// tile of (query token, doc token) dot products per query in registers in
+// plain f32 FMA, explicitly rounded so nvcc cannot reassociate them. Running
+// maxima per query token are reduced over the block with shuffles and the
+// sum goes through shared memory. Chunks whose doc tokens are all masked
+// are skipped.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
@@ -248,12 +274,15 @@ __device__ __forceinline__ void tile_doc_maxsim(const float* __restrict__ d,
 }
 
 // PER_QUERY = false: docs d [Nd, Ld, dim] shared by all queries (all-pairs);
-// PER_QUERY = true: docs d [Nq, Nd, Ld, dim], query i scores only d[i]
-// (QB must be 1 then).
+// PER_QUERY = true: query i scores only its own Nd candidates (QB must be 1
+// then): gathered, d [Nq, Nd, Ld, dim], where cand is null; indexed,
+// candidate s the store's document cand[i, s] of d [*, Ld, dim] where
+// cmask[i, s] (else it scores 0 unread).
 template <bool PER_QUERY, int QB>
 __global__ void __launch_bounds__(THREADS) maxsim_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ qmask,
     const float* __restrict__ d, const uint8_t* __restrict__ dmask,
+    const int64_t* __restrict__ cand, const uint8_t* __restrict__ cmask,
     float* __restrict__ out, int Nq, int Lq, int dim, int Nd, int Ld) {
   static_assert(!PER_QUERY || QB == 1, "per-query docs: one query a block");
   extern __shared__ __align__(16) float smem[];
@@ -276,10 +305,19 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(
       for (int j = 0; j < DOCS_PER_BLOCK; ++j) {
         const int n = blk * DOCS_PER_BLOCK + j;
         if (n >= Nd) break;                            // uniform
-        const size_t doc = doc0 + n;
+        size_t doc = doc0 + n;
+        bool present = true;                           // uniform
+        if (PER_QUERY && cand != nullptr) {
+          present = cmask[doc];
+          doc = present ? (size_t)cand[doc] : 0;
+        }
         float part[QB];
-        tile_doc_maxsim<QB>(d + doc * Ld * dim, dmask + doc * Ld, Ld, dim, s,
-                            part);
+        if (present)
+          tile_doc_maxsim<QB>(d + doc * Ld * dim, dmask + doc * Ld, Ld, dim,
+                              s, part);
+        else
+#pragma unroll
+          for (int b = 0; b < QB; ++b) part[b] = 0.f;
         if (threadIdx.x == 0)
 #pragma unroll
           for (int b = 0; b < QB; ++b)
@@ -294,8 +332,9 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(
 
 template <bool PER_QUERY, int QB>
 int launch(const float* q, const uint8_t* qmask, const float* d,
-           const uint8_t* dmask, float* out, int Nq, int Lq, int dim, int Nd,
-           int Ld, void* stream) {
+           const uint8_t* dmask, const int64_t* cand, const uint8_t* cmask,
+           float* out, int Nq, int Lq, int dim, int Nd, int Ld,
+           void* stream) {
   const size_t smem = smem_bytes(QB, dim);
   cudaFuncSetAttribute(maxsim_kernel<PER_QUERY, QB>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -305,99 +344,162 @@ int launch(const float* q, const uint8_t* qmask, const float* d,
   if (Nq > 0 && Nd > 0)
     maxsim_kernel<PER_QUERY, QB>
         <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-            q, qmask, d, dmask, out, Nq, Lq, dim, Nd, Ld);
+            q, qmask, d, dmask, cand, cmask, out, Nq, Lq, dim, Nd, Ld);
   return (int)cudaGetLastError();
 }
 
-// --- the all-pairs tensor-core body (3xTF32) --------------------------------
+// --- the tensor-core body (3xTF32) -----------------------------------------
 
-constexpr int TC_THREADS = 256;         // 8 warps: 2 query-row groups x 4
-constexpr int TC_WARPS = TC_THREADS / 32;   // doc-row groups
-constexpr int QR = 128;                 // query rows a block (whole queries)
-constexpr int TR = 128;                 // valid doc rows a tile, at most
-constexpr int WM = 4;                   // m-tiles a warp: 64 query rows
-constexpr int WN = 4;                   // n-tiles a warp: 32 doc rows
+// how a block's documents are laid out
+enum Layout : int {
+  ALL_PAIRS = 0,    // d [Nd, Ld, dim], shared by all queries
+  GATHERED = 1,     // d [Nq, S, Ld, dim], query i's own candidates
+  INDEXED = 2,      // d [*, Ld, dim], query i's candidate s at cand[i, s]
+};
+
+constexpr int MAX_QR = 128;             // query rows a block, at most
 constexpr int SLOTS = 16;               // documents a tile may touch
 constexpr int MAX_SMEM = 232448;        // dynamic shared memory a block
 
-__host__ __device__ constexpr size_t tc_smem_bytes(int dim) {
-  return sizeof(float) * ((size_t)(QR + 2 * TR) * (dim + 4) +
-                          (size_t)2 * SLOTS * QR) +
-         sizeof(int) * (QR + 3 * 2 * TR + 3 + TC_WARPS + 1);
+// A block holding QR query rows: at QR = 32 (the rerank at ColBERT's query
+// length) four warps and tiles of 64 rows, two blocks a SM, so that one
+// block's products run while the other lists its next tile and waits at
+// its barriers; else eight warps and tiles of 128, one block a SM. A warp
+// copies 16 rows of each tile.
+template <int QR>
+struct Shape {
+  static constexpr int THREADS = QR == 32 ? 128 : 256;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int TR = 16 * WARPS;       // valid doc rows a tile, at most
+  static constexpr int PER_SM = QR == 32 ? 2 : 1;
+  // Warps form RG groups along the query rows times CG along a tile's doc
+  // rows, each WM m-tiles (16 query rows) by WN n-tiles (8 doc rows): 64 x
+  // 32 at QR = 128 (2 x 4 warps), 16 x 32 at QR = 32 (2 x 2), 64 x 16 at
+  // QR = 64 (1 x 8).
+  static constexpr int RG = QR == 64 ? 1 : 2;
+  static constexpr int CG = WARPS / RG;
+  static constexpr int WM = QR / RG / 16;
+  static constexpr int WN = TR / CG / 8;
+  static constexpr int WC = 8 * WN;     // doc rows a warp
+  static_assert(WM >= 1 && WN % 2 == 0 && WC <= 32, "warp tiles");
+};
+
+// Planes of query rows in shared memory: one, raw, or none at QR = 32,
+// where each warp holds its query fragments in registers (at the model's
+// width only).
+__host__ __device__ constexpr int q_planes(int QR) {
+  return QR == 32 ? 0 : 1;
 }
 
-// Docs [n0, n0 + dpb) of d [Nd, Ld, dim] against queries [q0, q0 + QB) of
-// q [Nq, Lq, dim] (Lq <= QR). DIM: the token width when known at compile
-// time (the model's 128), so the k-loop unrolls; 0 takes it at run time.
-template <int DIM>
-__global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
+// Tile buffers (a ring): three where the query takes no shared memory.
+__host__ __device__ constexpr int n_bufs(int QR) { return QR == 32 ? 3 : 2; }
+
+template <int QR>
+constexpr size_t tc_smem_bytes(int dim) {
+  constexpr int TR = Shape<QR>::TR, WARPS = Shape<QR>::WARPS;
+  return sizeof(float) * ((size_t)(q_planes(QR) * QR + n_bufs(QR) * TR) *
+                              (dim + 4) +
+                          (size_t)2 * SLOTS * QR) +
+         sizeof(int) * (QR + 2 * (n_bufs(QR) + 1) * TR + WARPS + 1);
+}
+
+// Docs [n0, n0 + dpb) against queries [q0, q0 + QB) (Lq <= QR); `layout`
+// says where a doc's rows lie (Layout; for the rerank Nd is S and QB 1).
+// DIM: the token width when known at compile time (the model's 128), so
+// the k-loop unrolls; 0 takes it at run time.
+template <int DIM, int QR>
+__global__ void __launch_bounds__(Shape<QR>::THREADS, Shape<QR>::PER_SM)
+maxsim_tc_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ qmask,
     const float* __restrict__ d, const uint8_t* __restrict__ dmask,
-    float* __restrict__ out, int Nq, int Lq, int width, int Nd, int Ld,
-    int QB, int dpb) {
+    const int64_t* __restrict__ cand, const uint8_t* __restrict__ cmask,
+    float* __restrict__ out, int layout, int Nq, int Lq, int width, int Nd,
+    int Ld, int QB, int dpb) {
+  using W = Shape<QR>;
+  constexpr int WM = W::WM, WN = W::WN, WC = W::WC;
+  constexpr int TC_THREADS = W::THREADS, TC_WARPS = W::WARPS, TR = W::TR;
+  // a warp's query fragments held in registers for the whole kernel (one
+  // m-tile at the model's width: 2 x 64 a lane), so that shared memory
+  // carries only doc rows
+  constexpr bool QREG = q_planes(QR) == 0;
+  static_assert(!QREG || (WM == 1 && DIM > 0), "query fragments a warp");
+  constexpr int NBUF = n_bufs(QR), NL = NBUF + 1;   // tile buffers, lists
   const int dim = DIM > 0 ? DIM : width;
   const int DS = dim + 4;
   extern __shared__ int4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);             // [QR][DS]
-  float* dt = qs + QR * DS;                                // [2][TR][DS]
-  float* bests = dt + 2 * TR * DS;                   // [2][SLOTS][QR]
+  float* qs = reinterpret_cast<float*>(smem4);             // [QR][DS] or none
+  float* dt = qs + q_planes(QR) * QR * DS;              // [NBUF][TR][DS]
+  float* bests = dt + NBUF * TR * DS;                // [2][SLOTS][QR]
   int* qv = reinterpret_cast<int*>(bests + 2 * SLOTS * QR);   // [QR]
-  int* lrow = qv + QR;              // [3][TR] a tile's listed rows (local)
-  int* ldoc = lrow + 3 * TR;        // [3][TR] and their documents (local)
-  int* lcnt = ldoc + 3 * TR;        // [3] listed rows a tile
-  int* wcnt = lcnt + 3;             // [TC_WARPS] valid rows a warp saw
+  int* lrow = qv + QR;              // [NL][TR] a tile's listed rows (of d)
+  int* ldoc = lrow + NL * TR;       // [NL][TR] and their documents (local)
+  int* wcnt = ldoc + NL * TR;       // [TC_WARPS] valid rows a warp saw
   int* cut = wcnt + TC_WARPS;       // [1] the last row a full list took
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int rq = 64 * (warp >> 2), c0 = 32 * (warp & 3);
+  const int rq = (QR / W::RG) * (warp / W::CG), c0 = WC * (warp % W::CG);
   const int q0 = blockIdx.x * QB;
   const int nq = min(QB, Nq - q0);
   const int nqrows = nq * Lq;
   const int n0 = blockIdx.y * dpb;
   const int nrun = min(Nd, n0 + dpb) - n0;
   const int rows = nrun * Ld;               // the run's rows; local from 0
-  const size_t R0 = (size_t)n0 * Ld;
+  // the run's first candidate slot (per-query layouts) and first row of d
+  // (the contiguous layouts)
+  const size_t slot0 = (size_t)q0 * Nd + n0;
+  const size_t R0 = (layout == ALL_PAIRS ? (size_t)n0 : slot0) * Ld;
   const int dim4 = dim >> 2;
 
   // every score of the run 0: a document without a valid token keeps it
   for (int i = tid; i < nq * nrun; i += TC_THREADS)
     out[(size_t)(q0 + i / nrun) * Nd + n0 + i % nrun] = 0.f;
   // row pads (columns dim..dim + 3) zero: a k-step past dim reads zeros
-  for (int r = tid; r < QR + 2 * TR; r += TC_THREADS)
+  for (int r = tid; r < q_planes(QR) * QR + NBUF * TR; r += TC_THREADS)
     *reinterpret_cast<float4*>(qs + r * DS + dim) =
         make_float4(0.f, 0.f, 0.f, 0.f);
   // the block's query rows are contiguous in q
   const float* qsrc = q + (size_t)q0 * Lq * dim;
-  for (int i = tid; i < QR * dim4; i += TC_THREADS) {
+  for (int i = tid; i < (QREG ? 0 : QR * dim4); i += TC_THREADS) {
     const int r = i / dim4, e = 4 * (i % dim4);
-    if (r < nqrows)
+    if (r < nqrows) {
       cp_async16(qs + r * DS + e, qsrc + (size_t)r * dim + e);
-    else
+    } else {
       *reinterpret_cast<float4*>(qs + r * DS + e) =
           make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   for (int r = tid; r < QR; r += TC_THREADS)
     qv[r] = r < nqrows && qmask[(size_t)q0 * Lq + r];
   for (int i = tid; i < 2 * SLOTS * QR; i += TC_THREADS) bests[i] = -INFINITY;
 
+  // The row of d behind local row r of the run where it is a valid token,
+  // else -1: contiguous layouts R0 + r; indexed, row r % Ld of the store's
+  // document cand[slot] (an invalid candidate's id is never read).
+  auto row_of = [&](int r) -> int {
+    if (layout != INDEXED) return dmask[R0 + r] ? (int)(R0 + r) : -1;
+    const int doc = r / Ld;
+    if (!cmask[slot0 + doc]) return -1;
+    const int gr = (int)cand[slot0 + doc] * Ld + (r - doc * Ld);
+    return dmask[gr] ? gr : -1;
+  };
   // The next tile's list: the valid rows from the cursor on, at most TR,
   // within SLOTS documents of the cursor's, scanning TC_THREADS rows a
   // step (a ballot a warp, then a prefix over the warps) until one is
   // found or the run ends. Called by the whole block (it holds barriers);
   // the cursor stays the same in every thread.
   int cursor = 0;
-  // this thread's mask byte of the next scan (row cursor + tid), read
-  // early: a tile's products hide its latency
-  auto peek = [&]() {
-    return cursor + tid < rows ? (int)dmask[R0 + cursor + tid] : 0;
-  };
+  // this thread's row of the next scan (row cursor + tid), read early: a
+  // tile's products hide its latency
+  auto peek = [&]() { return cursor + tid < rows ? row_of(cursor + tid) : -1; };
+  // Returns the list's count (the same in every thread).
   auto build = [&](int sl, int first) {
     int total = 0;
     for (int it = 0; it == 0 || cursor < rows; ++it) {   // barriers: >= 2
       const int cap = min(rows, (cursor / Ld + SLOTS) * Ld);
       const int r = cursor + tid;
-      const bool v = r < cap && (it == 0 ? first : peek());
+      const int gr = r < cap ? (it == 0 ? first : peek()) : -1;
+      const bool v = gr >= 0;
       const unsigned bal = __ballot_sync(0xffffffffu, v);
       if (lane == 0) wcnt[warp] = __popc(bal);
       __syncthreads();
@@ -411,7 +513,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
       }
       const int pos = before + __popc(bal & ((1u << lane) - 1u));
       if (v && pos < TR) {
-        lrow[sl * TR + pos] = r;
+        lrow[sl * TR + pos] = gr;
         ldoc[sl * TR + pos] = r / Ld;
       }
       if (v && pos == TR - 1) *cut = r;
@@ -419,39 +521,62 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
       cursor = total >= TR ? *cut + 1 : min(cursor + TC_THREADS, cap);
       if (total > 0) break;
     }
-    if (tid == 0) lcnt[sl] = min(total, TR);
+    return min(total, TR);
   };
-  // tile j's listed rows into dt[j & 1] by 16-byte cp.async: warp w
-  // copies rows 16 w .. 16 w + 15, a row a step
-  auto issue = [&](int j) {
-    const int sl = j % 3, cnt = lcnt[sl];
-    float* dst = dt + (j & 1) * TR * DS;
-    for (int i = 16 * warp; i < min(cnt, 16 * warp + 16); ++i) {
-      const float* src = d + (R0 + lrow[sl * TR + i]) * dim;
-      for (int e = lane; e < dim4; e += 32)
-        cp_async16(dst + i * DS + 4 * e, src + 4 * e);
-    }
-    cp_async_commit();
+  // row i of tile j (of cnt listed rows) into buffer j % NBUF by 16-byte
+  // cp.async; warp w copies rows 16 w .. 16 w + 15 of each tile
+  auto copy_row = [&](int j, int cnt, int i) {
+    if (i >= cnt) return;
+    const float* src = d + (size_t)lrow[(j % NL) * TR + i] * dim;
+    float* dst = dt + ((j % NBUF) * TR + i) * DS;
+    for (int e = lane; e < dim4; e += 32)
+      cp_async16(dst + 4 * e, src + 4 * e);
   };
 
-  build(0, peek());
-  build(1, peek());
-  __syncthreads();                    // both counts
-  issue(0);
-  // tile j's maxima go to best = bests[j & 1], whose slots the block reset
-  // a tile before (and the next tile's, while this one multiplies)
+  // listed rows of tiles j .. j + NBUF - 1; tiles 0 .. NBUF - 2 copied
+  // now, a group each (the first with the all-pairs query rows)
+  int c[NBUF];
+#pragma unroll
+  for (int b = 0; b < NBUF; ++b) c[b] = build(b, peek());
+#pragma unroll
+  for (int b = 0; b + 1 < NBUF; ++b) {
+    for (int i = 0; i < 16; ++i) copy_row(b, c[b], 16 * warp + i);
+    cp_async_commit();
+  }
+  // this lane's fragments of the warp's query rows, every k-step (QREG),
+  // straight from device memory: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+  // a3 (g + 8, t + 4) of each 16 x 8 step, split as ldmatrix would give them
+  uint32_t qh[QREG ? DIM / 8 : 1][4], ql[QREG ? DIM / 8 : 1][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int k = 0; k < DIM / 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rq + g + 8 * (i & 1), e = 8 * k + t + 4 * (i >> 1);
+        tf32_split(r < nqrows ? qsrc[(size_t)r * DIM + e] : 0.f, qh[k][i],
+                   ql[k][i]);
+      }
+  }
+  // While the block multiplies tile j, tiles j + 1 .. j + NBUF - 2 land
+  // and each warp copies its rows of tile j + NBUF - 1, a row a k-step,
+  // into the buffer of tile j - 1 (a group an iteration, empty past the
+  // end): the copies never wait in one burst, and the device keeps being
+  // asked for rows while the tensor cores work. Tile j's maxima go to
+  // best = bests[j & 1], whose slots the block reset a tile before (and
+  // the next tile's, while this one multiplies).
   int used = -1;                      // slots the last tile used, less one
-  for (int j = 0; lcnt[j % 3] > 0; ++j) {
-    const int sl = j % 3, cnt = lcnt[sl];
+  for (int j = 0; c[0] > 0; ++j) {
+    const int sl = j % NL, cnt = c[0];
     float* best = bests + (j & 1) * SLOTS * QR;
     float* next = bests + ((j + 1) & 1) * SLOTS * QR;
-    cp_async_wait_all();
-    __syncthreads();                  // tile j, its list and best settled
-    if (lcnt[(j + 1) % 3] > 0) issue(j + 1);
+    cp_async_wait<NBUF - 2>();        // tile j landed (this thread's rows)
+    __syncthreads();                  // all of it, its list and best settled
+    const int jn = j + NBUF - 1, cn1 = c[NBUF - 1];   // the tile to copy
+    int copied = 0;                   // of this warp's 16 rows of it
     const int ahead = peek();
     if (tid < QR)
       for (int sd = 0; sd <= used; ++sd) next[sd * QR + tid] = -INFINITY;
-    const float* tile = dt + (j & 1) * TR * DS;
+    const float* tile = dt + (j % NBUF) * TR * DS;
     const int* td = ldoc + sl * TR;
     const int dlo = td[0], dlast = td[cnt - 1];
 
@@ -476,7 +601,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
       uint32_t ra[WM][4], rb[WN / 2][4];
       auto fetch = [&](int k0) {
 #pragma unroll
-        for (int m = 0; m < WM; ++m) ldmatrix_x4(ra[m], pa + 16 * m * DS + k0);
+        for (int m = 0; m < WM && !QREG; ++m)
+          ldmatrix_x4(ra[m], pa + 16 * m * DS + k0);
 #pragma unroll
         for (int p = 0; p < WN / 2; ++p)
           ldmatrix_x4(rb[p], pb + 16 * p * DS + k0);
@@ -488,8 +614,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            tf32_split(__uint_as_float(ra[m][r]), ah[m][r], al[m][r]);
+          for (int r = 0; r < 4; ++r) {
+            if constexpr (QREG) {
+              ah[m][r] = qh[k0 / 8][r];
+              al[m][r] = ql[k0 / 8][r];
+            } else {
+              tf32_split(__uint_as_float(ra[m][r]), ah[m][r], al[m][r]);
+            }
+          }
 #pragma unroll
         for (int n = 0; n < WN; ++n)
 #pragma unroll
@@ -497,22 +629,24 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
             tf32_split(__uint_as_float(rb[n / 2][2 * (n % 2) + h]), bh[n][h],
                        bl[n][h]);
         if (k0 + 8 < dim) fetch(k0 + 8);
+        if (copied < 16) copy_row(jn, cn1, 16 * warp + copied++);
         // no branch among the products (query rows past the block's are
         // zeros, doc rows past the list are dropped below), and each pass
-        // over all 16 accumulators before the next: a product waits for
-        // the one before it on its accumulator
+        // over all accumulators before the next: a product waits for the
+        // one before it on its accumulator
         mma_3xtf32_tiles<WM, WN>(acc, ah, al, bh, bl);
       }
 
       // 2. segmented maxima into best[document slot][query row]
       const int sfirst = td[c0] - dlo;
-      const int slast = td[min(c0 + 31, cnt - 1)] - dlo;
+      const int slast = td[min(c0 + WC - 1, cnt - 1)] - dlo;
       // columns of the warp's first document (the list is in row order)
       const int cb = __popc(__ballot_sync(
-          0xffffffffu, c0 + lane < cnt && td[c0 + lane] == sfirst + dlo));
+          0xffffffffu,
+          lane < WC && c0 + lane < cnt && td[c0 + lane] == sfirst + dlo));
       if (slast == sfirst) {
-        // the warp's 32 doc rows lie in one document (the common case):
-        // per query row a max in registers, two shuffles, an atomic max
+        // the warp's doc rows lie in one document (the common case): per
+        // query row a max in registers, two shuffles, an atomic max
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
@@ -531,8 +665,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
               atomic_max(best + sfirst * QR + row, mx);
           }
       } else if (slast - sfirst == 1) {
-        // two documents (always so, or one, where documents hold 32
-        // valid rows or more): the same for each side of the boundary
+        // two documents (always so, or one, where documents hold WC valid
+        // rows or more): the same for each side of the boundary
 #pragma unroll
         for (int m = 0; m < WM; ++m)
 #pragma unroll
@@ -580,13 +714,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
       }
     }
 
-    // the list two tiles ahead (its barriers also settle every maximum
-    // of this tile)
-    build((j + 2) % 3, ahead);
+    while (copied < 16) copy_row(jn, cn1, 16 * warp + copied++);
+    cp_async_commit();
+    // the list NBUF tiles ahead (its barriers also settle every maximum
+    // of this tile, and free its buffer for tile j + NBUF)
+    const int cn = build((j + NBUF) % NL, ahead);
 
     // 3. documents this tile finished (all before the next tile's first):
     // one warp a (document, query)
-    const int dnext = lcnt[(j + 1) % 3] > 0 ? ldoc[((j + 1) % 3) * TR] : nrun;
+    const int dnext = c[1] > 0 ? ldoc[((j + 1) % NL) * TR] : nrun;
     const int nfin = min(dlast, dnext - 1) - dlo + 1;
     for (int p = warp; p < nfin * nq; p += TC_WARPS) {
       const int sd = p / nq, qq = p % nq;
@@ -602,13 +738,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1) maxsim_tc_kernel(
     // a document that runs on into the next tile: slot 0 of the next best
     if (dlast == dnext && tid < QR) next[tid] = best[(dlast - dlo) * QR + tid];
     used = dlast - dlo;
+#pragma unroll
+    for (int b = 0; b + 1 < NBUF; ++b) c[b] = c[b + 1];
+    c[NBUF - 1] = cn;
   }
 }
 
-template <int DIM>
+template <int DIM, int QR>
 int launch_tc(const float* q, const uint8_t* qmask, const float* d,
-              const uint8_t* dmask, float* out, int Nq, int Lq, int dim,
-              int Nd, int Ld, cudaStream_t stream) {
+              const uint8_t* dmask, const int64_t* cand, const uint8_t* cmask,
+              float* out, int layout, int Nq, int Lq, int dim, int Nd, int Ld,
+              cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -616,29 +756,71 @@ int launch_tc(const float* q, const uint8_t* qmask, const float* d,
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 1;
   }
-  const int QB = min(Nq, QR / Lq);
+  const int QB = layout == ALL_PAIRS ? min(Nq, QR / Lq) : 1;
   const int groups = (Nq + QB - 1) / QB;
   // one wave: the runs of documents times the query groups fill the SMs
-  const int runs0 = min(Nd, max(1, sms / groups));
+  const int runs0 = min(Nd, max(1, Shape<QR>::PER_SM * sms / groups));
   const int dpb = (Nd + runs0 - 1) / runs0;
   const int runs = (Nd + dpb - 1) / dpb;
-  const size_t smem = tc_smem_bytes(dim);
-  cudaFuncSetAttribute(maxsim_tc_kernel<DIM>,
+  const size_t smem = tc_smem_bytes<QR>(dim);
+  cudaFuncSetAttribute(maxsim_tc_kernel<DIM, QR>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid(groups, runs);
-  maxsim_tc_kernel<DIM><<<grid, TC_THREADS, smem, stream>>>(
-      q, qmask, d, dmask, out, Nq, Lq, dim, Nd, Ld, QB, dpb);
+  constexpr int threads = Shape<QR>::THREADS;
+  maxsim_tc_kernel<DIM, QR><<<grid, threads, smem, stream>>>(
+      q, qmask, d, dmask, cand, cmask, out, layout, Nq, Lq, dim, Nd, Ld, QB,
+      dpb);
   return (int)cudaGetLastError();
 }
 
+// The tensor-core body for `layout`: QR = 128 for all-pairs; for the
+// rerank the smallest of 32, 64, 128 rows that holds Lq at the model's
+// width (other widths take 128).
+int run_tc(const float* q, const uint8_t* qmask, const float* d,
+           const uint8_t* dmask, const int64_t* cand, const uint8_t* cmask,
+           float* out, int layout, int Nq, int Lq, int dim, int Nd, int Ld,
+           cudaStream_t s) {
+  if (dim != 128)
+    return launch_tc<0, 128>(q, qmask, d, dmask, cand, cmask, out, layout,
+                             Nq, Lq, dim, Nd, Ld, s);
+  if (layout != ALL_PAIRS && Lq <= 32)
+    return launch_tc<128, 32>(q, qmask, d, dmask, cand, cmask, out, layout,
+                              Nq, Lq, dim, Nd, Ld, s);
+  if (layout != ALL_PAIRS && Lq <= 64)
+    return launch_tc<128, 64>(q, qmask, d, dmask, cand, cmask, out, layout,
+                              Nq, Lq, dim, Nd, Ld, s);
+  return launch_tc<128, 128>(q, qmask, d, dmask, cand, cmask, out, layout,
+                             Nq, Lq, dim, Nd, Ld, s);
+}
+
+// Shared checks and edge cases of the three entries, then the tensor-core
+// body. `rows`: the rows of d a valid row index may reach (< 2^31).
+int score(const float* q, const uint8_t* qmask, const float* d,
+          const uint8_t* dmask, const int64_t* cand, const uint8_t* cmask,
+          float* out, int layout, int Nq, int Lq, int dim, int Nd, int Ld,
+          long long rows, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dim % 4 != 0 || Lq > MAX_QR || rows >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (Nq == 0 || Nd == 0) return (int)cudaGetLastError();
+  if (Lq == 0 || Ld == 0) {               // no token anywhere: every score 0
+    cudaMemsetAsync(out, 0, sizeof(float) * (size_t)Nq * Nd, s);
+    return (int)cudaGetLastError();
+  }
+  return run_tc(q, qmask, d, dmask, cand, cmask, out, layout, Nq, Lq, dim,
+                Nd, Ld, s);
+}
+
+bool f32_body(int dim) { return tc_smem_bytes<MAX_QR>(dim) > MAX_SMEM; }
+
 }  // namespace
 
-// Dynamic shared memory the all-pairs entry needs at this dim (the
-// tensor-core body where it fits, else the f32 body).
+// Dynamic shared memory the entries need at this dim (the tensor-core
+// body where it fits, else the f32 body).
 extern "C" size_t maxsim_smem_bytes(int dim) {
-  return tc_smem_bytes(dim) <= MAX_SMEM ? tc_smem_bytes(dim)
-                                        : smem_bytes(QB_ALL_PAIRS, dim);
+  return f32_body(dim) ? smem_bytes(QB_ALL_PAIRS, dim)
+                       : tc_smem_bytes<MAX_QR>(dim);
 }
 
 // q [Nq, Lq, dim] f32; qmask [Nq, Lq] u8; d [Nd, Ld, dim] f32; dmask
@@ -650,28 +832,40 @@ extern "C" int maxsim_launch(const float* q, const uint8_t* qmask,
                              const float* d, const uint8_t* dmask,
                              float* out, int Nq, int Lq, int dim, int Nd,
                              int Ld, void* stream) {
-  if (tc_smem_bytes(dim) > MAX_SMEM)
-    return launch<false, QB_ALL_PAIRS>(q, qmask, d, dmask, out, Nq, Lq, dim,
-                                       Nd, Ld, stream);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dim % 4 != 0 || Lq > QR || (long long)Nd * Ld >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  if (Nq == 0 || Nd == 0) return (int)cudaGetLastError();
-  if (Lq == 0 || Ld == 0) {               // no token anywhere: every score 0
-    cudaMemsetAsync(out, 0, sizeof(float) * (size_t)Nq * Nd, s);
-    return (int)cudaGetLastError();
-  }
-  return dim == 128 ? launch_tc<128>(q, qmask, d, dmask, out, Nq, Lq, dim,
-                                     Nd, Ld, s)
-                    : launch_tc<0>(q, qmask, d, dmask, out, Nq, Lq, dim, Nd,
-                                   Ld, s);
+  if (f32_body(dim))
+    return launch<false, QB_ALL_PAIRS>(q, qmask, d, dmask, nullptr, nullptr,
+                                       out, Nq, Lq, dim, Nd, Ld, stream);
+  return score(q, qmask, d, dmask, nullptr, nullptr, out, ALL_PAIRS, Nq, Lq,
+               dim, Nd, Ld, (long long)Nd * Ld, stream);
 }
 
 // q [Nq, Lq, dim]; qmask [Nq, Lq]; d [Nq, S, Ld, dim]; dmask [Nq, S, Ld]
-// -> out [Nq, S] f32. Returns cudaGetLastError().
+// -> out [Nq, S] f32. The limits of maxsim_launch, with Nq * S * Ld
+// < 2^31. Returns cudaGetLastError().
 extern "C" int maxsim_rerank_launch(const float* q, const uint8_t* qmask,
                                     const float* d, const uint8_t* dmask,
                                     float* out, int Nq, int Lq, int dim,
                                     int S, int Ld, void* stream) {
-  return launch<true, 1>(q, qmask, d, dmask, out, Nq, Lq, dim, S, Ld, stream);
+  if (f32_body(dim))
+    return launch<true, 1>(q, qmask, d, dmask, nullptr, nullptr, out, Nq, Lq,
+                           dim, S, Ld, stream);
+  return score(q, qmask, d, dmask, nullptr, nullptr, out, GATHERED, Nq, Lq,
+               dim, S, Ld, (long long)Nq * S * Ld, stream);
+}
+
+// q [Nq, Lq, dim]; qmask [Nq, Lq]; d [Nd, Ld, dim] and dmask [Nd, Ld] (a
+// store's padded view); cand [Nq, S] i64 document ids, each in [0, Nd)
+// where cmask [Nq, S] u8 holds -> out [Nq, S] f32: query i against the
+// documents cand[i, s], 0 where cmask[i, s] is false (cand[i, s] unread).
+// The limits of maxsim_launch. Returns cudaGetLastError().
+extern "C" int maxsim_rerank_indexed_launch(
+    const float* q, const uint8_t* qmask, const float* d,
+    const uint8_t* dmask, const int64_t* cand, const uint8_t* cmask,
+    float* out, int Nq, int Lq, int dim, int Nd, int S, int Ld,
+    void* stream) {
+  if (f32_body(dim))
+    return launch<true, 1>(q, qmask, d, dmask, cand, cmask, out, Nq, Lq, dim,
+                           S, Ld, stream);
+  return score(q, qmask, d, dmask, cand, cmask, out, INDEXED, Nq, Lq, dim, S,
+               Ld, (long long)Nd * Ld, stream);
 }

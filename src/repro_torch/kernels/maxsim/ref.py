@@ -5,10 +5,13 @@ over doc tokens, masked sum over query tokens. The all-pairs version is
 blocked over docs (as ``repro.core.maxsim.maxsim_scores_blocked``), so
 its [Nq, block, Lq, Ld] intermediate stays bounded at corpus scale.
 
+``maxsim_rerank_indexed_ref`` is the in-place rerank's plain version:
+the store's candidates gathered, then ``maxsim_rerank_ref``.
+
 ``tf32_split_ref`` and ``einsum_3xtf32`` repeat the tensor-core kernels'
-arithmetic (3xTF32) on the CPU; ``maxsim_3xtf32_ref`` is the all-pairs
-kernel's twin, held against the JAX package by the tests and called on
-no path.
+arithmetic (3xTF32) on the CPU; ``maxsim_3xtf32_ref`` and
+``maxsim_rerank_3xtf32_ref`` are the all-pairs and rerank kernels'
+twins, held against the JAX package by the tests and called on no path.
 """
 from __future__ import annotations
 
@@ -48,6 +51,15 @@ def maxsim_rerank_ref(q, q_mask, d, d_mask):
     return _reduce(sim, d_mask[:, :, None, :], q_mask[:, None, :])
 
 
+def maxsim_rerank_indexed_ref(q, q_mask, d, d_mask, cand, cand_mask):
+    """q [Nq, Lq, dim]; d [Nd, Ld, dim] and d_mask [Nd, Ld] (a store's
+    padded view); cand / cand_mask [Nq, S] -> scores [Nq, S]: ``d[cand]``
+    scored by ``maxsim_rerank_ref`` with ``d_mask[cand] & cand_mask``, so
+    an invalid candidate scores 0 (its id, whatever it is, reads row 0)."""
+    c = torch.where(cand_mask, cand, torch.zeros_like(cand)).long()
+    return maxsim_rerank_ref(q, q_mask, d[c], d_mask[c] & cand_mask[..., None])
+
+
 def tf32_split_ref(x, *, round_lo: bool = False):
     """x (f32, finite) -> (hi, lo) as the kernels' tensor cores read them:
     hi rounded to TF32 (10 mantissa bits, to nearest, ties away from zero,
@@ -78,3 +90,9 @@ def maxsim_3xtf32_ref(q, q_mask, d, d_mask, *, passes: int = 3):
     """``maxsim_ref`` with the all-pairs kernel's products (3xTF32)."""
     sim = einsum_3xtf32("qld,nkd->qnlk", q, d, passes=passes)
     return _reduce(sim, d_mask[None, :, None, :], q_mask[:, None, :])
+
+
+def maxsim_rerank_3xtf32_ref(q, q_mask, d, d_mask, *, passes: int = 3):
+    """``maxsim_rerank_ref`` with the rerank kernel's products (3xTF32)."""
+    sim = einsum_3xtf32("qld,qskd->qslk", q, d, passes=passes)
+    return _reduce(sim, d_mask[:, :, None, :], q_mask[:, None, :])

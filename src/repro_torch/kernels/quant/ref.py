@@ -2,7 +2,9 @@
 
 Counterparts of ``src/repro/kernels/quant/ref.py`` ``unpack_ref`` and
 ``dequant_score_ref``, and of the decode half of
-``kernels/maxsim_packed/ref.py``. Packed words are
+``kernels/maxsim_packed/ref.py``; ``dequant_score_3xtf32_ref`` repeats
+the ``dequant_score`` kernel's products (3xTF32) on the CPU and is
+called by the tests only. Packed words are
 held as ``torch.int32`` tensors carrying the uint32 bit pattern: ``>>``
 on ``torch.uint32`` is not implemented on the CPU, and masking the low
 ``bits`` after an arithmetic shift of the int32 view gives the same
@@ -12,6 +14,8 @@ codes. The CUDA side (``csrc/quant.cuh``) reads the same bytes as
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.maxsim.ref import einsum_3xtf32
 
 
 def unpack_ref(words: torch.Tensor, bits: int, dim: int) -> torch.Tensor:
@@ -46,3 +50,15 @@ def dequant_score_ref(words: torch.Tensor, centroid_ids: torch.Tensor,
     v = decode_rows_ref(words, centroid_ids, centroids.float(),
                         values.float(), bits)
     return v @ q.float().T
+
+
+def dequant_score_3xtf32_ref(words: torch.Tensor, centroid_ids: torch.Tensor,
+                             centroids: torch.Tensor, values: torch.Tensor,
+                             q: torch.Tensor, bits: int, *,
+                             passes: int = 3) -> torch.Tensor:
+    """``dequant_score_ref`` with the kernel's products: the
+    reconstructions against q by hi.hi + hi.lo + lo.hi of TF32 parts
+    (``passes=1``: hi.hi alone)."""
+    v = decode_rows_ref(words, centroid_ids, centroids.float(),
+                        values.float(), bits)
+    return einsum_3xtf32("md,ld->ml", v, q.float(), passes=passes)

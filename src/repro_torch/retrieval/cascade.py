@@ -8,9 +8,9 @@ every document twice, pooled at ``coarse_factor`` and at
   stage 1: all-pairs MaxSim over the coarse vectors of every doc (the
            ``maxsim`` kernel), then the top ``candidates`` per query
            (stable: ties go to the lower doc id, as ``jax.lax.top_k``);
-  stage 2: MaxSim over the fine vectors of those candidates only
-           (``DocStore.gather``, then the ``maxsim_rerank`` kernel),
-           then the top-k.
+  stage 2: MaxSim over the fine vectors of those candidates only (the
+           ``maxsim_rerank`` kernel, reading them from the fine store in
+           place), then the top-k.
 
 Every query token counts as valid, as in the reference. ``build_cascade``
 encodes the corpus once per pool level, as the reference does.
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.docstore import DocStore
-from repro_torch.core.maxsim import (maxsim_all_docs, maxsim_rerank,
+from repro_torch.core.maxsim import (maxsim_all_docs, maxsim_rerank_store,
                                      stable_topk, topk_with_pads)
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -88,8 +88,9 @@ class CascadeIndex:
         cd, cm = self._coarse.padded()
         s1 = maxsim_all_docs(qs, qm, cd, cm, impl=impl)          # [Nq, n]
         _, cand = stable_topk(s1, min(max(self.candidates, k), n))
-        fd, fm = self._fine.gather(cand)
-        s2 = maxsim_rerank(qs, qm, fd, fm, impl=impl)            # [Nq, C]
+        s2 = maxsim_rerank_store(self._fine, qs, qm, cand,
+                                 torch.ones_like(cand, dtype=torch.bool),
+                                 impl=impl)                      # [Nq, C]
         return topk_with_pads(s2, cand, k)
 
     def search(self, q, k: int = 10, impl: str = "auto"

@@ -4,8 +4,9 @@ JAX reference ``dequant_score_ref``, at the reference test's shapes
 (``tests/test_kernels.py``) with the reference's codec and codes.
 
 Tolerance: atol 1e-4, the reference test's own (f32 dot products in
-another order). Packed words cross as the uint32 bits viewed as int32,
-as the port holds them.
+another order), also for the kernel's 3xTF32 products
+(``dequant_score_3xtf32_ref``), where one TF32 pass misses it. Packed
+words cross as the uint32 bits viewed as int32, as the port holds them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from repro.kernels.quant.ops import dequant_score as j_dequant_score
 from repro.kernels.quant.ref import dequant_score_ref as j_dequant_score_ref
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.quant.ops import dequant_score
+from repro_torch.kernels.quant.ref import dequant_score_3xtf32_ref
 
 
 def _case(m, dim, lq, bits):
@@ -72,3 +74,22 @@ def test_dequant_score_rows_are_unit_reconstructions(bits):
     own = dequant_score(w, i, cen, vals, v[:4].contiguous(), bits=bits)
     np.testing.assert_allclose(torch.diagonal(own[:4]).numpy(), 1.0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m,dim,lq", [(100, 128, 16), (300, 64, 32),
+                                      (70, 96, 1)])
+def test_dequant_score_3xtf32_matches_jax(m, dim, lq, bits):
+    """The kernel's products (``dequant_score_3xtf32_ref``) against the
+    Pallas kernel in interpret mode to atol 1e-4; one TF32 pass misses
+    it."""
+    codec, ids, words, q = _case(m, dim, lq, bits)
+    jout = np.asarray(j_dequant_score(words, ids, codec.centroids,
+                                      codec.values, q, bits=bits,
+                                      block_m=64))
+    args = _port_args(codec, ids, words, q)
+    got = dequant_score_3xtf32_ref(*args, bits=bits)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, lq)
+    np.testing.assert_allclose(got.numpy(), jout, atol=1e-4)
+    one = dequant_score_3xtf32_ref(*args, bits=bits, passes=1).numpy()
+    assert not np.allclose(one, jout, atol=1e-4)

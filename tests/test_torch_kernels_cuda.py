@@ -6,12 +6,16 @@ fixture decides at run time). Run on a card with
 Tolerances: Ward assignments equal (also at N = 512, on exact duplicate
 tokens and on all-pad documents); probe -inf slots equal and finite
 scores to 1e-5; packed rerank scores to 1e-5 (both also at Lq = 300, one
-launch a chunk of 128 query tokens); the MaxSim kernels to rtol 1e-5,
-atol 1e-4 (f32 FMA or, all-pairs, 3xTF32 tensor-core products, and sums
-in another order); k-means assignment ids equal except where the top two
+launch a chunk of 128 query tokens); the MaxSim kernels, the rerank
+from gathered candidates and read from a store in place (invalid
+candidates holding ids outside it), to rtol 1e-5, atol 1e-4 (3xTF32
+tensor-core products or, above dim 132, f32 FMA, and sums in another
+order); k-means assignment ids equal except where the top two
 sims lie within 1e-5 (3xTF32 products in another order), best sims to
 1e-5; dequantize
-+ score to atol 1e-4, the reference test's tolerance; flash attention
++ score to atol 1e-4, the reference test's tolerance (3xTF32 products;
+ragged tiles, long queries, generic widths, the f32 body for rows too
+wide for its tiles); flash attention
 to 1e-5 in f32 (the online softmax rescales by the running max, the
 plain version by the row max) and to 1e-2 (atol and rtol) in bf16, where
 p and the output are rounded to bf16 at different scales on the two
@@ -34,7 +38,8 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bh)
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
-from repro_torch.kernels.maxsim.ops import maxsim, maxsim_rerank
+from repro_torch.kernels.maxsim.ops import (maxsim, maxsim_rerank,
+                                            maxsim_rerank_indexed)
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import (KERNELS_A_LAUNCH,
                                                  plaid_probe_scores)
@@ -331,19 +336,62 @@ def test_maxsim_kernel_design_cases(dev, case):
     assert (got[:, ~dm.any(1)] == 0).all()
 
 
-def test_maxsim_rerank_kernel_equals_plain(dev):
-    g = torch.Generator(device=dev).manual_seed(5)
-    Nq, Lq, dim, S, Ld = 4, 32, 128, 37, 50
+@pytest.mark.parametrize("Lq,Ld,dim", [
+    (32, 50, 128),              # QR = 32
+    (32, 129, 128),             # the paths' widths
+    (64, 129, 128),             # QR = 64
+    (100, 129, 128),            # QR = 128
+    (300, 129, 128),            # three launches of at most 128 tokens
+    (32, 1, 128),               # one-token docs: many documents a tile
+    (32, 300, 128),             # docs longer than two tiles
+    (40, 129, 96),              # a generic width
+    (32, 50, 256),              # above dim 132: the f32 body
+])
+def test_maxsim_rerank_kernel_equals_plain(dev, Lq, Ld, dim):
+    """ceil(Lq / 128) launches a call, rtol 1e-5 / atol 1e-4 against the
+    plain version at S = 37 (not a multiple of 8); a fully masked
+    candidate scores 0."""
+    g = torch.Generator(device=dev).manual_seed(5 + Lq + Ld + dim)
+    Nq, S = 4, 37
     q, d = _unit(g, (Nq, Lq, dim), dev), _unit(g, (Nq, S, Ld, dim), dev)
     qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.8
     dm = torch.rand((Nq, S, Ld), generator=g, device=dev) < 0.5
     dm[0, 0] = False                             # a fully masked candidate
     before = launch_counts()["maxsim_rerank"]
     got = maxsim_rerank(q, qm, d, dm)
-    assert launch_counts()["maxsim_rerank"] == before + 1
+    assert launch_counts()["maxsim_rerank"] == before + -(-Lq // 128)
     want = maxsim_rerank(q, qm, d, dm, impl="ref")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert float(got[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("Lq,dim", [(32, 128), (150, 128), (32, 96),
+                                    (32, 256)])
+def test_maxsim_rerank_indexed_kernel_equals_plain(dev, Lq, dim):
+    """Candidates read from a store in place: rtol 1e-5 / atol 1e-4
+    against the plain version (the store's rows gathered); invalid
+    candidates hold ids outside the store (-1, Nd, 2^40) and score 0
+    unread, and a store document without a valid row scores 0."""
+    g = torch.Generator(device=dev).manual_seed(Lq + dim)
+    Nq, S, Nd, Ld = 5, 300, 700, 129
+    q, d = _unit(g, (Nq, Lq, dim), dev), _unit(g, (Nd, Ld, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    n_valid = torch.randint(0, Ld + 1, (Nd, 1), generator=g, device=dev)
+    dm = torch.arange(Ld, device=dev) < n_valid
+    dm[3] = False                                # a doc with no valid row
+    cand = torch.randint(0, Nd, (Nq, S), generator=g, device=dev)
+    cand[:, 0] = 3
+    cm = torch.rand((Nq, S), generator=g, device=dev) < 0.8
+    cm[:, 0] = True
+    cm[-1] = False                               # no valid candidate
+    junk = torch.tensor([-1, Nd, 2 ** 40], device=dev)
+    cand = torch.where(cm, cand, junk[torch.arange(S, device=dev) % 3])
+    before = launch_counts()["maxsim_rerank"]
+    got = maxsim_rerank_indexed(q, qm, d, dm, cand, cm)
+    assert launch_counts()["maxsim_rerank"] == before + -(-Lq // 128)
+    want = maxsim_rerank_indexed(q, qm, d, dm, cand, cm, impl="ref")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert (got[~cm] == 0).all() and (got[:, 0] == 0).all()
 
 
 @pytest.mark.parametrize("B,N,K,dim,dtype", [
@@ -385,8 +433,14 @@ def test_kmeans_assign_kernel_equals_plain(dev, B, N, K, dim, dtype):
 
 
 @pytest.mark.parametrize("bits", [2, 4])
-@pytest.mark.parametrize("M,dim,Lq", [(100, 128, 16), (300, 64, 32),
-                                      (5000, 128, 32)])
+@pytest.mark.parametrize("M,dim,Lq", [
+    (100, 128, 16), (300, 64, 32), (5000, 128, 32),
+    (1001, 128, 1),             # M not a multiple of the 16-row tile
+    (777, 96, 100),             # a generic width, four passes of 32 tokens
+    (333, 128, 300),            # two kernels in one call (256 + 44 at b = 2)
+    (64, 256, 40),              # tensor cores at b = 2, f32 body at b = 4
+    (100, 512, 8),              # too wide for the tiles: the f32 body
+])
 def test_dequant_score_kernel_equals_plain(dev, bits, M, dim, Lq):
     g = torch.Generator(device=dev).manual_seed(M + bits)
     K = 16

@@ -6,14 +6,18 @@ kernels are held to) against ``repro.kernels.maxsim.ops.maxsim`` /
 ``maxsim_rerank`` — the Pallas kernels, in interpret mode on the CPU —
 and against the JAX refs; ``core/maxsim.py``'s ``maxsim_all_docs``
 and the slabbed ``maxsim_rerank_store`` against the JAX entry points;
-``DocStore``'s padded view against the JAX store's. Inputs include
+``DocStore``'s padded view against the JAX store's; the in-place
+rerank's plain version (``maxsim_rerank_indexed``) against the JAX
+store's gather-then-rerank, with invalid candidates holding ids outside
+the store. Inputs include
 masked query tokens, a query with no valid token, a doc with no valid
 token, and Nd across the plain version's doc block (256) and the JAX
 CPU path's (2048).
 
 Tolerance: rtol 1e-5, atol 1e-4 — f32 dot products and sums in another
-order, also for the all-pairs kernel's 3xTF32 products
-(``maxsim_3xtf32_ref``); the padded views are equal.
+order, also for the all-pairs and rerank kernels' 3xTF32 products
+(``maxsim_3xtf32_ref``, ``maxsim_rerank_3xtf32_ref``); the padded views
+are equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +33,8 @@ from repro_torch.core import maxsim as tms
 from repro_torch.core.docstore import DocStore
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.maxsim import ops
-from repro_torch.kernels.maxsim.ref import maxsim_3xtf32_ref
+from repro_torch.kernels.maxsim.ref import (maxsim_3xtf32_ref,
+                                           maxsim_rerank_3xtf32_ref)
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -180,3 +185,54 @@ def test_maxsim_3xtf32_matches_jax(nq, lq, nd, ld, dim):
     assert (got[:, 0] == 0).all() and (got[-1] == 0).all()
     one = maxsim_3xtf32_ref(*args, passes=1).numpy()
     assert not np.allclose(one, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lq", [32, 100, 150])  # 150: past a launch's 128
+def test_maxsim_rerank_3xtf32_matches_jax(lq):
+    """The rerank kernel's products (``maxsim_rerank_3xtf32_ref``) against
+    the Pallas kernel (interpret mode) and the JAX reference to rtol 1e-5,
+    atol 1e-4, at S = 13 candidates (not a multiple of 8), a fully masked
+    candidate and a query with no valid token; one TF32 pass misses that
+    tolerance."""
+    q, qm, d, dm = _inputs(lq, 3, lq, 13, 20, 128, per_query=True)
+    kern = np.asarray(jops.maxsim_rerank(jnp.asarray(q), jnp.asarray(qm),
+                                         jnp.asarray(d), jnp.asarray(dm),
+                                         block_s=4))
+    ref = np.asarray(j_rerank_ref(q, qm, d, dm))
+    args = _t(q, qm, d, dm)
+    got = maxsim_rerank_3xtf32_ref(*args).numpy()
+    np.testing.assert_allclose(got, kern, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert (got[:, 0] == 0).all() and (got[-1] == 0).all()
+    one = maxsim_rerank_3xtf32_ref(*args, passes=1).numpy()
+    assert not np.allclose(one, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_maxsim_rerank_indexed_plain_equals_jax_store(seed):
+    """``maxsim_rerank_indexed`` on the store's padded view (CPU: its
+    plain version) against the JAX ``maxsim_rerank_store``, which gathers
+    the candidates first: equal to rtol 1e-5 / atol 1e-4 on valid slots,
+    0 on invalid ones, whose ids lie outside the store (the JAX side gets
+    id 0 there: its gather would clamp them); the port's store rerank
+    gives -inf there, as the JAX one."""
+    jst, tst, rng = _stores(seed)
+    q = rng.normal(size=(4, 5, 16)).astype(np.float32)
+    qm = rng.random((4, 5)) > 0.2
+    cand = rng.integers(0, 50, size=(4, 21))
+    cmask = rng.random((4, 21)) > 0.25
+    cmask[0] = False                                 # no valid candidate
+    bad = np.where(cmask, cand, rng.choice([-7, 50, 10 ** 9], size=cand.shape))
+    want = np.asarray(jms.maxsim_rerank_store(
+        jst, jnp.asarray(q), jnp.asarray(qm), np.where(cmask, cand, 0),
+        cmask))
+    d, dm = tst.padded()
+    before = launch_counts()
+    got = ops.maxsim_rerank_indexed(*_t(q, qm), d, dm,
+                                    *_t(bad, cmask)).numpy()
+    assert launch_counts() == before              # CPU: no kernel launch
+    np.testing.assert_allclose(got[cmask], want[cmask], rtol=RTOL, atol=ATOL)
+    assert (got[~cmask] == 0).all()
+    store = tms.maxsim_rerank_store(tst, *_t(q, qm, bad, cmask)).numpy()
+    assert np.isinf(store[~cmask]).all()
+    np.testing.assert_array_equal(store[cmask], got[cmask])
