@@ -53,6 +53,28 @@
    * cascade_from_dir: the cascade saved and served by
      ``Searcher.from_dir``; results equal the in-memory cascade's
      exactly;
+   * mutate: the main artifact loaded again by ``Searcher.from_dir``,
+     512 of its docs deleted, 1,024 new docs (another corpus seed)
+     encoded, Ward-pooled and added, 64 queries: no deleted id comes
+     back, the host probe path and the plain versions agree, 16 added
+     docs' own vectors find them at top-1, and the index saved
+     (compacted) and served again gives equal results;
+   * hnsw: ``Indexer.build`` of an hnsw index over 128 docs at Ward f=4
+     (the graph built in host Python, timed), 16 docs added and 8
+     deleted, 32 queries with ``hnsw_candidates`` 1024 (the slate stays
+     under n_docs, so ``maxsim_rerank`` reranks it from the store in
+     place; a slate of fewer than k docs pads the results); held to the
+     plain versions and to the flat backend's exact MaxSim over the same
+     slate, then saved and served again by ``Searcher.from_dir`` with
+     equal results;
+   * plaid_k8192: a plaid index at K = 8,192 over the flat path's stored
+     pooled vectors (``add_flat``), nprobe 32, ndocs 16 (random weights
+     leave each query few candidates at this K; these cut every query's
+     slate): ``"auto"`` takes the host
+     path (``doc_member`` is above the gather cap) and
+     ``probe_kernel="device"`` the device path; both prune (the
+     ``plaid_probe`` kernel reading its table from device memory) and
+     agree with each other and with the plain versions;
    * lm: causal-LM serving of Qwen3-0.6B at full width (28 layers,
      d_model 1024, 16 heads over 8 kv heads, d_head 64, vocab 151,936;
      random weights from a seed; bf16 compute; ``use_flash_kernel``)
@@ -79,7 +101,11 @@
    lives in device memory, timed there too, and on exact duplicate tokens
    at factors 2, 3, 4 and 6, where it must be equal or tie-equivalent;
    ``plaid_probe`` and ``maxsim_packed`` also at Lq = 300,
-   three launches of at most 128 query tokens, at the main path's own
+   three launches of at most 128 query tokens (``plaid_probe`` also at
+   K = 2,048 / Lq = 32, K = 512 / Lq = 128 and 300, K = 16,384 / Lq = 32,
+   timed there, at the plaid_k8192 path's own inputs, and both of its
+   routes timed against each other at four (K, Lq) where both serve), at
+   the main path's own
    inputs (the arguments of one search batch's two calls, captured), on
    uniformly random codes (``plaid_probe``: the index's crowded codes
    take its distinct-code lookups, uniform ones the full read) and at
@@ -165,6 +191,24 @@ KMEANS_NDOCS = 256                 # PLAID's k=10 setting (see the docstring)
 SEQUENTIAL_DOCS = 1024
 CASCADE_DOCS = 4096
 ENCODE_BATCH = 128
+MUTATE_DELETE = 512                # main-index docs deleted on the mutate path
+MUTATE_ADD = 1024                  # new docs added there (another corpus seed)
+MUTATE_SELF = 16                   # added docs queried by their own vectors
+HNSW_DOCS = 128                    # the graph is built in host Python
+HNSW_FACTOR = 4
+# token hits a query (the reference's default): random weights make a
+# query's tokens nearly alike (the path prints their mean cosine), so the
+# hits crowd into a few docs and the slate stays under n_docs
+HNSW_CANDIDATES = 1024
+HNSW_ADD = 16
+HNSW_DELETE = 8
+K8192 = 8192                       # ColBERT's K rule at ~3.6e5 vectors
+# random weights make a query's tokens nearly alike: at K = 8,192 and
+# nprobe 8 a query probes few centroids in all and keeps a few candidates
+# (the path prints how many); at nprobe 32 every query keeps more than
+# ndocs 16, so the prune cuts every slate
+K8192_NPROBE = 32
+K8192_NDOCS = 16
 NEAR_TIE = 1e-5                    # kmeans_assign: top-two sims this close
 LONG_LQ = 300                      # a query above the kernels' 128 a launch
 LM_ARCH = "qwen3-0.6b"
@@ -201,6 +245,8 @@ FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
 CASCADE_DIR = os.path.join(ROOT, "build", "chip_smoke_cascade")
+MUTATE_DIR = os.path.join(ROOT, "build", "chip_smoke_mutate")
+HNSW_DIR = os.path.join(ROOT, "build", "chip_smoke_hnsw")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -213,6 +259,9 @@ PATH_KERNELS = {
     "sequential": ("maxsim",),
     "cascade": ("ward_pool", "maxsim", "maxsim_rerank"),
     "cascade_from_dir": ("maxsim", "maxsim_rerank"),
+    "mutate": ("plaid_probe", "maxsim_packed"),
+    "hnsw": ("ward_pool", "maxsim_rerank"),
+    "plaid_k8192": ("plaid_probe", "maxsim_packed"),
     "lm": ("flash_attention",),
     "lm_long": ("flash_attention",),
 }
@@ -309,7 +358,8 @@ def _agree(what, S, I, S1, I1):
     """Ids equal tie-aware and scores to rtol 1e-5 / atol 1e-4."""
     from repro_torch.core.maxsim import tie_aware_mismatches
     bad = tie_aware_mismatches(I, S, I1, S1, SCORE_ATOL)
-    diff = float(np.abs(S - S1).max())
+    fin = np.isfinite(S) & np.isfinite(S1)      # -inf pads: a short slate
+    diff = float(np.abs(S[fin] - S1[fin]).max(initial=0.0))
     print(f"{what}: ids equal {float((I == I1).mean()):.4f}, tie-aware "
           f"mismatches {bad}, max score diff {diff:.3g}")
     if bad or not np.allclose(S, S1, rtol=1e-5, atol=SCORE_ATOL):
@@ -402,7 +452,7 @@ def main_path(rt, torch, dev):
 
 def _candidate_report(torch, index, qv):
     """Per-query candidate counts of stage 2 (the prune engages when a
-    batch's largest count pads past ``ndocs``)."""
+    batch's largest count pads past ``ndocs``), printed and returned."""
     from repro_torch.core.plaid import _centroid_scores_batch, probe_members
     p = index._plaid
     div = p.device_ivf()
@@ -417,6 +467,7 @@ def _candidate_report(torch, index, qv):
           f"{float(c.median()):.0f} max {int(c.max())} of {p.n_docs} docs "
           f"(ndocs {index.ndocs}); docs per centroid: median "
           f"{float(owners.median()):.0f} max {int(owners.max())}")
+    return counts
 
 
 def _ward_inputs(torch, dev, B, N, d, seed):
@@ -535,11 +586,13 @@ def _crowded_share(codes, cmask, vmask):
     return float(crowded[vmask].float().mean())
 
 
-def check_plaid_probe(torch, dev, index, qv, path_args, parent):
+def check_plaid_probe(torch, dev, index, qv, path_args, k8192_args, parent):
     """At the synthetic shape (each query scores every doc of the corpus,
     9 in 10 slots valid, the index's own codes), on uniformly random codes
-    at that shape, at the main path's own inputs (``path_args``) and at
-    Lq = 300; timed beside the parent design where ``parent`` holds it."""
+    at that shape, at the main path's own inputs (``path_args``), at the
+    plaid_k8192 path's (``k8192_args``: K = 8,192, the table in device
+    memory) and at Lq = 300; timed beside the parent design where
+    ``parent`` holds it."""
     from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
     p = index._plaid
     codes, tok_mask = p.padded_codes()
@@ -561,7 +614,7 @@ def check_plaid_probe(torch, dev, index, qv, path_args, parent):
                            dtype=torch.int32)
     cases = {"synthetic": (qv, qm, cen, gcodes, gmask, cmask),
              "uniform": (qv, qm, cen, ucodes, gmask, cmask),
-             "path": path_args}
+             "path": path_args, "k8192 path": k8192_args}
     errs = []
 
     def run(args, impl="auto"):
@@ -571,7 +624,7 @@ def check_plaid_probe(torch, dev, index, qv, path_args, parent):
     for what, args in cases.items():
         _hold(f"plaid_probe {what}", torch, run(args), run(args, "ref"), errs)
         times[what] = _time_ms(lambda: run(args))
-        if parent:
+        if parent and what != "k8192 path":     # past the parent's K
             got = parent["plaid_probe"](*args, t_cs)
             if not torch.equal(got, run(args)):
                 raise AssertionError(f"plaid_probe {what}: differs from the "
@@ -584,6 +637,7 @@ def check_plaid_probe(torch, dev, index, qv, path_args, parent):
     long_err = _hold(f"plaid_probe at Lq={LONG_LQ}", torch, run(long_args),
                      run(long_args, "ref"), errs)
     print(f"plaid_probe at Lq={LONG_LQ}: max abs err {long_err:.3g}")
+    large = _probe_large_k(torch, dev, dim, t_cs, errs)
     plain_ms = _time_ms(lambda: run(cases["synthetic"], "ref"), reps=2)
     path_plain_ms = _time_ms(lambda: run(path_args, "ref"), reps=2)
     bound, by = _probe_bound(*cases["synthetic"])
@@ -592,6 +646,13 @@ def check_plaid_probe(torch, dev, index, qv, path_args, parent):
     print(f"plaid_probe path inputs: Nq={pc.shape[0]} x C={pc.shape[1]} "
           f"slots, {int(pv.sum())} valid, L={pc.shape[2]}; bound "
           f"{path_bound:.4f} ms ({path_by}), plain {path_plain_ms:.4f} ms")
+    k8192_plain_ms = _time_ms(lambda: run(k8192_args, "ref"), reps=2)
+    k8192_bound, k8192_by = _probe_bound(*k8192_args)
+    kc, km, kv = k8192_args[3:]
+    print(f"plaid_probe k8192 path inputs: K={k8192_args[2].shape[0]}, "
+          f"Nq={kc.shape[0]} x C={kc.shape[1]} slots, {int(kv.sum())} "
+          f"valid, L={kc.shape[2]}; {times['k8192 path']:.4f} ms, bound "
+          f"{k8192_bound:.4f} ms ({k8192_by}), plain {k8192_plain_ms:.4f} ms")
     print("plaid_probe times (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()))
     print("plaid_probe share of valid slots taking the distinct-code "
@@ -606,13 +667,95 @@ def check_plaid_probe(torch, dev, index, qv, path_args, parent):
                 path_plain_ms=path_plain_ms, path_bound_ms=path_bound,
                 parent_ms=times.get("synthetic parent"),
                 parent_path_ms=times.get("path parent"), times_ms=times,
+                k8192_path_ms=times["k8192 path"],
+                k8192_path_plain_ms=k8192_plain_ms,
+                k8192_path_bound_ms=k8192_bound, **large,
                 check=f"-inf slots equal, finite allclose rtol 1e-5 atol "
                       f"{SCORE_ATOL} (synthetic Nq={Nq}, Lq={Lq}, C={C}, "
                       f"L={L}, K={K}; uniformly random codes; the main "
-                      f"path's own inputs"
+                      f"and plaid_k8192 paths' own inputs"
                       f"{'; equal to the parent design' if parent else ''};"
                       f" and at Lq={LONG_LQ}, three launches of two "
-                      f"kernels); bound: valid slots' bytes, f32 rate")
+                      f"kernels; at K = 2,048 / Lq = 32, K = 512 / Lq = 128 "
+                      f"and {LONG_LQ}, K = 16,384 / Lq = 32, and both routes "
+                      f"where both serve); bound: valid slots' bytes, f32 "
+                      f"rate")
+
+
+# (K, Lq) cases of plaid_probe past the main path's K = 256, where the
+# table of 128 query tokens a launch outgrows shared memory
+PROBE_LARGE_K = ((2048, 32), (512, 128), (512, LONG_LQ), (16384, 32))
+# (K, Lq, chunk) where both routes serve, timed against each other: the
+# table in shared memory at the widest query chunk it fits, or in device
+# memory at 128 query tokens a launch
+PROBE_ROUTES_AT = ((256, 32, 128), (512, 128, 96), (700, 128, 64),
+                   (1024, 128, 32))
+PROBE_LARGE_C = 4096
+
+
+def _probe_large_k(torch, dev, dim, t_cs, errs):
+    """``plaid_probe`` on random unit centroids and uniformly random codes
+    (Nq = 32, C = 4,096 slots, 90% valid, L = 129) at each of
+    ``PROBE_LARGE_K``, held to the plain version; the K = 16,384 case
+    timed with its bound; at each of ``PROBE_ROUTES_AT`` both routes held
+    and timed. -> the kernels-line keys."""
+    from repro_torch.kernels.plaid_probe.ops import (_load, plaid_probe_scores,
+                                                     probe_route)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    Nq, C, L = 32, PROBE_LARGE_C, 129
+    cmask = torch.rand((Nq, C), generator=g, device=dev) < 0.9
+    tmask = (torch.rand((Nq, C, L), generator=g, device=dev) < 0.8) & \
+        cmask[:, :, None]
+
+    def inputs(K, Lq):
+        q = torch.randn((Nq, Lq, dim), generator=g, device=dev)
+        cen = torch.randn((K, dim), generator=g, device=dev)
+        codes = torch.randint(0, K, (Nq, C, L), generator=g, device=dev,
+                              dtype=torch.int32)
+        qm = torch.rand((Nq, Lq), generator=g, device=dev) > 0.05
+        return (q / q.norm(dim=-1, keepdim=True), qm,
+                cen / cen.norm(dim=-1, keepdim=True), codes, tmask, cmask)
+
+    smem = _load().plaid_probe_smem_bytes
+    out = {}
+    for K, Lq in PROBE_LARGE_K:
+        args = inputs(K, Lq)
+        route = probe_route(Lq, K, dim, smem)
+        err = _hold(f"plaid_probe K={K} Lq={Lq} route {route}", torch,
+                    plaid_probe_scores(*args, t_cs=t_cs),
+                    plaid_probe_scores(*args, t_cs=t_cs, impl="ref"), errs)
+        print(f"plaid_probe K={K}, Lq={Lq}: route {route}, max abs err "
+              f"{err:.3g}")
+        if K == 16384:
+            ms = _time_ms(lambda: plaid_probe_scores(*args, t_cs=t_cs))
+            plain = _time_ms(lambda: plaid_probe_scores(*args, t_cs=t_cs,
+                                                        impl="ref"), reps=2)
+            bound, by = _probe_bound(*args)
+            out.update(k16384_ms=ms, k16384_plain_ms=plain,
+                       k16384_bound_ms=bound, k16384_bound_by=by)
+            print(f"plaid_probe K=16384, Lq=32 (Nq={Nq}, C={C}, L={L}): "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({by})")
+    route_ms = {}
+    for K, Lq, width in PROBE_ROUTES_AT:
+        args = inputs(K, Lq)
+        want = plaid_probe_scores(*args, t_cs=t_cs, impl="ref")
+        times = {}
+        for route, chunk in (("smem", width), ("global", 128)):
+            _hold(f"plaid_probe K={K} Lq={Lq} route {route}", torch,
+                  plaid_probe_scores(*args, t_cs=t_cs, route=route,
+                                     chunk=chunk), want, errs)
+            times[f"{route} {chunk}"] = _time_ms(
+                lambda: plaid_probe_scores(*args, t_cs=t_cs, route=route,
+                                           chunk=chunk))
+        bound, by = _probe_bound(*args)
+        route_ms[f"K={K} Lq={Lq}"] = dict(times, bound=bound)
+        print(f"plaid_probe K={K}, Lq={Lq} (Nq={Nq}, C={C}, L={L}): the "
+              f"rule takes {probe_route(Lq, K, dim, smem)}; " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in times.items())
+              + f"; bound {bound:.4f} ms ({by})")
+    out.update(route_ms=route_ms)
+    return out
 
 
 def _packed_bound(q, qm, w, a, dm, cen, vals):
@@ -817,7 +960,7 @@ def flat_path(rt, torch, model, docs, queries):
           f"steady {search_s:.4f}s")
     _agree("flat path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
-    return capture_maxsim_args(torch, searcher, queries)
+    return capture_maxsim_args(torch, searcher, queries), index
 
 
 def recon_path(torch, index, searcher, queries, S, I):
@@ -856,6 +999,251 @@ def capture_rerank_args(torch, searcher, queries):
         mo.maxsim_rerank_indexed = inner
     if not seen:
         raise AssertionError("the search batch made no maxsim_rerank call")
+    return seen[0]
+
+
+def mutate_path(rt, torch, model, queries):
+    """The main artifact loaded a second time with ``Searcher.from_dir``
+    (the main index stays as it is), 512 of its docs deleted and 1,024 new
+    docs added (encoded and Ward-pooled by the model, from a corpus of
+    another seed), then 64 queries. Fails where a deleted id comes back,
+    where the host probe path or the plain versions disagree, where an
+    added doc's own vectors do not find it at top-1, or where the index
+    saved and served again gives other results."""
+    from repro_torch.data.corpus import DatasetSpec, SyntheticRetrievalCorpus
+    cfg = model.cfg
+    extra = SyntheticRetrievalCorpus(DatasetSpec(
+        "chip-smoke-add", n_docs=MUTATE_ADD, n_queries=1, n_topics=64,
+        doc_len_mean=200, doc_len_std=40, seed=SEED + 7),
+        vocab_size=cfg.trunk.vocab_size).doc_token_batch(cfg.doc_maxlen - 2)
+
+    def drive():
+        searcher = rt.Searcher.from_dir(model, ARTIFACT_DIR,
+                                        encode_batch=QUERY_BATCH)
+        index = searcher.index
+        n0 = index.n_docs
+        dead = np.random.default_rng(SEED + 7).choice(n0, MUTATE_DELETE,
+                                                      replace=False)
+        t0 = time.perf_counter()
+        index.delete(dead)
+        indexer = rt.Indexer(model, index_spec=rt.IndexSpec(ndocs=NDOCS),
+                             pooling_spec=rt.PoolingSpec("ward", 2),
+                             encode_batch=ENCODE_BATCH)
+        added = indexer.encode_and_pool(extra)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ids = index.add(added)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = _search_all(searcher, queries)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        picks = np.linspace(0, MUTATE_ADD - 1, MUTATE_SELF).astype(int)
+        own = [index.search(added[i], k=TOP_K)[1] for i in picks]
+        return (searcher, index, dead, ids, picks, own, res,
+                dict(delete_encode_s=t1 - t0, add_s=t2 - t1,
+                     search_s=t3 - t2))
+
+    searcher, index, dead, ids, picks, own, (S, I), times = run_path(
+        "mutate", torch, drive)
+    print(f"mutate: {index.n_docs} docs ({MUTATE_DELETE} deleted, "
+          f"{len(ids)} added as ids {ids[0]}..{ids[-1]}); device plan "
+          f"{index._probe_plan(QUERY_LEN)[0]}; " + ", ".join(
+              f"{k} {v:.4f}" for k, v in times.items()))
+    _check_results(S, I, index.n_docs)
+    if np.isin(I, dead).any():
+        raise AssertionError("mutate: a deleted doc came back")
+    top1 = [int(o[0]) if len(o) else -1 for o in own]
+    hits = int(sum(t == ids[i] for t, i in zip(top1, picks)))
+    print(f"mutate: added docs found at top-1 by their own vectors: "
+          f"{hits} of {len(picks)}")
+    if hits != len(picks):
+        raise AssertionError(f"mutate: added docs not at top-1 of their own "
+                             f"vectors: {list(zip(ids[picks], top1))}")
+    index.probe_kernel = "host"
+    _agree("mutate host probe path vs device path", S, I,
+           *_search_all(searcher, queries))
+    index.probe_kernel = "auto"
+    _agree("mutate vs plain versions", S, I,
+           *_search_all(searcher, queries, impl="ref"))
+    shutil.rmtree(MUTATE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    index.save(MUTATE_DIR)
+    save_s = time.perf_counter() - t0
+    loaded = rt.Searcher.from_dir(model, MUTATE_DIR, encode_batch=QUERY_BATCH)
+    S1, I1 = _search_all(loaded, queries)
+    shutil.rmtree(MUTATE_DIR, ignore_errors=True)
+    print(f"mutate: saved compacted in {save_s:.4f}s, {loaded.index.n_docs} "
+          f"docs, {len(loaded.index.deleted)} dead")
+    if not (np.array_equal(I, I1) and np.array_equal(S, S1)):
+        raise AssertionError("mutate: the reloaded index's results differ")
+    print("mutate: reloaded results equal the mutated index's exactly")
+
+
+def hnsw_path(rt, torch, model, docs, queries):
+    """An hnsw index through ``Indexer.build`` (Ward f=4, 128 docs, the
+    graph built in host Python), 16 docs added and 8 deleted, 32 queries:
+    the token probes on the host, the rerank by ``maxsim_rerank`` reading
+    the slate from the store in place. Held to the plain versions and to
+    the flat backend's exact MaxSim over the same slate; saved and served
+    again by ``Searcher.from_dir`` with equal results."""
+    from repro_torch.core.maxsim import topk_with_pads
+    nq = QUERY_BATCH
+
+    def drive():
+        t0 = time.perf_counter()
+        indexer = rt.Indexer(
+            model, index_spec=rt.IndexSpec(backend="hnsw",
+                                           hnsw_candidates=HNSW_CANDIDATES),
+            pooling_spec=rt.PoolingSpec("ward", HNSW_FACTOR),
+            encode_batch=ENCODE_BATCH)
+        index, stats = indexer.build(docs[:HNSW_DOCS])
+        build_s = time.perf_counter() - t0
+        more = indexer.encode_and_pool(docs[HNSW_DOCS:HNSW_DOCS + HNSW_ADD])
+        t0 = time.perf_counter()
+        index.add(more)
+        add_s = time.perf_counter() - t0
+        dead = np.random.default_rng(SEED + 8).choice(
+            index.n_docs, HNSW_DELETE, replace=False)
+        index.delete(dead)
+        searcher = rt.Searcher(model, index, encode_batch=QUERY_BATCH)
+        t0 = time.perf_counter()
+        res = searcher.search(queries[:nq], k=TOP_K)
+        torch.cuda.synchronize()
+        return (index, stats, build_s, add_s, dead, searcher, res,
+                time.perf_counter() - t0)
+
+    index, stats, build_s, add_s, dead, searcher, (S, I), search_s = \
+        run_path("hnsw", torch, drive)
+    qv = searcher.encode_queries(queries[:nq])
+    cand, cmask = index.candidates(qv)
+    counts = cmask.sum(1).float()
+    cos = float(torch.einsum("qld,qmd->qlm", qv, qv).mean())
+    print(f"hnsw: {index.n_docs} docs, {index._hnsw.vectors.shape[0]} token "
+          f"vectors in the graph (M {index.hnsw_m}, ef_construction "
+          f"{index.hnsw_ef_construction}); build {build_s:.3f}s (graph and "
+          f"store: index stage {stats.stage_seconds['index']:.3f}s), add "
+          f"{HNSW_ADD} docs {add_s:.3f}s; {nq} queries searched in "
+          f"{search_s:.3f}s; slate width {cand.shape[1]}, valid per query "
+          f"min {int(counts.min())} median {float(counts.median()):.0f} max "
+          f"{int(counts.max())}; a query's tokens: mean pairwise cosine "
+          f"{cos:.4f}")
+    if cand.shape[1] >= index.n_docs:
+        raise AssertionError("hnsw: the slate reached n_docs")
+    found = I >= 0            # a slate of fewer than k docs pads with -1
+    if not (np.isfinite(S[found]).all() and (I[found] < index.n_docs).all()
+            and np.isneginf(S[~found]).all() and found[:, 0].all()):
+        raise AssertionError("hnsw: invalid results")
+    print(f"hnsw: results a query min {int(found.sum(1).min())} mean "
+          f"{float(found.sum(1).mean()):.2f} of k = {TOP_K}")
+    if np.isin(I, dead).any():
+        raise AssertionError("hnsw: a deleted doc came back")
+    _agree("hnsw vs plain versions", S, I,
+           *searcher.search(queries[:nq], k=TOP_K, impl="ref"))
+    flat = rt.MultiVectorIndex(dim=index.dim, backend="flat")
+    flat.add(index.docs)
+    flat.delete(dead)
+    _agree("hnsw vs the flat backend's MaxSim over the hnsw slate", S, I,
+           *topk_with_pads(flat.rerank(qv, cand, cmask), cand, TOP_K))
+    shutil.rmtree(HNSW_DIR, ignore_errors=True)
+    index.save(HNSW_DIR)
+    loaded = rt.Searcher.from_dir(model, HNSW_DIR, encode_batch=QUERY_BATCH)
+    S1, I1 = loaded.search(queries[:nq], k=TOP_K)
+    shutil.rmtree(HNSW_DIR, ignore_errors=True)
+    if not (np.array_equal(I, I1) and np.array_equal(S, S1)):
+        raise AssertionError("hnsw: from_dir results differ")
+    print("hnsw: from_dir results equal the in-memory index's exactly")
+
+
+def plaid_k8192_path(rt, torch, model, flat_index, queries):
+    """A plaid index at K = 8,192 over the flat path's stored pooled
+    vectors (``add_flat``: nothing encoded again), nprobe 32, ndocs 16
+    (``K8192_NPROBE``: the prune then cuts every query's slate). Its
+    ``doc_member`` (8,192 x 4,096) is above the gather cap, so ``"auto"``
+    takes the host path; ``probe_kernel="device"`` forces the device
+    path. Both prune with ``plaid_probe`` at K = 8,192 (the global-table
+    route) and must agree with each other and with the plain versions."""
+    from repro_torch.core.plaid import (_centroid_scores_batch, _ladder,
+                                        probe_members)
+    store = flat_index._store
+
+    def drive():
+        t0 = time.perf_counter()
+        index = rt.MultiVectorIndex(dim=flat_index.dim, n_centroids=K8192,
+                                    nprobe=K8192_NPROBE, ndocs=K8192_NDOCS)
+        index.add_flat(store.flat, store.doc_lengths())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        searcher = rt.Searcher(model, index, encode_batch=QUERY_BATCH)
+        t0 = time.perf_counter()
+        host = _search_all(searcher, queries)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        index.probe_kernel = "device"
+        t0 = time.perf_counter()
+        device = _search_all(searcher, queries)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - t0
+        return index, searcher, build_s, host, host_s, device, device_s
+
+    index, searcher, build_s, (S, I), host_s, (S1, I1), device_s = run_path(
+        "plaid_k8192", torch, drive)
+    index.probe_kernel = "auto"
+    if index._probe_plan(QUERY_LEN)[0]:
+        raise AssertionError("plaid_k8192: auto took the device path")
+    index.probe_kernel = "device"
+    if not index._probe_plan(QUERY_LEN)[0]:
+        raise AssertionError("plaid_k8192: the device path was refused")
+    qv = searcher.encode_queries(queries)
+    counts = _candidate_report(torch, index, qv)
+    p = index._plaid
+    _, at8 = probe_members(_centroid_scores_batch(qv, p.codec.centroids),
+                           torch.ones(qv.shape[:2], dtype=torch.bool,
+                                      device=qv.device),
+                           p.device_ivf().doc_member,
+                           torch.ones(p.n_docs, dtype=torch.bool,
+                                      device=qv.device), 8)
+    print(f"plaid_k8192: at nprobe 8 (the default), candidates per query "
+          f"min {int(at8.min())} max {int(at8.max())}")
+    pruned = [_ladder(int(counts[lo:lo + QUERY_BATCH].max())) > index.ndocs
+              for lo in range(0, len(counts), QUERY_BATCH)]
+    cut = int((counts > index.ndocs).sum())
+    print(f"plaid_k8192: {p.n_docs} docs, {p.n_vectors} vectors, K "
+          f"{p.codec.n_centroids}; build {build_s:.3f}s; {N_QUERIES} queries "
+          f"host path {host_s:.4f}s, device path {device_s:.4f}s (first "
+          f"pass); "
+          f"batches pruned {pruned}, queries cut to ndocs {cut} of "
+          f"{len(counts)}")
+    if not all(pruned):
+        raise AssertionError("plaid_k8192: the prune did not engage")
+    _check_results(S, I, p.n_docs)
+    _agree("plaid_k8192 host path vs device path", S, I, S1, I1)
+    _agree("plaid_k8192 device path vs plain versions", S1, I1,
+           *_search_all(searcher, queries, impl="ref"))
+    index.probe_kernel = "auto"
+    _agree("plaid_k8192 host path vs plain versions", S, I,
+           *_search_all(searcher, queries, impl="ref"))
+    return capture_probe_args(searcher, queries)
+
+
+def capture_probe_args(searcher, queries):
+    """The arguments of the ``plaid_probe`` call of one search batch.
+    Outside every counted run."""
+    import repro_torch.core.plaid as cp
+    seen = []
+    inner = cp.plaid_probe_scores
+
+    def keep(*args, **kw):
+        seen.append(args)
+        return inner(*args, **kw)
+
+    cp.plaid_probe_scores = keep
+    try:
+        searcher.search(queries[:QUERY_BATCH], k=TOP_K)
+    finally:
+        cp.plaid_probe_scores = inner
+    if not seen:
+        raise AssertionError("the search batch made no plaid_probe call")
     return seen[0]
 
 
@@ -2099,9 +2487,13 @@ def main(argv=None) -> int:
     persist_path(rt, torch, model, queries, stats, S, I)
     host_probe_path(torch, index, searcher, queries, S, I)
     dense_path(rt, torch, model, docs, queries)
-    flat_args = flat_path(rt, torch, model, docs, queries)
+    flat_args, flat_index = flat_path(rt, torch, model, docs, queries)
     recon_args = recon_path(torch, index, searcher, queries, S, I)
+    mutate_path(rt, torch, model, queries)
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    hnsw_path(rt, torch, model, docs, queries)
+    k8192_probe = plaid_k8192_path(rt, torch, model, flat_index, queries)
+    del flat_index
     kmeans_path(rt, torch, model, docs, queries)
     sequential_path(rt, torch, model, docs, queries)
     cascade, cS, cI, cascade_args = cascade_path(rt, torch, model, docs,
@@ -2124,7 +2516,8 @@ def main(argv=None) -> int:
     index.packed_rerank = True
     qv = searcher.encode_queries(queries[:QUERY_BATCH])
     kernels = [check_ward(torch, dev),
-               check_plaid_probe(torch, dev, index, qv, path_probe, parent),
+               check_plaid_probe(torch, dev, index, qv, path_probe,
+                                 k8192_probe, parent),
                check_maxsim_packed(torch, dev, index, qv, path_packed, parent),
                check_maxsim(torch, dev, index, qv, flat_args, parent),
                check_maxsim_rerank(torch, dev, index, qv, recon_args,

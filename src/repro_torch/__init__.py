@@ -2,10 +2,11 @@
 
 The JAX package (``src/repro``), rewritten for one NVIDIA H100, slice
 by slice: ColBERT encode -> token pooling (sequential, k-means or Ward)
--> PLAID 2-bit or flat index, or the pooled two-level cascade,
-artifacts in the JAX package's format both ways, and query encode ->
-device or host probe/prune -> packed, f32 or dense rerank -> top-k;
-and causal-LM serving (prefill and decode) of the dense Qwen trunks.
+-> PLAID 2-bit, HNSW or flat index (add after the build, delete), or
+the pooled two-level cascade, artifacts in the JAX package's format both
+ways, and query encode -> device or host probe/prune, or HNSW token
+probes -> packed, f32 or dense rerank -> top-k; and causal-LM serving
+(prefill and decode) of the dense Qwen trunks.
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 

@@ -8,12 +8,13 @@ flat ``[n_vectors, dim]`` f32 tensor on the index's device plus host CSR
 ``L = min(doc_maxlen, longest doc)`` that flat search and the f32 rerank
 gather from. The view is built on the device by one ragged scatter (as
 ``PLAIDIndex.padded_packed``); nothing is re-padded per query.
-``delete`` is not ported (ROADMAP queue 1, index mutation): ``live``
-comes from ``from_arrays`` (a loaded artifact's dead docs).
+``add`` appends (the view is rebuilt on the next read); ``delete`` is
+lazy: the docs drop out of ``live`` and the view stays valid, since
+liveness is a query-time mask.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +115,19 @@ class DocStore:
         self._padded = None
         return ids
 
+    def delete(self, doc_ids) -> None:
+        """Lazy delete: the docs stay in storage, out of ``live``."""
+        self.live[np.asarray(doc_ids, np.int64)] = False
+
     # ------------------------------------------------------------- reads
+    def doc(self, i: int) -> torch.Tensor:
+        """Doc i's rows [n_i, dim] (a view on the device)."""
+        return self.flat[self.offsets[i]:self.offsets[i + 1]]
+
+    def docs_list(self) -> List[torch.Tensor]:
+        """Per-doc rows, deleted docs included."""
+        return [self.doc(i) for i in range(self.n_docs)]
+
     def padded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cached device view ([max(n, 1), L, dim] f32, [max(n, 1), L]
         bool); dead docs keep their rows (liveness is a query-time

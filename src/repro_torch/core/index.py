@@ -1,20 +1,29 @@
-"""Late-interaction index over per-document token vectors (flat | PLAID).
+"""Late-interaction index over per-document token vectors (flat | HNSW |
+PLAID).
 
-Counterpart of ``src/repro/core/index.py`` ``MultiVectorIndex`` for the
-port's slice: ``add`` on an empty index (flat: the ``DocStore``; plaid:
-codec training + PLAID build), ``set_codec``, the two-stage batch engine
-(``candidates`` -> ``rerank``), ``scored_candidates`` with the dense
-corpus-wide dispatch, ``search_batch``, ``save``/``load``
-(``core/persist.py``), and liveness from a loaded artifact's dead docs.
+Counterpart of ``src/repro/core/index.py`` ``MultiVectorIndex``: ``add``
+(flat: the ``DocStore``; hnsw: the store plus a token-level HNSW graph
+on the host; plaid: codec training and the PLAID build on the first add,
+``PLAIDIndex.add_flat`` with the same codec after it), lazy ``delete`` (the
+``deleted`` set, the store's ``live`` mask, the graph's deleted tokens;
+plaid filters dead docs at candidate time), ``set_codec``, the two-stage
+batch engine (``candidates`` -> ``rerank``), ``scored_candidates`` with
+the dense corpus-wide dispatch, ``search_batch`` / ``search``, and
+``save``/``load`` (``core/persist.py``).
+
+Stage 1 is the PLAID probe on the device (or its host path), hnsw's
+token probes on the host with the candidate-set union, or for flat the
+whole live corpus; stage 2 is the ``maxsim_packed`` kernel (plaid) or
+the ``maxsim_rerank`` kernel reading the candidates from the store in
+place (hnsw, and plaid with ``packed_rerank=False``), or the all-pairs
+``maxsim`` scan where a slate reaches ``n_docs``.
 
 Serving toggles, never persisted: ``packed_rerank`` (plaid rerank from
 packed codes, or from the f32 reconstruction store) and
 ``probe_kernel`` (``"auto"``/``"device"``/``"host"`` candidate path).
-The pooled cascade is its own class (``retrieval/cascade.py``). Not
-ported yet (ROADMAP queue 1, item 4: index mutation, with the hnsw
-backend): ``backend="hnsw"`` and ``add`` after the build raise
-``NotImplementedError``; ``delete`` is absent (dead docs come only from
-a loaded artifact).
+The pooled cascade is its own class (``retrieval/cascade.py``). The
+reference's ``candidate_widths`` and ``warm_shapes`` are not ported
+(ROADMAP queue 1, item 3).
 
 ``impl`` on the search methods selects the kernels' plain versions
 (``"ref"``); only the tests and ``chip_smoke.py`` pass it.
@@ -28,7 +37,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.docstore import DocStore
+from repro_torch.core.docstore import DocStore, pad_candidate_sets
+from repro_torch.core.hnsw import HNSW
 from repro_torch.core.ivf import train_centroids
 from repro_torch.core.maxsim import (maxsim_all_docs, maxsim_rerank_store,
                                      topk_with_pads)
@@ -37,7 +47,7 @@ from repro_torch.core.plaid import (PLAIDIndex, PROBE_KERNELS,
                                     maxsim_packed_rerank_store,
                                     plaid_candidates)
 from repro_torch.core.quantization import ResidualCodec, train_codec
-from repro_torch.core.spec import BACKENDS, PORTED_BACKENDS
+from repro_torch.core.spec import BACKENDS
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -51,17 +61,18 @@ class MultiVectorIndex:
     nprobe: int = 8
     t_cs: float = 0.3
     ndocs: int = 8192
-    # hnsw knobs: carried for the manifest "params" (the hnsw backend is
-    # not ported), at the reference's defaults
+    # HNSW params (paper Appendix A)
     hnsw_m: int = 12
     hnsw_ef_construction: int = 200
-    hnsw_candidates: int = 1024
+    hnsw_candidates: int = 1024    # token hits gathered before doc rerank
     packed_rerank: bool = True
     probe_kernel: str = "auto"
     device: DeviceLike = None
 
     deleted: set = field(default_factory=set)
     _store: Optional[DocStore] = field(default=None, repr=False)
+    _hnsw: Optional[HNSW] = field(default=None, repr=False)
+    _hnsw_vec2doc: Optional[np.ndarray] = field(default=None, repr=False)
     _plaid: Optional[PLAIDIndex] = field(default=None, repr=False)
     _preset_codec: Optional[ResidualCodec] = field(default=None, repr=False)
     _live_dev_cache: Optional[torch.Tensor] = field(default=None, repr=False)
@@ -69,10 +80,6 @@ class MultiVectorIndex:
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet (ROADMAP "
-                f"queue 1); the port builds {PORTED_BACKENDS}")
         if int(self.quant_bits) not in (2, 4):
             raise ValueError(f"quant_bits must be 2 or 4, got "
                              f"{self.quant_bits!r}")
@@ -80,14 +87,15 @@ class MultiVectorIndex:
             raise ValueError(f"probe_kernel must be one of {PROBE_KERNELS}, "
                              f"got {self.probe_kernel!r}")
         self.device = resolve_device(self.device)
-        if self.backend == "flat":
+        if self.backend != "plaid":
             self._store = DocStore(self.dim, self.doc_maxlen, self.device)
 
     # ------------------------------------------------------------ doc store
     @property
     def store(self) -> DocStore:
-        """What dense scoring and the f32 rerank read: flat's raw
-        vectors; plaid's reconstruction cache (built on first touch)."""
+        """What dense scoring and the f32 rerank read: flat's and hnsw's
+        raw vectors; plaid's reconstruction cache (built on first
+        touch)."""
         if self.backend == "plaid":
             if self._plaid is None:
                 raise RuntimeError("empty index: add documents first")
@@ -100,9 +108,17 @@ class MultiVectorIndex:
             return self._plaid.n_docs if self._plaid is not None else 0
         return self._store.n_docs
 
+    @property
+    def docs(self) -> List[torch.Tensor]:
+        """Per-doc vectors, deleted docs included (plaid: the codec's
+        reconstructions, which builds the reconstruction store)."""
+        if self.backend == "plaid":
+            return self.store.docs_list() if self._plaid is not None else []
+        return self._store.docs_list()
+
     def _live(self) -> np.ndarray:
-        """[n_docs] bool: docs that can still be returned (flat: the
-        store's mask; plaid: not in ``deleted``)."""
+        """[n_docs] bool: docs that can still be returned (flat, hnsw:
+        the store's mask; plaid: not in ``deleted``)."""
         if self._store is not None:
             return self._store.live.copy()
         live = np.ones(self.n_docs, bool)
@@ -111,7 +127,8 @@ class MultiVectorIndex:
         return live
 
     def _live_dev(self) -> torch.Tensor:
-        """The live mask on the device, shipped once per load/build."""
+        """The live mask on the device, shipped once per mutation epoch:
+        every build, add, delete and load resets it."""
         if self._live_dev_cache is None:
             self._live_dev_cache = torch.from_numpy(self._live()).to(
                 self.device)
@@ -133,8 +150,7 @@ class MultiVectorIndex:
         self._preset_codec = codec
 
     def add(self, doc_vectors: List[torch.Tensor]) -> np.ndarray:
-        """doc_vectors: list of [n_i, dim] unit vectors -> doc ids. Only
-        the first add (the build) is ported."""
+        """doc_vectors: list of [n_i, dim] unit vectors -> doc ids."""
         if len(doc_vectors) == 0:
             return np.zeros((0,), np.int64)
         flat = torch.cat([torch.as_tensor(v, device=self.device).float()
@@ -142,18 +158,38 @@ class MultiVectorIndex:
         return self.add_flat(flat, [len(v) for v in doc_vectors])
 
     def add_flat(self, flat: torch.Tensor, lens) -> np.ndarray:
-        """The same build from doc-major rows [n_vectors, dim] and
-        per-doc counts [n_docs] (what the Indexer's compaction yields)."""
-        if self.n_docs:
-            raise NotImplementedError(
-                "add after the build is not ported yet (ROADMAP queue 1)")
+        """The same from doc-major rows [n_vectors, dim] and per-doc
+        counts [n_docs] (what the Indexer's compaction yields)."""
         lens = np.asarray(lens, np.int64)
         if len(lens) == 0:
             return np.zeros((0,), np.int64)
         flat = flat.to(self.device).float()
+        ids = np.arange(self.n_docs, self.n_docs + len(lens))
         self._live_dev_cache = None
-        if self.backend == "flat":
-            return self._store.add_flat(flat, lens)
+        if self.backend == "plaid":
+            self._add_plaid(flat, lens)
+        else:
+            self._store.add_flat(flat, lens)
+            if self.backend == "hnsw":
+                self._add_hnsw(flat, lens, ids)
+        return ids
+
+    def _add_hnsw(self, flat: torch.Tensor, lens: np.ndarray,
+                  ids: np.ndarray) -> None:
+        """Insert the token vectors into the host graph (in order, as
+        the reference does, so both build the same graph)."""
+        if self._hnsw is None:
+            self._hnsw = HNSW(self.dim, m=self.hnsw_m,
+                              ef_construction=self.hnsw_ef_construction)
+            self._hnsw_vec2doc = np.zeros((0,), np.int64)
+        self._hnsw.add(flat.cpu().numpy())
+        self._hnsw_vec2doc = np.concatenate(
+            [self._hnsw_vec2doc, np.repeat(ids, lens)])
+
+    def _add_plaid(self, flat: torch.Tensor, lens: np.ndarray) -> None:
+        if self._plaid is not None:
+            self._plaid.add_flat(flat, lens)
+            return
         codec = self._preset_codec
         if codec is None:
             k = min(self.n_centroids, len(flat))
@@ -165,7 +201,19 @@ class MultiVectorIndex:
             values=torch.as_tensor(codec.values, device=self.device),
             bits=codec.bits)
         self._plaid = build_plaid_index(flat, lens, codec, self.doc_maxlen)
-        return np.arange(len(lens))
+
+    def delete(self, doc_ids) -> None:
+        """Lazy delete: the docs drop out of every search; their bytes
+        go at the next ``save`` (compacted artifact)."""
+        ids = np.asarray(doc_ids, np.int64).ravel()
+        self.deleted.update(int(i) for i in ids)
+        if self.backend == "hnsw" and self._hnsw is not None:
+            self._hnsw.delete(np.nonzero(np.isin(self._hnsw_vec2doc,
+                                                 ids))[0])
+        if self._store is not None:
+            self._store.delete(ids)
+        self._live_dev_cache = None
+        # plaid filters deleted ids at candidate time
 
     # ------------------------------------------------------------ persistence
     def save(self, path: str, extra_meta: Optional[dict] = None) -> dict:
@@ -191,12 +239,38 @@ class MultiVectorIndex:
         if self.backend == "flat":
             return None, None
         qs = self._queries(qs)
+        if self.backend == "hnsw":
+            return self._hnsw_candidates(qs, q_mask)
         use_dev, _ = self._probe_plan(qs.shape[1])
         live = self._live_dev() if use_dev else self._live()
         return plaid_candidates(self._plaid, qs, nprobe=self.nprobe,
                                 t_cs=self.t_cs, ndocs=self.ndocs, live=live,
                                 q_mask=q_mask,
                                 probe_kernel=self.probe_kernel, impl=impl)
+
+    def _hnsw_candidates(self, qs: torch.Tensor,
+                         q_mask: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token probes of the host graph (``hnsw_candidates // Lq`` hits
+        a query token, at least 8), then each query's sorted unique live
+        docs, padded (``pad_candidate_sets``) -> (cand, mask) on the
+        device."""
+        Nq, Lq = qs.shape[:2]
+        per_tok = max(self.hnsw_candidates // max(Lq, 1), 8)
+        vec_ids = self._hnsw.probe_tokens(
+            qs.reshape(Nq * Lq, self.dim).cpu().numpy(), per_tok)
+        hit = vec_ids >= 0                               # [Nq*Lq, per_tok]
+        if q_mask is not None:     # masked tokens probe nothing
+            hit &= q_mask.cpu().numpy().astype(bool).reshape(Nq * Lq, 1)
+        qidx = np.repeat(np.arange(Nq), Lq * per_tok)[hit.ravel()]
+        docs = self._hnsw_vec2doc[vec_ids[hit]]
+        n = max(self.n_docs, 1)
+        qd = np.unique(qidx * np.int64(n) + docs)
+        qidx, docs = qd // n, qd % n
+        keep = self._live()[docs]
+        cand, mask = pad_candidate_sets(qidx[keep], docs[keep], Nq)
+        return (torch.from_numpy(cand).to(self.device),
+                torch.from_numpy(mask).to(self.device))
 
     def rerank(self, qs: torch.Tensor, cand: Optional[torch.Tensor] = None,
                cand_mask: Optional[torch.Tensor] = None,
@@ -257,6 +331,13 @@ class MultiVectorIndex:
         with record_function("search.topk"):
             return topk_with_pads(scores, cand, k)
 
+    def search(self, q, k: int = 10, impl: str = "auto"
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """q [Lq, dim] query token vectors -> (scores [<=k], ids [<=k])."""
+        S, I = self.search_batch(torch.as_tensor(q)[None], k=k, impl=impl)
+        valid = I[0] >= 0
+        return S[0][valid], I[0][valid]
+
     def _queries(self, qs) -> torch.Tensor:
         if self.n_docs == 0:
             raise RuntimeError("empty index: add documents first")
@@ -269,6 +350,15 @@ class MultiVectorIndex:
         lens = (np.diff(self._plaid.doc_offsets) if self.backend == "plaid"
                 else self._store.doc_lengths())
         return int(lens[self._live()].sum())
+
+    def nbytes(self) -> int:
+        """The reference's footprint: hnsw's graph (fp16 vectors and
+        edges), plaid's ``PLAIDIndex.nbytes``, flat's fp16 live docs."""
+        if self.backend == "hnsw" and self._hnsw is not None:
+            return self._hnsw.nbytes()
+        if self.backend == "plaid":
+            return self._plaid.nbytes() if self._plaid is not None else 0
+        return self._store.nbytes(bytes_per_dim=2, live_only=True)
 
     def device_bytes(self) -> int:
         if self.backend == "plaid":

@@ -1,11 +1,12 @@
 """Versioned on-disk index artifacts, the format both packages share.
 
 Counterpart of ``src/repro/core/persist.py`` (``FORMAT_VERSION = 1``)
-for monolithic flat and plaid indexes and for the pooled cascade: an
-artifact is a directory of
+for monolithic flat, hnsw and plaid indexes and for the pooled cascade:
+an artifact is a directory of
 
     manifest.json     format_version, generation, kind, then for an
                       index: backend, dim, n_docs, params, (codec_bits);
+                      (hnsw: entry, max_level);
                       for a cascade: dim, coarse_factor, fine_factor,
                       candidates, doc_maxlen; and the payload table
                       {name: file, dtype, shape, bytes}
@@ -15,16 +16,18 @@ The manifest is the single source of truth: a missing key, a missing or
 truncated payload, a dtype/shape/bytes mismatch or another
 ``format_version`` raises :class:`IndexFormatError`. Saving compacts
 dead docs out of the payloads (zero-length spans, flagged in ``live``),
-so doc ids survive. Payload dtypes are the reference's: packed words
+so doc ids survive; an hnsw graph keeps its deleted token nodes (they
+route the walk). Payload dtypes are the reference's: packed words
 ``uint32`` (the port's tensors carry the same bits as int32),
 assignments ``int32``, offsets / ids ``int64``, ``live`` bool, vectors
 and codec tables ``float32``. Loading reads the payloads (memory-mapped
 with ``mmap=True``) and copies them onto the index's device.
 
-Sharded and hnsw artifacts are not ported (ROADMAP queue 1).
+Sharded artifacts are not ported (ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import uuid
@@ -219,6 +222,46 @@ def codec_from_payloads(payloads: Dict[str, np.ndarray], bits: int,
         bits=int(bits))
 
 
+def _hnsw_payloads(index) -> Dict[str, np.ndarray]:
+    """The graph in CSR form (edge counts [levels, n] and the edges in
+    level-major, node order). Deleted token nodes keep their vectors and
+    edges: they route the walk, and dropping them would change the
+    graph a loaded index searches."""
+    h = index._hnsw
+    n = len(h.levels)
+    counts = np.zeros((len(h.graph), n), np.int64)
+    for lv, rows in enumerate(h.graph):
+        counts[lv, :len(rows)] = [len(r) for r in rows]
+    edges = np.fromiter(
+        itertools.chain.from_iterable(r for rows in h.graph for r in rows),
+        np.int64, count=int(counts.sum()))
+    deleted = np.fromiter(sorted(h.deleted), np.int64, count=len(h.deleted))
+    return {"hnsw_vectors": np.asarray(h.vectors, np.float32),
+            "hnsw_levels": np.asarray(h.levels, np.int64),
+            "hnsw_edge_counts": counts,
+            "hnsw_edges": edges,
+            "hnsw_deleted": deleted,
+            "hnsw_vec2doc": np.asarray(index._hnsw_vec2doc, np.int64)}
+
+
+def _hnsw_from(index, payloads, manifest):
+    from repro_torch.core.hnsw import HNSW
+    h_meta = _require(manifest, "hnsw", "hnsw artifact")
+    for name in ("hnsw_levels", "hnsw_edge_counts", "hnsw_edges",
+                 "hnsw_deleted", "hnsw_vec2doc"):
+        _require(payloads, name, "hnsw artifact")
+    return HNSW.from_state(
+        dim=index.dim, m=index.hnsw_m,
+        ef_construction=index.hnsw_ef_construction,
+        vectors=np.array(payloads["hnsw_vectors"]),
+        levels=payloads["hnsw_levels"],
+        edge_counts=payloads["hnsw_edge_counts"],
+        edges=payloads["hnsw_edges"],
+        deleted=payloads["hnsw_deleted"],
+        entry=int(_require(h_meta, "entry", "hnsw meta")),
+        max_level=int(_require(h_meta, "max_level", "hnsw meta")))
+
+
 def _plaid_payloads(index) -> Dict[str, np.ndarray]:
     """Compacted PLAID stack: codec, packed residuals, IVF lists; dead
     docs' rows dropped, their ids kept as zero-length spans."""
@@ -252,8 +295,13 @@ def index_payloads(index) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
         "params": {k: getattr(index, k) for k in _PARAM_KEYS},
     }
     payloads: Dict[str, np.ndarray] = {}
-    if index.backend == "flat":
+    if index.backend in ("flat", "hnsw"):
         payloads.update(_docstore_payloads(index._store))
+        if index.backend == "hnsw" and index._hnsw is not None:
+            payloads.update(_hnsw_payloads(index))
+            meta["hnsw"] = {"entry": (-1 if index._hnsw.entry is None
+                                      else int(index._hnsw.entry)),
+                            "max_level": int(index._hnsw.max_level)}
     elif index._plaid is not None:
         meta["codec_bits"] = int(index._plaid.codec.bits)
         payloads.update(_plaid_payloads(index))
@@ -277,8 +325,8 @@ def save_index(index, path: str,
 
 
 def load_index(path: str, mmap: bool = True, device: DeviceLike = None):
-    """Reconstruct a flat or plaid MultiVectorIndex (written by either
-    package) onto ``device``."""
+    """Reconstruct a flat, hnsw or plaid MultiVectorIndex (written by
+    either package) onto ``device``."""
     from repro_torch.core.index import MultiVectorIndex
 
     manifest = read_manifest(path)
@@ -296,10 +344,13 @@ def load_index(path: str, mmap: bool = True, device: DeviceLike = None):
     payloads = load_payloads(path, manifest, mmap=mmap)
     if not payloads:                    # empty index: nothing was stored
         return index
-    if backend == "flat":
+    if backend in ("flat", "hnsw"):
         index._store = _docstore_from(payloads, "", index.doc_maxlen,
                                       index.device)
         index.deleted = set(np.nonzero(~index._store.live)[0].tolist())
+        if backend == "hnsw" and "hnsw_vectors" in payloads:
+            index._hnsw = _hnsw_from(index, payloads, manifest)
+            index._hnsw_vec2doc = np.array(payloads["hnsw_vec2doc"])
     else:
         _plaid_from(index, payloads, manifest)
     return index

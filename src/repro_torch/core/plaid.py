@@ -20,9 +20,13 @@ provably the host path's and ``doc_member`` fits the gather cap
 (``probe_kernel="auto"``): at K = 256 the cap of 2**24 elements allows
 65,536 docs, and larger corpora take the host path. Index arrays the
 search reads live on the index's device; the IVF bookkeeping is host
-numpy, as in the reference. The device path's stages run inside
-``torch.profiler`` ranges named ``search.*`` (no cost without a
-profiler), so a trace splits one batch's time by stage.
+numpy, as in the reference. ``PLAIDIndex.add_flat`` encodes new docs
+with the index's codec and appends them; ``delete`` compacts (doc ids
+shift). Both drop the cached device views (the packed view and the
+device IVF), so the next search plans on the new lists. The device
+path's stages run inside ``torch.profiler`` ranges named ``search.*``
+(no cost without a profiler), so a trace splits one batch's time by
+stage.
 """
 from __future__ import annotations
 
@@ -76,6 +80,18 @@ class PLAIDIndex:
     @property
     def n_vectors(self) -> int:
         return len(self.vec2doc)
+
+    def nbytes(self) -> int:
+        """Resident bytes: ids, packed codes, IVF and doc offsets and the
+        centroids, plus the f32 reconstruction cache while it is built
+        (the reference's count)."""
+        total = (self.assignments.numel() * 4 + self.codes.numel() * 4
+                 + self.ivf.ids.nbytes + self.ivf.offsets.nbytes
+                 + self.vec2doc.nbytes + self.doc_offsets.nbytes
+                 + self.codec.centroids.numel() * 4)
+        if self.recon is not None:
+            total += self.recon.nbytes(bytes_per_dim=4, live_only=False)
+        return total
 
     def _padded_len(self) -> int:
         """Tight padded width L = min(doc_maxlen, longest doc)."""
@@ -132,6 +148,51 @@ class PLAIDIndex:
             self._device_ivf = build_device_inverted_lists(
                 self.ivf, self.vec2doc, self.n_docs, self.device)
         return self._device_ivf
+
+    def _invalidate(self) -> None:
+        self._packed_padded = None
+        self._device_ivf = None
+
+    # ------------------------------------------------------------------ CRUD
+    def add_flat(self, flat: torch.Tensor, lens) -> np.ndarray:
+        """Append docs given as doc-major rows [sum(lens), dim] and per-doc
+        counts: encoded on the device with the index's codec, the IVF
+        rebuilt on the host, a built reconstruction store extended."""
+        lens = np.asarray(lens, np.int64)
+        new_ids = np.arange(self.n_docs, self.n_docs + len(lens))
+        if len(lens) == 0:
+            return new_ids
+        a, w = encode(self.codec, flat.to(self.device))
+        if self.recon is not None:        # keep a built cache coherent
+            self.recon.add_flat(decode(self.codec, a, w), lens)
+        self.assignments = torch.cat([self.assignments, a])
+        self.codes = torch.cat([self.codes, w])
+        self.vec2doc = np.concatenate([self.vec2doc,
+                                       np.repeat(new_ids, lens)])
+        self.doc_offsets = np.concatenate(
+            [self.doc_offsets, self.doc_offsets[-1] + np.cumsum(lens)])
+        self.ivf = build_inverted_lists(self.assignments.cpu().numpy(),
+                                        self.codec.n_centroids)
+        self._invalidate()
+        return new_ids
+
+    def delete(self, doc_ids) -> None:
+        """Remove docs, compacting: the remaining docs are renumbered in
+        order, the reconstruction store is dropped (rebuilt on use)."""
+        doc_ids = np.asarray(doc_ids, np.int64)
+        keep = ~np.isin(self.vec2doc, doc_ids)
+        doc_keep = ~np.isin(np.arange(self.n_docs), doc_ids)
+        keep_t = torch.from_numpy(keep).to(self.device)
+        self.assignments = self.assignments[keep_t]
+        self.codes = self.codes[keep_t]
+        new_lens = np.diff(self.doc_offsets)[doc_keep]
+        self.doc_offsets = np.zeros(len(new_lens) + 1, np.int64)
+        np.cumsum(new_lens, out=self.doc_offsets[1:])
+        self.vec2doc = np.repeat(np.arange(len(new_lens)), new_lens)
+        self.ivf = build_inverted_lists(self.assignments.cpu().numpy(),
+                                        self.codec.n_centroids)
+        self.recon = None
+        self._invalidate()
 
     def device_bytes(self) -> int:
         total = sum(t.numel() * t.element_size()

@@ -15,7 +15,6 @@ from typing import Any, Dict
 POOL_METHODS = ("none", "sequential", "kmeans", "ward")
 PORTED_POOL_METHODS = POOL_METHODS
 BACKENDS = ("flat", "hnsw", "plaid")
-PORTED_BACKENDS = ("flat", "plaid")
 # MultiVectorIndex construction knobs: what an artifact manifest records
 # under "params" (a reader of either package needs all nine)
 INDEX_PARAM_KEYS = (
@@ -61,19 +60,20 @@ class IndexSpec:
     nprobe: int = 8
     t_cs: float = 0.3
     ndocs: int = 8192
+    # HNSW (paper Appendix A)
+    hnsw_m: int = 12
+    hnsw_ef_construction: int = 200
+    hnsw_candidates: int = 1024
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; known: "
                              f"{BACKENDS}")
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet (ROADMAP "
-                f"queue 1); the port builds {PORTED_BACKENDS}")
         if int(self.quant_bits) not in (2, 4):
             raise ValueError(f"quant_bits must be 2 or 4, got "
                              f"{self.quant_bits!r}")
-        for key in ("n_centroids", "nprobe", "ndocs", "doc_maxlen"):
+        for key in ("n_centroids", "nprobe", "ndocs", "doc_maxlen",
+                    "hnsw_m", "hnsw_ef_construction", "hnsw_candidates"):
             if int(getattr(self, key)) < 1:
                 raise ValueError(f"{key} must be >= 1, got "
                                  f"{getattr(self, key)!r}")

@@ -44,6 +44,18 @@
 //   exactly, either way.
 // - The sum over query tokens is the first version's: per lane over r,
 //   then a shuffle xor tree, so the scores are bit for bit the same.
+// - Two routes for the table. A table of (K + 2) x 32 R floats fits a
+//   block's 227 KB of shared memory only up to K = 1,668 at R = 1 (415 at
+//   R = 4). Past that (PLAID's own K of 8,192 and more) the probe kernel
+//   reads the table where the table kernel wrote it, through the
+//   read-only path (`__ldg`, L2), instead of staging it: the same
+//   lookups, distinct-code path, loads and masks, and the same scores bit
+//   for bit. A query's table is 1.05 MB at K = 8,192 and Lq <= 32, so a
+//   few queries' tables sit in the 50 MB L2 at a time; with shared memory
+//   left to the warps' buffers, more blocks a SM hide L2's latency. The
+//   wrapper picks the route (`kernels/plaid_probe/ops.py` `probe_route`):
+//   narrower query chunks whose table would fit shared memory were slower
+//   on the card than this route at every K measured.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
@@ -130,11 +142,19 @@ __global__ void __launch_bounds__(THREADS) plaid_table_kernel(
   }
 }
 
-template <int R>
+// a table entry: shared memory, or (GT) device memory through L2
+template <bool GT>
+__device__ __forceinline__ float tab_at(const float* p) {
+  if constexpr (GT) return __ldg(p);
+  else return *p;
+}
+
+template <int R, bool GT>
 __device__ __forceinline__ void lookup(int o, const float* tabl,
                                        float (&m)[2][R], int h) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) m[h][r] = fmaxf(m[h][r], tabl[o + 32 * r]);
+  for (int r = 0; r < R; ++r)
+    m[h][r] = fmaxf(m[h][r], tab_at<GT>(tabl + o + 32 * r));
 }
 
 // Max of this lane's query-token rows over a chunk of cnt <= 32 tokens,
@@ -144,7 +164,7 @@ __device__ __forceinline__ void lookup(int o, const float* tabl,
 // ballot each); a chunk with more than 3/4 of its tokens left after the
 // first, or with more than DEDUP_MAX distinct offsets, is read in full
 // (broadcast 16-byte reads of four offsets, a lookup each).
-template <int R>
+template <int R, bool GT>
 __device__ __forceinline__ void lookup_chunk(int off, const int4* offs,
                                              int cnt, const float* tabl,
                                              float (&m)[2][R],
@@ -153,7 +173,7 @@ __device__ __forceinline__ void lookup_chunk(int off, const int4* offs,
   unsigned rem = cnt >= 32 ? full : (1u << cnt) - 1u;
   for (int d = 0; dedup && d < DEDUP_MAX; ++d) {
     const int o = __shfl_sync(full, off, __ffs(rem) - 1);
-    lookup<R>(o, tabl, m, 0);
+    lookup<R, GT>(o, tabl, m, 0);
     rem &= ~__ballot_sync(full, off == o);
     if (rem == 0u) return;
     if (d == 0 && 4 * __popc(rem) > 3 * cnt) break;   // mostly distinct
@@ -161,14 +181,16 @@ __device__ __forceinline__ void lookup_chunk(int off, const int4* offs,
 #pragma unroll 2
   for (int j = 0; j < cnt; j += 4) {
     const int4 o = offs[j / 4];
-    lookup<R>(o.x, tabl, m, 0);
-    lookup<R>(o.y, tabl, m, 1);
-    lookup<R>(o.z, tabl, m, 0);
-    lookup<R>(o.w, tabl, m, 1);
+    lookup<R, GT>(o.x, tabl, m, 0);
+    lookup<R, GT>(o.y, tabl, m, 1);
+    lookup<R, GT>(o.z, tabl, m, 0);
+    lookup<R, GT>(o.w, tabl, m, 1);
   }
 }
 
-template <int R>
+// GT: read the table in device memory (K too large for shared memory);
+// shared memory then holds the warps' buffers only
+template <int R, bool GT>
 __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
     const float* __restrict__ table, const int32_t* __restrict__ codes,
     const uint8_t* __restrict__ cmask, const uint8_t* __restrict__ vmask,
@@ -176,12 +198,13 @@ __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
   extern __shared__ int4 smem4[];
   constexpr int QW = 32 * R;               // table row width
   const size_t tf = table_floats(R, K);
-  float* tab = reinterpret_cast<float*>(smem4);            // [K + 2][QW]
-  int4* cbuf = smem4 + tf / 4 + (threadIdx.x >> 5) * WARP_VECS;   // codes
+  const int qi = blockIdx.y;
+  const float* tab = GT ? table + (size_t)qi * tf             // [K + 2][QW]
+                        : reinterpret_cast<const float*>(smem4);
+  int4* cbuf = smem4 + (GT ? 0 : tf / 4) + (threadIdx.x >> 5) * WARP_VECS;
   int4* mbuf = cbuf + CODE_VECS;                                   // mask
   int4* obuf = mbuf + MASK_VECS;                                   // offsets
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qi = blockIdx.y;
   const unsigned full = 0xffffffffu;
 
   // the warp's slots, one a lane: the query's slots are dealt to its
@@ -193,8 +216,10 @@ __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
   if (!__syncthreads_or(ok)) return;       // no valid slot in the block
   unsigned todo = __ballot_sync(full, ok);
 
-  const int4* tq = reinterpret_cast<const int4*>(table + (size_t)qi * tf);
-  for (size_t i = tid; i < tf / 4; i += THREADS) smem4[i] = __ldg(tq + i);
+  if (!GT) {
+    const int4* tq = reinterpret_cast<const int4*>(table + (size_t)qi * tf);
+    for (size_t i = tid; i < tf / 4; i += THREADS) smem4[i] = __ldg(tq + i);
+  }
 
   const float* tabl = tab + lane;
   const size_t n_tok = (size_t)Nq * C * L;
@@ -218,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
                    : make_int4(0, 0, 0, 0);
   };
   if (todo) fetch(slot(todo));
-  __syncthreads();                         // the table is in shared memory
+  __syncthreads();                         // the table is in place
 
   while (todo) {
     const size_t cand = slot(todo);
@@ -266,7 +291,7 @@ __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i)
         if (i < nch)
-          lookup_chunk<R>(off[i], obuf + 8 * i, min(32, n - 32 * i), tabl,
+          lookup_chunk<R, GT>(off[i], obuf + 8 * i, min(32, n - 32 * i), tabl,
                           m, dd);
       __syncwarp();            // buffers free for the next segment
     }
@@ -279,7 +304,7 @@ __global__ void __launch_bounds__(THREADS, 4) plaid_probe_kernel(
   }
 }
 
-template <int R>
+template <int R, bool GT>
 int launch_r(const float* q, const uint8_t* qmask, const float* centroids,
              const int32_t* codes, const uint8_t* cmask,
              const uint8_t* vmask, float* table, float* out, int Nq, int Lq,
@@ -293,20 +318,39 @@ int launch_r(const float* q, const uint8_t* qmask, const float* centroids,
                                            dim, K, t_cs);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  const size_t smem = sizeof(float) * table_floats(R, K) +
+  const size_t smem = (GT ? 0 : sizeof(float) * table_floats(R, K)) +
                       (size_t)NWARPS * WARP_VECS * 16;
-  cudaFuncSetAttribute(plaid_probe_kernel<R>,
+  cudaFuncSetAttribute(plaid_probe_kernel<R, GT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  plaid_probe_kernel<R><<<dim3((C + TILE_C - 1) / TILE_C, Nq), THREADS, smem,
-                          stream>>>(table, codes, cmask, vmask, out, Nq, K, C,
-                                    L);
+  plaid_probe_kernel<R, GT><<<dim3((C + TILE_C - 1) / TILE_C, Nq), THREADS,
+                              smem, stream>>>(table, codes, cmask, vmask, out,
+                                              Nq, K, C, L);
   return (int)cudaGetLastError();
+}
+
+template <bool GT>
+int launch_gt(const float* q, const uint8_t* qmask, const float* centroids,
+              const int32_t* codes, const uint8_t* cmask,
+              const uint8_t* vmask, float* table, float* out, int Nq, int Lq,
+              int dim, int K, int C, int L, float t_cs, cudaStream_t s) {
+  switch (Lq > 32 ? (Lq + 31) / 32 : 1) {
+    case 1: return launch_r<1, GT>(q, qmask, centroids, codes, cmask, vmask,
+                                   table, out, Nq, Lq, dim, K, C, L, t_cs, s);
+    case 2: return launch_r<2, GT>(q, qmask, centroids, codes, cmask, vmask,
+                                   table, out, Nq, Lq, dim, K, C, L, t_cs, s);
+    case 3: return launch_r<3, GT>(q, qmask, centroids, codes, cmask, vmask,
+                                   table, out, Nq, Lq, dim, K, C, L, t_cs, s);
+    default: return launch_r<4, GT>(q, qmask, centroids, codes, cmask, vmask,
+                                    table, out, Nq, Lq, dim, K, C, L, t_cs,
+                                    s);
+  }
 }
 
 }  // namespace
 
-// Shared memory of the larger of the two kernels.
+// Shared memory of the larger of the two kernels, the table in shared
+// memory (what decides the route: the global-table route needs less).
 extern "C" size_t plaid_probe_smem_bytes(int Lq, int K, int dim) {
   const int R = Lq > 32 ? (Lq + 31) / 32 : 1;
   const size_t t = sizeof(float) * TAB_K * (dim + 1);
@@ -324,25 +368,22 @@ extern "C" size_t plaid_probe_table_floats(int Nq, int Lq, int K) {
 // codes [Nq, C, L] i32; cmask [Nq, C, L] u8 (both 16-byte aligned);
 // vmask [Nq, C] u8; table: scratch of plaid_probe_table_floats(Nq, Lq, K)
 // f32 -> out [Nq, C] f32, Lq <= 128. Two kernels: the table, then the
-// probe. Returns cudaGetLastError() (cudaErrorInvalidValue for a longer
-// query).
+// probe, which stages the table in shared memory, or with global_table
+// reads it in the scratch. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a longer query).
 extern "C" int plaid_probe_launch(const float* q, const uint8_t* qmask,
                                   const float* centroids,
                                   const int32_t* codes, const uint8_t* cmask,
                                   const uint8_t* vmask, float* table,
                                   float* out, int Nq, int Lq, int dim, int K,
-                                  int C, int L, float t_cs, void* stream) {
+                                  int C, int L, float t_cs, int global_table,
+                                  void* stream) {
   if (Lq > 32 * MAX_R) return (int)cudaErrorInvalidValue;
   if (Nq == 0 || C == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  switch (Lq > 32 ? (Lq + 31) / 32 : 1) {
-    case 1: return launch_r<1>(q, qmask, centroids, codes, cmask, vmask,
-                               table, out, Nq, Lq, dim, K, C, L, t_cs, s);
-    case 2: return launch_r<2>(q, qmask, centroids, codes, cmask, vmask,
-                               table, out, Nq, Lq, dim, K, C, L, t_cs, s);
-    case 3: return launch_r<3>(q, qmask, centroids, codes, cmask, vmask,
-                               table, out, Nq, Lq, dim, K, C, L, t_cs, s);
-    default: return launch_r<4>(q, qmask, centroids, codes, cmask, vmask,
+  return global_table
+             ? launch_gt<true>(q, qmask, centroids, codes, cmask, vmask,
+                               table, out, Nq, Lq, dim, K, C, L, t_cs, s)
+             : launch_gt<false>(q, qmask, centroids, codes, cmask, vmask,
                                 table, out, Nq, Lq, dim, K, C, L, t_cs, s);
-  }
 }

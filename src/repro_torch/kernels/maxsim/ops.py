@@ -8,7 +8,11 @@ calling ``maxsim_rerank``, reading the candidates in place. CPU tensors
 kernel on the current stream or raise. The all-pairs entry has its own
 launch counter; both rerank entries share ``RERANK_LAUNCHES``. A launch
 takes at most ``MAX_LQ`` query tokens; longer queries are split into
-chunks of that many, one launch each, and the partial scores summed.
+chunks of that many, one launch each, and the partial scores summed. A
+token width that is not a multiple of 4 (the kernel's 16-byte loads) is
+zero-padded to one, queries and documents alike: zeros add nothing to a
+dot product. No configuration pays for this copy (every ``proj_dim`` is
+a multiple of 32).
 """
 from __future__ import annotations
 
@@ -47,6 +51,13 @@ def _load():
     return _lib
 
 
+def _dim4(t):
+    """``t`` with its last axis zero-padded to a multiple of 4 (a fresh,
+    aligned tensor), or ``t`` itself where it is one already."""
+    pad = -t.shape[-1] % 4
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
 def _checked(name, q, q_mask, d, d_mask, doc_shape):
     """dtype/device/contiguity/shape checks of both entries; -> lib."""
     for key, t, dt in (("q", q, torch.float32), ("q_mask", q_mask, torch.bool),
@@ -61,8 +72,8 @@ def _checked(name, q, q_mask, d, d_mask, doc_shape):
                          f"q_mask {tuple(q_mask.shape)} d {tuple(d.shape)} "
                          f"d_mask {tuple(d_mask.shape)}")
     if dim % 4 or q.data_ptr() % 16 or d.data_ptr() % 16:
-        raise ValueError(f"{name}: dim must be a multiple of 4 and q, d "
-                         f"16-byte aligned (dim={dim})")
+        raise ValueError(f"{name}: q, d must be 16-byte aligned with a "
+                         f"width that is a multiple of 4 (dim={dim})")
     lib = _load()
     if lib.maxsim_smem_bytes(dim) > _SMEM_LIMIT:
         raise ValueError(f"{name}: dim={dim} exceeds shared memory")
@@ -77,6 +88,7 @@ def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
         return maxsim_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {q.device}")
+    q, d = _dim4(q), _dim4(d)
     lib = _checked(_NAME, q, q_mask, d, d_mask, (d.shape[0],))
     Nq, _, dim = q.shape
     Nd, Ld, _ = d.shape
@@ -103,6 +115,7 @@ def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):
         return maxsim_rerank_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_rerank: unsupported device {q.device}")
+    q, d = _dim4(q), _dim4(d)
     lib = _checked("maxsim_rerank", q, q_mask, d, d_mask,
                    (q.shape[0], d.shape[1]))
     Nq, _, dim = q.shape
@@ -137,6 +150,7 @@ def maxsim_rerank_indexed(q, q_mask, d, d_mask, cand, cand_mask, *,
     name = "maxsim_rerank_indexed"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
+    q, d = _dim4(q), _dim4(d)
     lib = _checked(name, q, q_mask, d, d_mask, (d.shape[0],))
     check_dtype(name, "cand_mask", cand_mask, torch.bool)
     if cand.dtype.is_floating_point or cand.dtype == torch.bool:

@@ -4,9 +4,14 @@ Same argument layout as ``src/repro/kernels/plaid_probe/ops.py``
 ``plaid_probe_scores``. CPU tensors (or ``impl="ref"``) run the plain
 version; CUDA tensors launch the kernel on the current stream or raise.
 A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
-into chunks of that many, one launch each, and the partial scores summed.
-A launch runs two kernels (the [Lq, K] table once per query into a
-scratch, then the probe), and the counter counts both.
+into chunks, one launch each, and the partial scores summed. A launch
+runs two kernels (the [Lq, K] table once per query into a scratch, then
+the probe), and the counter counts both. ``probe_route`` picks how the
+probe reads the table: staged in shared memory where it fits there
+(K <= 1,668 at Lq <= 32, K <= 415 at Lq 97-128, dim 128), else read in
+the scratch through L2, so every K is served. Narrower query chunks
+would also fit the table in shared memory, but on the card they were
+slower than the device-memory table at every K measured (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -23,8 +28,19 @@ LAUNCHES = LaunchCounter()
 _NAME = "plaid_probe"
 _SMEM_LIMIT = 232448
 MAX_LQ = 128                # query tokens a launch (csrc: 32 * MAX_R)
+ROUTES = ("smem", "global")
 KERNELS_A_LAUNCH = 2        # the table kernel, then the probe kernel
 _lib = None
+
+
+def probe_route(Lq: int, K: int, dim: int, smem_bytes) -> str:
+    """``"smem"`` where the table of a launch of min(Lq, ``MAX_LQ``)
+    query tokens against K centroids of width dim fits shared memory,
+    else ``"global"`` (the table read from device memory).
+    ``smem_bytes(lq, K, dim)`` is the kernel's own query
+    (``plaid_probe_smem_bytes``)."""
+    fits = smem_bytes(min(Lq, MAX_LQ), K, dim) <= _SMEM_LIMIT
+    return "smem" if fits else "global"
 
 
 def _load():
@@ -33,7 +49,7 @@ def _load():
         lib = build.load(_NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.plaid_probe_launch.argtypes = ([P] * 8 + [I] * 6
-                                           + [ctypes.c_float, P])
+                                           + [ctypes.c_float, I, P])
         lib.plaid_probe_launch.restype = I
         lib.plaid_probe_smem_bytes.argtypes = [I, I, I]
         lib.plaid_probe_smem_bytes.restype = ctypes.c_size_t
@@ -44,10 +60,13 @@ def _load():
 
 
 def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
-                       t_cs: float, impl: str = "auto"):
+                       t_cs: float, impl: str = "auto", route=None,
+                       chunk: int = MAX_LQ):
     """q [Nq, Lq, dim] f32; q_mask [Nq, Lq] bool; centroids [K, dim] f32;
     codes [Nq, C, L] int32 centroid ids; code_mask [Nq, C, L] bool;
-    cand_mask [Nq, C] bool -> approx scores [Nq, C] f32 (-inf invalid)."""
+    cand_mask [Nq, C] bool -> approx scores [Nq, C] f32 (-inf invalid).
+    ``route`` overrides ``probe_route``'s choice and ``chunk`` the query
+    tokens a launch (at most ``MAX_LQ``), to time one against another."""
     check_impl(impl)
     if impl == "ref" or q.device.type == "cpu":
         return plaid_probe_ref(q, q_mask, centroids, codes, code_mask,
@@ -76,10 +95,12 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
             raise ValueError(f"{_NAME}: {key} must be 16-byte aligned "
                              f"(read with 16-byte loads)")
     lib = _load()
-    lq = min(Lq, MAX_LQ)
-    if lib.plaid_probe_smem_bytes(lq, K, dim) > _SMEM_LIMIT:
-        raise ValueError(f"{_NAME}: Lq={lq}, K={K}, dim={dim} exceed "
-                         f"shared memory")
+    route = route or probe_route(Lq, K, dim, lib.plaid_probe_smem_bytes)
+    if route not in ROUTES or not 0 < chunk <= MAX_LQ or (
+            route == "smem" and lib.plaid_probe_smem_bytes(
+                min(Lq, chunk), K, dim) > _SMEM_LIMIT):
+        raise ValueError(f"{_NAME}: route {route!r} at {chunk} query tokens "
+                         f"a launch cannot serve Lq={Lq}, K={K}, dim={dim}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def launch(qc, qmc):
@@ -90,9 +111,9 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
             qc.data_ptr(), qmc.data_ptr(), centroids.data_ptr(),
             codes.data_ptr(), code_mask.data_ptr(), cand_mask.data_ptr(),
             table.data_ptr(), out.data_ptr(), Nq, qc.shape[1], dim, K, C, L,
-            float(t_cs), stream)
+            float(t_cs), int(route == "global"), stream)
         build.check(code, _NAME)
         LAUNCHES.count += KERNELS_A_LAUNCH
         return out
 
-    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)
+    return sum_over_query_chunks(launch, q, q_mask, chunk)

@@ -67,8 +67,8 @@ def dequant_score(words, centroid_ids, centroids, values, q, *,
                          f"{tuple(centroid_ids.shape)} centroids "
                          f"{tuple(centroids.shape)} values "
                          f"{tuple(values.shape)} q {tuple(q.shape)}")
-    if q.data_ptr() % 16:
-        raise ValueError(f"{_NAME}: q must be 16-byte aligned")
+    if q.data_ptr() % 16:       # the kernel's 16-byte loads of q
+        q = q.clone()
     lib = _load()
     if lib.dequant_score_smem_bytes(Lq, dim, bits) > _SMEM_LIMIT:
         raise ValueError(f"{_NAME}: Lq={Lq}, dim={dim} exceed shared memory")

@@ -49,6 +49,15 @@ class CascadeIndex:
     def n_docs(self) -> int:
         return self._coarse.n_docs
 
+    # per-doc views of the two stores (device tensors)
+    @property
+    def coarse_docs(self) -> List[torch.Tensor]:
+        return self._coarse.docs_list()
+
+    @property
+    def fine_docs(self) -> List[torch.Tensor]:
+        return self._fine.docs_list()
+
     def add(self, coarse: List[torch.Tensor],
             fine: List[torch.Tensor]) -> np.ndarray:
         """Per-doc pooled vectors at both levels ([n_i, dim] each) ->

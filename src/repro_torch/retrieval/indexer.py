@@ -7,7 +7,7 @@ Counterpart of ``src/repro/retrieval/indexer.py`` ``Indexer.build``
      encoder (the last batch zero-padded to full width),
   2. pool each batch (``PoolingSpec``; Ward through the ``ward_pool``
      kernel) and compact the pooled rows on the device,
-  3. build the index (plaid or flat) from the compacted rows,
+  3. build the index (plaid, hnsw or flat) from the compacted rows,
   4. with ``out_dir``, write the artifact (``core/persist.py``) and a
      ``stats.json`` beside its manifest.
 

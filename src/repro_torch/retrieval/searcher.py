@@ -4,7 +4,7 @@ Counterpart of ``src/repro/retrieval/searcher.py``: ``encode_queries``
 pads each chunk of up to ``encode_batch`` queries to the nearest
 power-of-two width; ``search_encoded`` runs the index's batched
 two-stage engine; ``search`` chains the two; ``from_dir`` serves a
-saved artifact (written by either package): a flat or plaid
+saved artifact (written by either package): a flat, hnsw or plaid
 ``MultiVectorIndex`` or a ``CascadeIndex``. Query time is unchanged by
 token pooling — the searcher is the same for pooled and unpooled
 indexes.

@@ -20,8 +20,10 @@ to 1e-5 in f32 (the online softmax rescales by the running max, the
 plain version by the row max) and to 1e-2 (atol and rtol) in bf16, where
 p and the output are rounded to bf16 at different scales on the two
 sides (about one bf16 step at values near 2), rows that see no column
-exactly 0 on both. The probe and packed-rerank designs are also held on
-the shapes they were built for (a sparse path-like slate, duplicate
+exactly 0 on both. The probe is also held at large centroid counts
+(K = 512 to 16,384: the table in device memory) and on both routes where
+both serve. The probe and packed-rerank
+designs are also held on the shapes they were built for (a sparse path-like slate, duplicate
 codes, an all-zero table, ragged tails, Ld = 129) to 1e-5; the packed
 kernel past the shared memory of 128 query tokens a launch (narrower
 chunks, counted) and past its last limits (a raise); the all-pairs MaxSim
@@ -42,7 +44,8 @@ from repro_torch.kernels.maxsim.ops import (maxsim, maxsim_rerank,
                                             maxsim_rerank_indexed)
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import (KERNELS_A_LAUNCH,
-                                                 plaid_probe_scores)
+                                                 plaid_probe_scores,
+                                                 probe_route)
 from repro_torch.kernels.quant.ops import dequant_score
 from repro_torch.kernels.ward_pool.ops import ward_assign
 from repro_torch.kernels.ward_pool.ref import ward_agree, ward_objective
@@ -194,6 +197,95 @@ def test_probe_kernel_design_cases(dev, case):
     _probe_hold(got, plaid_probe_scores(*args, t_cs=t_cs, impl="ref"))
     if case == "all-zero table":
         assert (got[vm] == 0).all()
+
+
+@pytest.mark.parametrize("K,Lq,route,launches", [
+    (2048, 32, "global", 1),              # past shared memory
+    (512, 128, "global", 1),
+    (512, 300, "global", 3),
+    (16384, 32, "global", 1),             # ColBERT's rule at ~1.4e6 vectors
+    (415, 300, "smem", 3),                # the last K that fits at 128
+])
+def test_probe_kernel_at_large_centroid_counts(dev, K, Lq, route, launches):
+    """Every K is served: the table in shared memory where it fits, else
+    read from device memory; the distinct-code path (crowded codes) and
+    the full read both held."""
+    from repro_torch.kernels.plaid_probe.ops import _load
+    assert probe_route(Lq, K, 128, _load().plaid_probe_smem_bytes) == route
+    g = torch.Generator(device=dev).manual_seed(K + Lq)
+    Nq, dim, C, L = 3, 128, 600, 40
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    codes = torch.randint(0, K, (Nq, C, L), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes[:, : C // 2] = (codes[:, : C // 2, :1] + torch.randint(
+        0, 2, (Nq, C // 2, L), generator=g, device=dev,
+        dtype=torch.int32)) % K                  # crowded: distinct codes
+    cm = torch.rand((Nq, C, L), generator=g, device=dev) < 0.8
+    vm = torch.rand((Nq, C), generator=g, device=dev) < 0.9
+    args = (q, qm, cen, codes, cm, vm)
+    before = launch_counts()["plaid_probe"]
+    got = plaid_probe_scores(*args, t_cs=0.05)
+    assert launch_counts()["plaid_probe"] == (before
+                                              + KERNELS_A_LAUNCH * launches)
+    _probe_hold(got, plaid_probe_scores(*args, t_cs=0.05, impl="ref"))
+
+
+def test_probe_kernel_routes_agree_where_both_serve(dev):
+    """At K = 1,024 and Lq = 128 both routes serve: four launches of 32
+    query tokens with the table in shared memory (``chunk=32``), or one
+    with the table in device memory; each held to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    Nq, Lq, dim, K, C, L = 3, 128, 128, 1024, 500, 33
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    codes = torch.randint(0, K, (Nq, C, L), generator=g, device=dev,
+                          dtype=torch.int32)
+    cm = torch.rand((Nq, C, L), generator=g, device=dev) < 0.8
+    vm = torch.rand((Nq, C), generator=g, device=dev) < 0.9
+    args = (q, qm, cen, codes, cm, vm)
+    want = plaid_probe_scores(*args, t_cs=0.05, impl="ref")
+    for route, chunk in (("smem", 32), ("global", 128), ("global", 64)):
+        _probe_hold(plaid_probe_scores(*args, t_cs=0.05, route=route,
+                                       chunk=chunk), want)
+    with pytest.raises(ValueError):       # a table this wide is refused
+        plaid_probe_scores(*args, t_cs=0.05, route="smem")
+
+
+def test_odd_widths_and_misaligned_queries_are_served(dev):
+    """``maxsim_rerank`` (gathered and indexed) at dim 30: zero-padded to
+    32 and served; ``dequant_score`` with a contiguous q at a 4-byte
+    offset: copied and served. Each equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    q = _unit(g, (2, 5, 30), dev)
+    qm = torch.ones((2, 5), dtype=torch.bool, device=dev)
+    d = _unit(g, (2, 4, 6, 30), dev)
+    dm = torch.rand((2, 4, 6), generator=g, device=dev) < 0.8
+    torch.testing.assert_close(maxsim_rerank(q, qm, d, dm),
+                               maxsim_rerank(q, qm, d, dm, impl="ref"),
+                               rtol=1e-5, atol=1e-4)
+    store, smask = d[0], dm[0]
+    cand = torch.tensor([[0, 3, 2], [1, 1, 0]], device=dev)
+    cmask = torch.tensor([[True, True, False], [True, False, True]],
+                         device=dev)
+    torch.testing.assert_close(
+        maxsim_rerank_indexed(q, qm, store, smask, cand, cmask),
+        maxsim_rerank_indexed(q, qm, store, smask, cand, cmask, impl="ref"),
+        rtol=1e-5, atol=1e-4)
+    bits, dim, M, Lq = 2, 64, 40, 7
+    flat = torch.randn(Lq * dim + 1, generator=g, device=dev)
+    qd = flat[1:].view(Lq, dim)
+    assert qd.is_contiguous() and qd.data_ptr() % 16
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, dim * bits // 32),
+                          generator=g, device=dev, dtype=torch.int32)
+    ids = torch.randint(0, 8, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cen = _unit(g, (8, dim), dev)
+    vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
+    torch.testing.assert_close(
+        dequant_score(words, ids, cen, vals, qd, bits=bits),
+        dequant_score(words, ids, cen, vals, qd, bits=bits, impl="ref"),
+        rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("dim", [128, 64])
@@ -474,7 +566,6 @@ def test_wrappers_reject_bad_inputs(dev):
                            torch.ones((1, 3, 2), dtype=torch.bool, device=dev),
                            torch.ones((1, 3), dtype=torch.bool, device=dev),
                            t_cs=0.3)
-    d = torch.randn((3, 5, 30), device=dev)      # dim not a multiple of 4
     with pytest.raises(TypeError):
         kmeans_assign(x[0], torch.randn((4, 16), device=dev),
                       torch.ones(4, dtype=torch.int32, device=dev))
@@ -484,10 +575,15 @@ def test_wrappers_reject_bad_inputs(dev):
                       torch.randn((4, 32), device=dev),
                       torch.randn((32, 4), device=dev),
                       torch.randn((2, 32), device=dev), bits=2)
-    with pytest.raises(ValueError):
-        maxsim(torch.randn((1, 4, 30), device=dev),
-               torch.ones((1, 4), dtype=torch.bool, device=dev), d,
-               torch.ones((3, 5), dtype=torch.bool, device=dev))
+    # dim not a multiple of 4: zero-padded and served, equal to the plain
+    # version
+    d = torch.randn((3, 5, 30), device=dev)
+    q30 = torch.randn((1, 4, 30), device=dev)
+    qm30 = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    dm30 = torch.ones((3, 5), dtype=torch.bool, device=dev)
+    torch.testing.assert_close(maxsim(q30, qm30, d, dm30),
+                               maxsim(q30, qm30, d, dm30, impl="ref"),
+                               rtol=1e-5, atol=1e-4)
 
 
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),

@@ -267,9 +267,6 @@ def test_shape_tamper_raises(tmp_path):
 
 
 def test_unported_artifact_kinds_raise(tmp_path):
-    _, path, _ = _jax_artifact(tmp_path, n=20, backend="hnsw")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_index(path, device="cpu")
     root = str(tmp_path / "sharded")
     jpersist.write_artifact(root, {"kind": "sharded_index"}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

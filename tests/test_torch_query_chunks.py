@@ -112,3 +112,31 @@ def test_packed_chunks_match_the_reference(bits):
     assert calls == [128, 128, 44]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert got[0, 0] == 0.0
+
+
+def _probe_smem_bytes(lq, K, dim):
+    """``csrc/plaid_probe.cu`` ``plaid_probe_smem_bytes``: the larger of
+    the table kernel's centroid tile (32 rows of dim + 1 floats) and the
+    probe kernel's table ((K + 2) x 32 R floats, rounded to 16 bytes)
+    plus its eight warps' buffers (146 vectors of 16 bytes each)."""
+    R = 1 if lq <= 32 else -(-lq // 32)
+    table = (((K + 2) * 32 * R + 3) & ~3) * 4
+    return max(4 * 32 * (dim + 1), table + 8 * 146 * 16)
+
+
+@pytest.mark.parametrize("Lq,K,want", [
+    (32, 256, "smem"),                 # the main path
+    (32, 1668, "smem"),                # the last K whose table fits
+    (32, 1669, "global"),
+    (32, 8192, "global"),              # PLAID's K at ~3.6e5 vectors
+    (32, 16384, "global"),
+    (64, 833, "smem"),
+    (64, 834, "global"),
+    (128, 415, "smem"),
+    (128, 416, "global"),              # narrower chunks were slower
+    (128, 1024, "global"),
+    (300, 415, "smem"),                # chunks of 128 query tokens
+    (300, 512, "global"),
+])
+def test_probe_route_choice(Lq, K, want):
+    assert probe_ops.probe_route(Lq, K, 128, _probe_smem_bytes) == want

@@ -161,15 +161,8 @@ def test_refused_device_plan_raises_not_implemented():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexSpec(backend="hnsw")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiVectorIndex(dim=8, backend="hnsw", device="cpu")
     with pytest.raises(ValueError):
         IndexSpec(quant_bits=3)
-    idx, _ = _index(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add([torch.zeros(2, 16)])
 
 
 def test_lm_entry_points_without_device_need_cuda(monkeypatch):
