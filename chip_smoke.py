@@ -75,6 +75,29 @@
      ``probe_kernel="device"`` the device path; both prune (the
      ``plaid_probe`` kernel reading its table from device memory) and
      agree with each other and with the plain versions;
+   * facade: ``Retriever.load`` of the main artifact (run right after
+     from_dir): the spec read back from the manifest equals the main
+     path's, and its search the main path's results exactly;
+   * stream: the 16,384 docs streamed through ``Retriever.build`` with a
+     ``ShardSpec`` (shards of at most 524,288 pooled vectors, ~4; the
+     flush pipelined, each shard saved, dropped and reloaded) in encode
+     batches of 128, then 64 queries fanned out over the shards on the
+     probe pool. A shard holds ~5,000 docs, whose candidate sets stay
+     under 1024 at random weights (172-470 a query), so the shards take
+     ndocs = 256 (as the kmeans path), where ``plaid_probe`` prunes. The buffer's peak,
+     the flush's wait and busy seconds and build docs/s are printed;
+     results are held tie-aware to the plain versions, the host probe
+     path and ``Retriever.load`` of the artifact (which must give back
+     the spec); index search is timed with the probe pool at auto and
+     at one thread, on the device and the host candidate paths, with
+     each shard's probe seconds;
+   * stream_parity: the first 4,096 docs streamed into ~4 shards with
+     the flush pipelined and serial: every shard payload's sha256, the
+     doc ids and the shard bases must be equal; at exhaustive settings
+     (nprobe = K = 256, ndocs 4,096: every shard takes the dense
+     fallback through ``maxsim``) the sharded search equals a monolithic
+     ``Indexer.build`` with the first shard's codec, ids tie-aware
+     within 1e-5, the largest score difference printed;
    * lm: causal-LM serving of Qwen3-0.6B at full width (28 layers,
      d_model 1024, 16 heads over 8 kv heads, d_head 64, vocab 151,936;
      random weights from a seed; bf16 compute; ``use_flash_kernel``)
@@ -161,6 +184,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -202,6 +226,11 @@ HNSW_FACTOR = 4
 HNSW_CANDIDATES = 1024
 HNSW_ADD = 16
 HNSW_DELETE = 8
+STREAM_SHARD_MAX = 524_288         # pooled vectors a shard (~4 shards)
+STREAM_NDOCS = 256                 # a ~5,000-doc shard's prune (see stream)
+PARITY_DOCS = 4096
+PARITY_SHARD_MAX = 131_072         # ~4 shards of the first 4,096 docs
+PARITY_ATOL = 1e-5
 K8192 = 8192                       # ColBERT's K rule at ~3.6e5 vectors
 # random weights make a query's tokens nearly alike: at K = 8,192 and
 # nprobe 8 a query probes few centroids in all and keeps a few candidates
@@ -247,6 +276,8 @@ ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
 CASCADE_DIR = os.path.join(ROOT, "build", "chip_smoke_cascade")
 MUTATE_DIR = os.path.join(ROOT, "build", "chip_smoke_mutate")
 HNSW_DIR = os.path.join(ROOT, "build", "chip_smoke_hnsw")
+STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke_stream")
+PARITY_DIR = os.path.join(ROOT, "build", "chip_smoke_parity")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -262,10 +293,14 @@ PATH_KERNELS = {
     "mutate": ("plaid_probe", "maxsim_packed"),
     "hnsw": ("ward_pool", "maxsim_rerank"),
     "plaid_k8192": ("plaid_probe", "maxsim_packed"),
+    "facade": ("plaid_probe", "maxsim_packed"),
+    "stream": ("ward_pool", "plaid_probe", "maxsim_packed"),
+    "stream_parity": ("ward_pool", "maxsim"),
     "lm": ("flash_attention",),
     "lm_long": ("flash_attention",),
 }
 PATH_LAUNCHES = {}
+MAIN_NUMBERS = {}                  # the main path's build and search times
 FLASH_ERRS = []                    # flash_attention vs plain, every check
 NO_LIBRARY = ("null: no single PyTorch call does the masked max over doc "
               "tokens and the masked sum over query tokens")
@@ -447,6 +482,8 @@ def main_path(rt, torch, dev):
     print(f"search: {N_QUERIES} queries first pass {search_s:.3f}s; steady "
           f"{N_QUERIES / (t_enc + t_search):.1f} QPS (encode {t_enc:.4f}s, "
           f"index search {t_search:.4f}s)")
+    MAIN_NUMBERS.update(build_docs_s=stats.n_docs / build_s,
+                        index_search_s=t_search)
     return index, stats, model, docs, searcher, queries, S, I
 
 
@@ -1376,6 +1413,200 @@ def cascade_from_dir_path(rt, torch, model, queries, cascade, S, I):
                              "in-memory cascade's")
     print("cascade_from_dir: results equal the in-memory cascade's exactly")
     shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+
+
+def facade_path(rt, torch, model, queries, S, I):
+    """``Retriever.load`` of the main artifact: the spec read back from
+    its manifest is the main path's, and its search gives the main
+    path's results exactly (the same codes, kernels and card)."""
+    want = rt.RetrieverSpec(pooling=rt.PoolingSpec("ward", 2),
+                            index=rt.IndexSpec(ndocs=NDOCS))
+
+    def drive():
+        r = rt.Retriever.load(model, ARTIFACT_DIR, encode_batch=QUERY_BATCH)
+        return r, _search_all(r, queries)
+
+    r, (S1, I1) = run_path("facade", torch, drive)
+    print(f"facade: spec {r.spec.to_dict()}; stats n_docs {r.stats.n_docs}")
+    if r.spec != want:
+        raise AssertionError(f"facade: spec {r.spec} is not the main "
+                             f"path's {want}")
+    if not (np.array_equal(I, I1) and np.array_equal(S, S1)):
+        raise AssertionError("facade: Retriever.load results differ from "
+                             "the main path's")
+    print("facade: spec and results equal the main path's exactly")
+
+
+def _shard_report(torch, sharded, qv):
+    """Each shard's docs, vectors and per-query candidate counts."""
+    for i, (base, shard) in enumerate(zip(sharded.doc_base, sharded.shards)):
+        print(f"  shard {i}: ids {base}..{base + shard.n_docs - 1}, "
+              f"{shard.n_docs} docs, {shard.n_vectors()} vectors; ", end="")
+        _candidate_report(torch, shard, qv)
+
+
+def stream_path(rt, torch, model, docs, queries, card):
+    """The main corpus streamed through ``Retriever.build`` with a
+    ``ShardSpec`` into shards of at most 524,288 pooled vectors, saved
+    shard by shard (pipelined flush), then 64 queries. A shard holds
+    ~5,000 docs, whose candidate sets stay under 1024 at random weights
+    (as the kmeans path's 4,096 docs), so the main path's ndocs = 1024
+    would never prune: the shards take PLAID's k = 10 setting, ndocs =
+    256, where ``plaid_probe`` prunes. Held tie-aware against the plain
+    versions, the host probe path and ``Retriever.load`` of the artifact
+    (which must give back the spec); then index search timed with the
+    probe pool at auto and at one thread, on both candidate paths."""
+    spec = rt.RetrieverSpec(
+        pooling=rt.PoolingSpec("ward", 2),
+        index=rt.IndexSpec(ndocs=STREAM_NDOCS),
+        shard=rt.ShardSpec(shard_max_vectors=STREAM_SHARD_MAX))
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+
+    def drive():
+        t0 = time.perf_counter()
+        r = rt.Retriever.build(model, docs, spec, out_dir=STREAM_DIR,
+                               encode_batch=ENCODE_BATCH)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        r.searcher.encode_batch = QUERY_BATCH
+        return r, build_s, _search_all(r, queries)
+
+    r, build_s, (S, I) = run_path("stream", torch, drive)
+    st, sharded = r.stats, r.index
+    print(f"stream ({card}): {st.n_docs} docs, {st.n_shards} shards, "
+          f"{st.n_vectors_stored} vectors (raw {st.n_vectors_raw}); build "
+          f"{build_s:.3f}s = {st.n_docs / build_s:.1f} docs/s (main build "
+          f"{MAIN_NUMBERS['build_docs_s']:.1f} docs/s); stages "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in st.stage_seconds.items()))
+    print(f"stream ({card}): peak_buffered_vectors "
+          f"{st.peak_buffered_vectors} (bound {STREAM_SHARD_MAX} + "
+          f"max_batch_vectors {st.max_batch_vectors}); flush_wait_s "
+          f"{st.flush_wait_s:.4f}; flush_busy_s {st.flush_busy_s:.4f}; "
+          f"pipelined {st.pipelined}; index bytes {st.index_bytes}; device "
+          f"bytes {st.device_bytes}")
+    qv = r.searcher.encode_queries(queries)
+    _shard_report(torch, sharded, qv[:QUERY_BATCH])
+    if st.n_shards < 2 or st.n_docs != len(docs):
+        raise AssertionError(f"stream: {st.n_shards} shards, {st.n_docs} "
+                             f"docs")
+    if st.peak_buffered_vectors > STREAM_SHARD_MAX + st.max_batch_vectors:
+        raise AssertionError("stream: the pooled buffer outgrew its bound")
+    _check_results(S, I, st.n_docs)
+    _agree("stream vs plain versions", S, I,
+           *_search_all(r.searcher, queries, impl="ref"))
+    sharded.set_probe_kernel("host")
+    _agree("stream host probe path vs device path", S, I,
+           *_search_all(r, queries))
+    sharded.set_probe_kernel("auto")
+    loaded = rt.Retriever.load(model, STREAM_DIR, encode_batch=QUERY_BATCH)
+    if loaded.spec != spec:
+        raise AssertionError(f"stream: Retriever.load read back "
+                             f"{loaded.spec}, built with {spec}")
+    S1, I1 = _search_all(loaded, queries)
+    _agree("stream Retriever.load vs built", S, I, S1, I1)
+    print(f"stream: Retriever.load gives back the spec; results equal "
+          f"exactly: {bool(np.array_equal(I, I1) and np.array_equal(S, S1))}")
+    loaded.index.close()
+    # the pool on the device candidate path, and on the host path (numpy,
+    # the stage the reference's pool overlaps)
+    for kernel in ("auto", "host"):
+        sharded.set_probe_kernel(kernel)
+        for pt in (0, 1):
+            sharded.set_probe_threads(pt)
+            search_s = _steady_search_s(torch, r.searcher, qv)
+            _, _, probe_s = sharded.search_batch_with_stats(
+                qv[:QUERY_BATCH], k=TOP_K)
+            print(f"stream ({card}): index search {N_QUERIES} queries "
+                  f"steady {search_s:.4f}s, probe_kernel {kernel}, "
+                  f"probe_threads {pt} ({sharded.probe_threads} workers; "
+                  f"main path {MAIN_NUMBERS['index_search_s']:.4f}s); "
+                  "per-shard probe s of one batch "
+                  + ", ".join(f"{p:.4f}" for p in probe_s))
+    sharded.close()
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+
+
+def _payload_digests(root):
+    """{shard dir/payload name: sha256 of its .npy bytes}."""
+    import hashlib
+    from repro_torch.core.persist import read_manifest
+    out = {}
+    for e in read_manifest(root)["shards"]:
+        sub = os.path.join(root, e["dir"])
+        for name, p in read_manifest(sub)["payloads"].items():
+            with open(os.path.join(sub, p["file"]), "rb") as fh:
+                out[f"{e['dir']}/{name}"] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def stream_parity_path(rt, torch, model, docs, queries, card):
+    """The first 4,096 docs streamed into ~4 shards with the flush
+    pipelined and serial: every shard payload's sha256, the doc ids and
+    the shard bases must be equal. At exhaustive settings (nprobe = K =
+    256, ndocs 4,096: every shard takes the dense fallback through
+    ``maxsim``) the sharded search must equal a monolithic
+    ``Indexer.build`` of the same docs with the first shard's codec:
+    ids tie-aware within 1e-5."""
+    spec = rt.IndexSpec(nprobe=256, ndocs=PARITY_DOCS)
+    sub = docs[:PARITY_DOCS]
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+
+    def indexer():
+        return rt.Indexer(model, index_spec=spec,
+                          pooling_spec=rt.PoolingSpec("ward", 2),
+                          encode_batch=ENCODE_BATCH)
+
+    def drive():
+        built = {}
+        for pipe in (True, False):
+            out = os.path.join(PARITY_DIR, f"pipeline_{pipe}")
+            built[pipe] = indexer().build_streaming(
+                sub, shard_max_vectors=PARITY_SHARD_MAX, out_dir=out,
+                pipeline=pipe) + (out,)
+        sharded = built[True][0]
+        mono, _ = indexer().build(sub, codec=sharded.codec())
+        searcher = rt.Searcher(model, sharded, encode_batch=QUERY_BATCH)
+        mono_searcher = rt.Searcher(model, mono, encode_batch=QUERY_BATCH)
+        return (built, mono, _search_all(searcher, queries),
+                _search_all(mono_searcher, queries))
+
+    built, mono, (S, I), (S0, I0) = run_path("stream_parity", torch, drive)
+    (a, sa, da), (b, sb, db) = built[True], built[False]
+    ha, hb = _payload_digests(da), _payload_digests(db)
+    print(f"stream_parity ({card}): {sa.n_shards} shards of "
+          f"{[s.n_docs for s in a.shards]} docs; {len(ha)} payloads; "
+          f"pipelined flush_wait_s {sa.flush_wait_s:.4f} busy "
+          f"{sa.flush_busy_s:.4f}, serial busy {sb.flush_busy_s:.4f}")
+    differ = sorted(k for k in set(ha) | set(hb) if ha.get(k) != hb.get(k))
+    if differ:
+        raise AssertionError(f"stream_parity: pipelined and serial payloads "
+                             f"differ: {differ}")
+    if a.doc_base != b.doc_base or [s.n_docs for s in a.shards] != \
+            [s.n_docs for s in b.shards]:
+        raise AssertionError("stream_parity: shard layouts differ")
+    print("stream_parity: pipelined and serial shard payloads have equal "
+          "sha256, equal doc ids and bases")
+    qv = rt.Searcher(model, a).encode_queries(queries[:QUERY_BATCH])
+    for s in a.shards:
+        cand, _ = s.candidates(qv)
+        if cand.shape[1] < s.n_docs:
+            raise AssertionError("stream_parity: a shard's slate did not "
+                                 "reach n_docs")
+    from repro_torch.core.maxsim import tie_aware_mismatches
+    bad = tie_aware_mismatches(I0, S0, I, S, PARITY_ATOL)
+    diff = float(np.abs(S - S0).max())
+    print(f"stream_parity ({card}): sharded vs monolithic (same codec, "
+          f"exhaustive): ids equal {float((I == I0).mean()):.4f}, tie-aware "
+          f"mismatches {bad}, max score diff {diff:.3g} (zero: "
+          f"{diff == 0.0})")
+    _check_results(S, I, mono.n_docs)
+    if bad or not np.allclose(S, S0, rtol=0, atol=PARITY_ATOL):
+        raise AssertionError("stream_parity: sharded and monolithic "
+                             "results disagree")
+    a.close()
+    b.close()
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
 
 
 def capture_path_args(torch, searcher, queries):
@@ -2485,6 +2716,7 @@ def main(argv=None) -> int:
     index, stats, model, docs, searcher, queries, S, I = main_path(rt, torch,
                                                                     dev)
     persist_path(rt, torch, model, queries, stats, S, I)
+    facade_path(rt, torch, model, queries, S, I)
     host_probe_path(torch, index, searcher, queries, S, I)
     dense_path(rt, torch, model, docs, queries)
     flat_args, flat_index = flat_path(rt, torch, model, docs, queries)
@@ -2500,6 +2732,10 @@ def main(argv=None) -> int:
                                                  queries)
     cascade_from_dir_path(rt, torch, model, queries, cascade, cS, cI)
     del cascade
+    stream_path(rt, torch, model, docs, queries, card)
+    stream_parity_path(rt, torch, model, docs, queries, card)
+    gc.collect()                    # the sharded indexes go before the LM
+    torch.cuda.empty_cache()
     lm_cfg, lm = _lm_model(rt, torch)
     lm_path(rt, torch, lm_cfg, lm)
     lm_long_path(rt, torch, lm_cfg, lm)

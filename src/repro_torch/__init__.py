@@ -2,11 +2,13 @@
 
 The JAX package (``src/repro``), rewritten for one NVIDIA H100, slice
 by slice: ColBERT encode -> token pooling (sequential, k-means or Ward)
--> PLAID 2-bit, HNSW or flat index (add after the build, delete), or
-the pooled two-level cascade, artifacts in the JAX package's format both
+-> PLAID 2-bit, HNSW or flat index (add after the build, delete),
+monolithic or streamed into capped shards (``ShardedIndex``), or the
+pooled two-level cascade, artifacts in the JAX package's format both
 ways, and query encode -> device or host probe/prune, or HNSW token
-probes -> packed, f32 or dense rerank -> top-k; and causal-LM serving
-(prefill and decode) of the dense Qwen trunks.
+probes -> packed, f32 or dense rerank -> top-k, all behind the
+spec-driven ``Retriever`` facade; and causal-LM serving (prefill and
+decode) of the dense Qwen trunks.
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 
@@ -19,6 +21,11 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
                               ).build(doc_tokens, out_dir="idx")
     scores, ids = rt.Searcher.from_dir(model, "idx").search(query_tokens,
                                                             k=10)
+
+    spec = rt.RetrieverSpec(pooling=rt.PoolingSpec("ward", 2),
+                            shard=rt.ShardSpec(shard_max_vectors=524_288))
+    r = rt.Retriever.build(model, doc_tokens, spec, out_dir="sharded")
+    scores, ids = rt.Retriever.load(model, "sharded").search(query_tokens)
 
     cfg = dataclasses.replace(rt.get_config("qwen3-0.6b"),
                               use_flash_kernel=True)
@@ -40,9 +47,21 @@ _EXPORTS = {
     "SMOKE": "repro_torch.configs.colbertv2",
     "IndexSpec": "repro_torch.core.spec",
     "PoolingSpec": "repro_torch.core.spec",
+    "RetrieverSpec": "repro_torch.core.spec",
+    "ShardSpec": "repro_torch.core.spec",
+    "ServeSpec": "repro_torch.core.spec",
+    "register_pooling_strategy": "repro_torch.core.spec",
+    "pooling_methods": "repro_torch.core.spec",
+    "register_backend": "repro_torch.core.spec",
+    "backend_names": "repro_torch.core.spec",
     "MultiVectorIndex": "repro_torch.core.index",
+    "ShardedIndex": "repro_torch.core.sharded",
+    "load_artifact": "repro_torch.core.persist",
+    "IndexFormatError": "repro_torch.core.persist",
+    "Retriever": "repro_torch.api",
     "Indexer": "repro_torch.retrieval.indexer",
     "IndexStats": "repro_torch.retrieval.indexer",
+    "EncodedDocs": "repro_torch.retrieval.indexer",
     "Searcher": "repro_torch.retrieval.searcher",
     "CascadeIndex": "repro_torch.retrieval.cascade",
     "build_cascade": "repro_torch.retrieval.cascade",
@@ -56,6 +75,8 @@ _EXPORTS = {
     "init_transformer": "repro_torch.models.transformer",
     "make_lm_prefill_step": "repro_torch.launch.steps",
     "make_lm_decode_step": "repro_torch.launch.steps",
+    "make_colbert_index_step": "repro_torch.launch.steps",
+    "make_colbert_search_step": "repro_torch.launch.steps",
 }
 
 __all__ = sorted(_EXPORTS)

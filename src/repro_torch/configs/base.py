@@ -87,3 +87,6 @@ class ColbertConfig:
     nprobe: int = 8
     t_cs: float = 0.3
     ndocs: int = 8192
+    # serving-step scoring (launch/steps.py make_colbert_search_step):
+    # "einsum" | "blocked"; both run the maxsim kernel here
+    maxsim_impl: str = "einsum"

@@ -21,9 +21,10 @@ place (hnsw, and plaid with ``packed_rerank=False``), or the all-pairs
 Serving toggles, never persisted: ``packed_rerank`` (plaid rerank from
 packed codes, or from the f32 reconstruction store) and
 ``probe_kernel`` (``"auto"``/``"device"``/``"host"`` candidate path).
-The pooled cascade is its own class (``retrieval/cascade.py``). The
-reference's ``candidate_widths`` and ``warm_shapes`` are not ported
-(ROADMAP queue 1, item 3).
+The pooled cascade is its own class (``retrieval/cascade.py``).
+``warm_shapes`` is a no-op (PyTorch does not trace per shape); the
+reference's ``candidate_widths``, which only its serving engine's warmup
+reads, waits for the serving runtime (ROADMAP queue 1, item 6).
 
 ``impl`` on the search methods selects the kernels' plain versions
 (``"ref"``); only the tests and ``chip_smoke.py`` pass it.
@@ -330,6 +331,10 @@ class MultiVectorIndex:
         scores, cand = self.scored_candidates(qs, q_mask, impl)
         with record_function("search.topk"):
             return topk_with_pads(scores, cand, k)
+
+    def warm_shapes(self, qs, k: int = 10) -> None:
+        """No-op: PyTorch does not trace per shape, so no candidate width
+        needs warming before traffic (the reference compiles each)."""
 
     def search(self, q, k: int = 10, impl: str = "auto"
                ) -> Tuple[np.ndarray, np.ndarray]:

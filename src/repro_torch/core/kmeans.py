@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.segment import segment_sum
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 
 _CHUNK = 1 << 20        # rows per similarity block: bounds [chunk, k]
@@ -60,7 +61,7 @@ def kmeans_train(x: torch.Tensor, k: int, n_iters: int = 12, *,
     c = x[torch.as_tensor(init_idx, device=x.device).long()]
     for _ in range(n_iters):
         a = nearest(x, c)
-        sums = torch.zeros_like(c).index_add_(0, a, x)
+        sums = segment_sum(x, a, k)
         cnts = torch.bincount(a, minlength=k).to(x.dtype)
         new = normalize(sums / torch.clamp(cnts[:, None], min=1e-9))
         c = torch.where((cnts > 0)[:, None], new, c)

@@ -3,7 +3,8 @@
 Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_all_docs`` (flat
 search and the dense corpus-wide fallback) and ``maxsim_rerank_store``
 (candidates read from a ``DocStore``), both through the ``maxsim``
-kernels (``kernels/maxsim``), and ``topk_with_pads``.
+kernels (``kernels/maxsim``), ``topk_with_pads``, and ``topk_shard``
+(a shard's top-k kept on the device for the sharded merge).
 
 ``torch.topk`` does not order ties by lowest index; ``jax.lax.top_k``
 does, and the candidate slates depend on it. ``stable_topk`` sorts
@@ -42,6 +43,23 @@ def topk_with_pads(scores: torch.Tensor, cand: Optional[torch.Tensor],
         top_s = np.pad(top_s, ((0, 0), (0, k - kk)), constant_values=-np.inf)
         ids = np.pad(ids, ((0, 0), (0, k - kk)), constant_values=-1)
     return top_s.astype(np.float32), ids.astype(np.int64)
+
+
+def topk_shard(scores: torch.Tensor, cand: Optional[torch.Tensor], k: int,
+               base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's top-k, left on the device for the sharded merge.
+
+    scores [Nq, C] (-inf marks invalid slots); cand [Nq, C] local doc
+    ids, or None when the scores are shard-wide (ids = column index) ->
+    (top scores [Nq, kk] f32, global ids [Nq, kk] int64), kk = min(k, C),
+    ids shifted by ``base``. A slot whose score is -inf carries a
+    meaningless id; the merge (``topk_with_pads``) maps it to -1. Ties
+    go to the lowest position (``stable_topk``), so a shard's top-k
+    then one merged top-k equals one top-k over all the slates."""
+    kk = min(k, scores.shape[1])
+    top_s, top_i = stable_topk(scores, kk)
+    ids = top_i if cand is None else torch.gather(cand.long(), 1, top_i)
+    return top_s.float(), ids.long() + int(base)
 
 
 def tie_aware_mismatches(I0: np.ndarray, S0: np.ndarray, I1: np.ndarray,

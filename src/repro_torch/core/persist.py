@@ -1,16 +1,21 @@
 """Versioned on-disk index artifacts, the format both packages share.
 
 Counterpart of ``src/repro/core/persist.py`` (``FORMAT_VERSION = 1``)
-for monolithic flat, hnsw and plaid indexes and for the pooled cascade:
-an artifact is a directory of
+for monolithic flat, hnsw and plaid indexes, sharded indexes, the pooled
+cascade and the bare residual codec: an artifact is a directory of
 
     manifest.json     format_version, generation, kind, then for an
                       index: backend, dim, n_docs, params, (codec_bits);
                       (hnsw: entry, max_level);
                       for a cascade: dim, coarse_factor, fine_factor,
-                      candidates, doc_maxlen; and the payload table
+                      candidates, doc_maxlen;
+                      for a sharded index: backend, dim, n_docs,
+                      shard_max_vectors, params, (probe_threads) and the
+                      shard table [{dir, base, n_docs, bytes}];
+                      for a codec: bits; and the payload table
                       {name: file, dtype, shape, bytes}
     <payload>.<token>.npy   one numpy array per tensor
+    shard_XXXXX/      (sharded) one index artifact a shard
 
 The manifest is the single source of truth: a missing key, a missing or
 truncated payload, a dtype/shape/bytes mismatch or another
@@ -22,8 +27,8 @@ route the walk). Payload dtypes are the reference's: packed words
 assignments ``int32``, offsets / ids ``int64``, ``live`` bool, vectors
 and codec tables ``float32``. Loading reads the payloads (memory-mapped
 with ``mmap=True``) and copies them onto the index's device.
-
-Sharded artifacts are not ported (ROADMAP queue 1, item 2).
+``load_artifact`` dispatches on ``kind``: an artifact written by either
+package loads in the other.
 """
 from __future__ import annotations
 
@@ -163,10 +168,15 @@ def load_payloads(path: str, manifest: Dict[str, Any],
 
 
 def artifact_bytes(path_or_manifest) -> int:
-    """Serialized payload size, the sum of the manifest's bytes."""
+    """Serialized payload size, the sum of the manifest's bytes; a
+    sharded root adds each shard entry's recorded ``bytes``."""
     manifest = (path_or_manifest if isinstance(path_or_manifest, dict)
                 else read_manifest(path_or_manifest))
-    return sum(int(e["bytes"]) for e in manifest["payloads"].values())
+    total = sum(int(e["bytes"]) for e in manifest["payloads"].values())
+    if manifest.get("kind") == "sharded_index":
+        total += sum(int(_require(e, "bytes", "shard entry"))
+                     for e in _require(manifest, "shards", "sharded root"))
+    return total
 
 
 def _tensor(arr: np.ndarray, device: torch.device,
@@ -220,6 +230,27 @@ def codec_from_payloads(payloads: Dict[str, np.ndarray], bits: int,
         cutoffs=_tensor(payloads["codec_cutoffs"], device),
         values=_tensor(payloads["codec_values"], device),
         bits=int(bits))
+
+
+def save_codec(codec, path: str) -> Dict[str, Any]:
+    """A stand-alone codec artifact (kind ``residual_codec``)."""
+    return write_artifact(path, {"kind": "residual_codec",
+                                 "bits": int(codec.bits)},
+                          codec_payloads(codec))
+
+
+def load_codec(path: str, mmap: bool = True, device: DeviceLike = None):
+    """A ``residual_codec`` artifact (written by either package) onto
+    ``device``."""
+    manifest = read_manifest(path)
+    if manifest["kind"] != "residual_codec":
+        raise IndexFormatError(f"expected kind 'residual_codec', found "
+                               f"{manifest['kind']!r}")
+    payloads = load_payloads(path, manifest, mmap=mmap)
+    for name in ("codec_centroids", "codec_cutoffs", "codec_values"):
+        _require(payloads, name, "codec artifact")
+    return codec_from_payloads(payloads, _require(manifest, "bits", path),
+                               resolve_device(device))
 
 
 def _hnsw_payloads(index) -> Dict[str, np.ndarray]:
@@ -309,8 +340,13 @@ def index_payloads(index) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
 
 
 def serialized_nbytes(index) -> int:
-    """Bytes ``save_index`` would put on disk, without writing."""
-    _, payloads = index_payloads(index)
+    """Bytes ``save_index`` (or, for a cascade, ``save_cascade``) would
+    put on disk, without writing."""
+    from repro_torch.retrieval.cascade import CascadeIndex
+    if isinstance(index, CascadeIndex):
+        _, payloads = cascade_payloads(index)
+    else:
+        _, payloads = index_payloads(index)
     return sum(int(a.nbytes) for a in payloads.values())
 
 
@@ -429,16 +465,108 @@ def load_cascade(path: str, mmap: bool = True, device: DeviceLike = None):
     return cascade
 
 
+# ---------------------------------------------------------------------------
+# ShardedIndex <-> artifact (root manifest + one artifact dir a shard)
+# ---------------------------------------------------------------------------
+def _shard_dirname(i: int) -> str:
+    return f"shard_{i:05d}"
+
+
+def finalize_sharded(sharded, path: str,
+                     extra_meta: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
+    """Publish the root manifest over shard artifacts already written
+    (the streaming build saves each shard as it is flushed): the shard
+    table (dir, id base, doc count, payload bytes), committed in one
+    rename, so a crash mid-build never leaves a root naming a missing
+    shard."""
+    entries = []
+    for i, shard in enumerate(sharded.shards):
+        name = _shard_dirname(i)
+        m = read_manifest(os.path.join(path, name))
+        if m["kind"] != "multi_vector_index":
+            raise IndexFormatError(
+                f"shard dir {name!r} holds kind {m['kind']!r}, expected "
+                f"'multi_vector_index'")
+        entries.append({"dir": name, "base": int(sharded.doc_base[i]),
+                        "n_docs": int(shard.n_docs),
+                        "bytes": artifact_bytes(m)})
+    meta: Dict[str, Any] = {
+        "kind": "sharded_index",
+        "backend": sharded.backend,
+        "dim": int(sharded.dim),
+        "n_docs": int(sharded.n_docs),
+        "shard_max_vectors": int(sharded.shard_max_vectors),
+        "params": dict(sharded.index_kw),
+        "shards": entries,
+    }
+    # a pinned probe width is recorded; auto (0) is not
+    if int(getattr(sharded, "probe_threads_cfg", 0)) > 0:
+        meta["probe_threads"] = int(sharded.probe_threads_cfg)
+    if extra_meta:
+        meta.update(extra_meta)
+    return write_artifact(path, meta, {})
+
+
+def save_sharded(sharded, path: str,
+                 extra_meta: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, Any]:
+    """Write every shard's artifact dir, then the root manifest."""
+    for i, shard in enumerate(sharded.shards):
+        save_index(shard, os.path.join(path, _shard_dirname(i)))
+    return finalize_sharded(sharded, path, extra_meta=extra_meta)
+
+
+def load_sharded(path: str, mmap: bool = True, device: DeviceLike = None):
+    """Reconstruct a ShardedIndex (written by either package), every
+    shard onto ``device``."""
+    from repro_torch.core.sharded import ShardedIndex
+
+    device = resolve_device(device)
+    manifest = read_manifest(path)
+    if manifest["kind"] != "sharded_index":
+        raise IndexFormatError(f"expected kind 'sharded_index', found "
+                               f"{manifest['kind']!r}")
+    smv = int(manifest.get("shard_max_vectors", 0))
+    pt = int(manifest.get("probe_threads", 0))
+    if not manifest.get("shards"):      # an empty index round-trips
+        params = dict(manifest.get("params", {}))
+        unknown = set(params) - set(_PARAM_KEYS)
+        if unknown:
+            raise IndexFormatError(f"unknown index params {sorted(unknown)}")
+        return ShardedIndex(dim=int(_require(manifest, "dim", path)),
+                            backend=_require(manifest, "backend", path),
+                            shard_max_vectors=smv, probe_threads=pt,
+                            device=device, **params)
+    shards, bases, base = [], [], 0
+    for e in _require(manifest, "shards", path):
+        for key in ("dir", "base", "n_docs"):
+            _require(e, key, "shard entry")
+        shard = load_index(os.path.join(path, e["dir"]), mmap=mmap,
+                           device=device)
+        if int(e["base"]) != base or shard.n_docs != int(e["n_docs"]):
+            raise IndexFormatError(
+                f"shard {e['dir']!r}: doc range [{e['base']}, "
+                f"{e['base']}+{e['n_docs']}) disagrees with loaded shard "
+                f"({base} docs seen, {shard.n_docs} in shard)")
+        shards.append(shard)
+        bases.append(base)
+        base += shard.n_docs
+    return ShardedIndex.from_parts(shards, bases, shard_max_vectors=smv,
+                                   probe_threads=pt, device=device)
+
+
 def load_artifact(path: str, mmap: bool = True, device: DeviceLike = None):
-    """Load the index artifact at ``path``, dispatching on the manifest
-    ``kind``: the loader behind ``Searcher.from_dir``."""
+    """Load the artifact at ``path`` onto ``device``, dispatching on the
+    manifest ``kind`` (monolithic, sharded, cascade or bare codec): the
+    loader behind ``Searcher.from_dir`` and ``Retriever.load``."""
     kind = read_manifest(path)["kind"]
     if kind == "multi_vector_index":
         return load_index(path, mmap=mmap, device=device)
+    if kind == "sharded_index":
+        return load_sharded(path, mmap=mmap, device=device)
     if kind == "cascade_index":
         return load_cascade(path, mmap=mmap, device=device)
-    if kind == "sharded_index":
-        raise NotImplementedError(
-            "sharded_index artifacts are not ported yet (ROADMAP queue 1)")
-    raise IndexFormatError(f"artifact kind {kind!r} at {path!r} is not a "
-                           f"searchable index")
+    if kind == "residual_codec":
+        return load_codec(path, mmap=mmap, device=device)
+    raise IndexFormatError(f"unknown artifact kind {kind!r} at {path!r}")

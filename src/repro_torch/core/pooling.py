@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.kmeans import kmeans_cluster_batch
+from repro_torch.core.segment import batched_segment_sum
 from repro_torch.core.spec import POOL_METHODS
 from repro_torch.kernels.ward_pool.ops import ward_assign
 
@@ -46,13 +47,8 @@ def _mean_pool_by_assign(x: torch.Tensor, mask: torch.Tensor,
     assign [B, N] in [0, num_segments) -> (pooled [B, S, d],
     pooled_mask [B, S])."""
     B, N, d = x.shape
-    w = mask.float()
-    seg = (torch.arange(B, device=x.device)[:, None] * num_segments
-           + assign.long()).reshape(-1)
-    sums = torch.zeros(B * num_segments, d, device=x.device).index_add_(
-        0, seg, (x.float() * w[..., None]).reshape(-1, d))
-    cnts = torch.zeros(B * num_segments, device=x.device).index_add_(
-        0, seg, w.reshape(-1))
+    sums, cnts = batched_segment_sum(x, assign, mask, num_segments)
+    sums, cnts = sums.reshape(B * num_segments, d), cnts.reshape(-1)
     mean = sums / torch.clamp(cnts[:, None], min=1e-9)
     if renormalize:
         mean = _normalize(mean)

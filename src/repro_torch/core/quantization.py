@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.kmeans import nearest, random_rows
+from repro_torch.core.segment import segment_sum
 from repro_torch.kernels.quant.ref import decode_rows_ref, unpack_ref
 
 _QUANTILE_MAX = 1 << 24     # torch.quantile refuses larger inputs
@@ -63,8 +64,7 @@ def train_codec(vectors: torch.Tensor, centroids: torch.Tensor,
     codes = _bucketize(res, cutoffs)
     dim = res.shape[1]
     seg = (codes + torch.arange(dim, device=res.device)[None, :] * nb)
-    sums = torch.zeros(dim * nb, device=res.device).index_add_(
-        0, seg.reshape(-1), res.reshape(-1))
+    sums = segment_sum(res.reshape(-1), seg.reshape(-1), dim * nb)
     cnts = torch.bincount(seg.reshape(-1), minlength=dim * nb).float()
     values = (sums / torch.clamp(cnts, min=1.0)).reshape(dim, nb)
     return ResidualCodec(centroids=centroids, cutoffs=cutoffs,

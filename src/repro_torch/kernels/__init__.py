@@ -10,6 +10,7 @@ tests and ``chip_smoke.py`` pass it.
 from __future__ import annotations
 
 import importlib
+import threading
 from typing import Dict
 
 KERNELS = ("ward_pool", "plaid_probe", "maxsim_packed", "maxsim",
@@ -35,14 +36,25 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
-        _counter(name).count = 0
+        _counter(name).reset()
 
 
 class LaunchCounter:
-    """A plain count of kernel launches, bumped by one wrapper."""
+    """A count of kernel launches, bumped by one wrapper. Wrappers run
+    from several threads at once (a sharded index probes its shards on a
+    thread pool), so ``bump`` and ``reset`` take a lock."""
 
     def __init__(self) -> None:
         self.count = 0
+        self._lock = threading.Lock()
+
+    def bump(self, n: int = 1) -> None:
+        with self._lock:
+            self.count += n
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
 
 
 def check_impl(impl: str) -> None:

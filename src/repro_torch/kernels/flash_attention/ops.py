@@ -93,7 +93,7 @@ def _launch(q, k, v, o, causal):
         Skv, dh, strides, int(causal), int(q.dtype == torch.bfloat16),
         stream)
     build.check(code, _NAME)
-    LAUNCHES.count += 1
+    LAUNCHES.bump()
 
 
 def _on_card(q, impl):

@@ -101,5 +101,5 @@ def _launch(x, centroids, k_mask):
                                     k_mask.data_ptr(), assign.data_ptr(),
                                     best.data_ptr(), B, N, K, dim, stream)
     build.check(code, _NAME)
-    LAUNCHES.count += 1
+    LAUNCHES.bump()
     return assign, best

@@ -100,7 +100,7 @@ def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
                                  d_mask.data_ptr(), out.data_ptr(), Nq,
                                  qc.shape[1], dim, Nd, Ld, stream)
         build.check(code, _NAME)
-        LAUNCHES.count += 1
+        LAUNCHES.bump()
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)
@@ -129,7 +129,7 @@ def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):
                                         out.data_ptr(), Nq, qc.shape[1], dim,
                                         S, Ld, stream)
         build.check(code, "maxsim_rerank")
-        RERANK_LAUNCHES.count += 1
+        RERANK_LAUNCHES.bump()
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)
@@ -174,7 +174,7 @@ def maxsim_rerank_indexed(q, q_mask, d, d_mask, cand, cand_mask, *,
             cand.data_ptr(), cand_mask.data_ptr(), out.data_ptr(), Nq,
             qc.shape[1], dim, Nd, S, Ld, stream)
         build.check(code, name)
-        RERANK_LAUNCHES.count += 1
+        RERANK_LAUNCHES.bump()
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)

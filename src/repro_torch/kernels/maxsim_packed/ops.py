@@ -101,7 +101,7 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
             d_mask.data_ptr(), centroids.data_ptr(), values.data_ptr(),
             out.data_ptr(), Nq, qc.shape[1], dim, S, Ld, W, bits, stream)
         build.check(code, _NAME)
-        LAUNCHES.count += 1
+        LAUNCHES.bump()
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, fits[0])

@@ -113,7 +113,7 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
             table.data_ptr(), out.data_ptr(), Nq, qc.shape[1], dim, K, C, L,
             float(t_cs), int(route == "global"), stream)
         build.check(code, _NAME)
-        LAUNCHES.count += KERNELS_A_LAUNCH
+        LAUNCHES.bump(KERNELS_A_LAUNCH)
         return out
 
     return sum_over_query_chunks(launch, q, q_mask, chunk)

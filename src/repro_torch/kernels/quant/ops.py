@@ -79,5 +79,5 @@ def dequant_score(words, centroid_ids, centroids, values, q, *,
         values.data_ptr(), q.data_ptr(), out.data_ptr(), M, Lq, dim, W,
         bits, stream)
     build.check(code, _NAME)
-    LAUNCHES.count += 1
+    LAUNCHES.bump()
     return out

@@ -70,5 +70,5 @@ def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
         scratch.data_ptr() if per_doc else None, out.data_ptr(), B, N, d,
         stream)
     build.check(code, _NAME)
-    LAUNCHES.count += 1
+    LAUNCHES.bump()
     return out

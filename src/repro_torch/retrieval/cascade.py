@@ -102,6 +102,10 @@ class CascadeIndex:
                                  impl=impl)                      # [Nq, C]
         return topk_with_pads(s2, cand, k)
 
+    def warm_shapes(self, qs, k: int = 10) -> None:
+        """No-op: PyTorch does not trace per shape (the reference runs one
+        search to compile the cascade's shapes)."""
+
     def search(self, q, k: int = 10, impl: str = "auto"
                ) -> Tuple[np.ndarray, np.ndarray]:
         """q [Lq, dim] -> (scores [<=k], ids [<=k])."""
@@ -125,9 +129,11 @@ class CascadeIndex:
 def build_cascade(model, doc_tokens: np.ndarray, coarse_factor: int = 6,
                   fine_factor: int = 2, candidates: int = 32,
                   pool_method: str = "ward", encode_batch: int = 64,
-                  device: DeviceLike = None) -> CascadeIndex:
+                  device: DeviceLike = None,
+                  doc_maxlen: Optional[int] = None) -> CascadeIndex:
     """Encode, pool at both factors, build the cascade. As the
-    reference, each level runs its own ``Indexer.encode_and_pool``."""
+    reference, each level runs its own ``Indexer.encode_and_pool``.
+    ``doc_maxlen`` defaults to the model config's."""
     from repro_torch.core.spec import IndexSpec, PoolingSpec
     from repro_torch.retrieval.indexer import Indexer
 
@@ -141,6 +147,7 @@ def build_cascade(model, doc_tokens: np.ndarray, coarse_factor: int = 6,
     fine = level(fine_factor)
     idx = CascadeIndex(dim=model.cfg.proj_dim, coarse_factor=coarse_factor,
                        fine_factor=fine_factor, candidates=candidates,
-                       doc_maxlen=model.cfg.doc_maxlen, device=device)
+                       doc_maxlen=doc_maxlen or model.cfg.doc_maxlen,
+                       device=device)
     idx.add(coarse, fine)
     return idx

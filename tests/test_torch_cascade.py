@@ -141,7 +141,9 @@ def test_artifact_kind_dispatch(tmp_path):
     manifest = persist.read_manifest(str(tmp_path / "c"))
     persist.write_artifact(str(tmp_path / "s"),
                            dict(manifest, kind="sharded_index"), {})
-    with pytest.raises(NotImplementedError, match="sharded_index"):
+    # dispatched to the sharded loader, which refuses a root without the
+    # sharded keys
+    with pytest.raises(persist.IndexFormatError, match="backend"):
         persist.load_artifact(str(tmp_path / "s"), device="cpu")
 
 

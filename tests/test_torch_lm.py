@@ -76,9 +76,10 @@ def _tokens(cfg, shape, seed):
 JAX_ONLY_FIELDS = {"scan_layers", "remat", "logits_chunk", "attn_shard",
                    "optimizer", "fsdp_params", "train_microbatches",
                    "grad_accum_dtype", "unroll_scans"}
-# The reference ColbertConfig's MaxSim dispatch knobs; the port picks its
-# MaxSim kernel by device and reads neither.
-COLBERT_JAX_ONLY_FIELDS = {"maxsim_block", "maxsim_impl"}
+# The reference ColbertConfig's doc block of its blocked MaxSim; the port's
+# maxsim kernel blocks docs itself (``maxsim_impl`` is read by
+# ``make_colbert_search_step``).
+COLBERT_JAX_ONLY_FIELDS = {"maxsim_block"}
 
 
 def _assert_fields_equal(td, jd, jax_only):

@@ -266,13 +266,6 @@ def test_shape_tamper_raises(tmp_path):
         load_index(str(path), device="cpu")
 
 
-def test_unported_artifact_kinds_raise(tmp_path):
-    root = str(tmp_path / "sharded")
-    jpersist.write_artifact(root, {"kind": "sharded_index"}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        persist.load_artifact(root, device="cpu")
-
-
 # ------------------------------------------------- the slice, end to end
 @pytest.fixture(scope="module")
 def slice_dirs(tmp_path_factory):

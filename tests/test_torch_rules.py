@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference():
               "kernels.flash_attention.ops", "kernels.flash_attention.ref",
               "models.transformer", "models.attention", "launch.steps",
               "configs.qwen3_0_6b", "configs.qwen1_5_0_5b",
-              "configs.qwen2_5_14b"):
+              "configs.qwen2_5_14b", "core.sharded", "core.spec", "api"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,8 +81,11 @@ def test_every_kernel_has_a_counter_and_source():
     assert len(SOURCES) == 7
 
 
-def test_entry_points_without_device_need_cuda(monkeypatch):
+def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
     import repro_torch as rt
+    from repro_torch.core.persist import load_sharded
+    empty = str(tmp_path / "empty")
+    rt.ShardedIndex(dim=8, device="cpu").save(empty)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.resolve_device()
@@ -97,6 +100,20 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         MultiVectorIndex(dim=8, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.CascadeIndex(dim=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.ShardedIndex(dim=8)
+    toks = np.zeros((2, 8), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.Indexer(model).build_streaming(toks, shard_max_vectors=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_sharded(empty)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.load_artifact(empty)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.Retriever.build(model, toks)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.Retriever.load(model, empty)
+    assert load_sharded(empty, device="cpu").n_docs == 0
     assert rt.resolve_device("cpu").type == "cpu"
 
 
@@ -158,6 +175,17 @@ def test_refused_device_plan_raises_not_implemented():
     assert tie_aware_mismatches(np.asarray(jI), np.asarray(jS), I, S,
                                 1e-4) == 0
     np.testing.assert_allclose(S, np.asarray(jS), rtol=1e-5, atol=1e-4)
+
+
+def test_retriever_evaluate_and_serve_raise_naming_roadmap():
+    import repro_torch as rt
+    model = rt.init_colbert(SMOKE, device="cpu")
+    r = rt.Retriever(model, rt.MultiVectorIndex(dim=SMOKE.proj_dim,
+                                                device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.evaluate(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.serve()
 
 
 def test_unported_options_raise():
