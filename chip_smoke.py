@@ -231,6 +231,20 @@ STREAM_NDOCS = 256                 # a ~5,000-doc shard's prune (see stream)
 PARITY_DOCS = 4096
 PARITY_SHARD_MAX = 131_072         # ~4 shards of the first 4,096 docs
 PARITY_ATOL = 1e-5
+EVAL_DATASET = "trec-covid"        # DATASET_SPECS: 1,200 docs, 64 queries
+EVAL_METHODS = ("ward", "kmeans", "sequential")
+EVAL_FACTORS = (1, 2, 3, 4, 6)
+EVAL_METRICS = ("ndcg@10", "recall@5", "success@5", "mrr@10")
+SERVE_MAX_BATCH = 32
+SERVE_THREADS = 4
+SERVE_REQUESTS = 512               # 1-8 queries each
+SERVE_AFTER_SWAP = 64              # requests served after the swap, at least
+SERVE_CLOSED_QUERIES = 256
+SERVE_RATE = 400.0                 # open-loop offered QPS
+SERVE_OPEN_QUERIES = 512
+PACKED_SHAPES = ((256, 129), (768, 129), (128, 12000), (128, 20000))
+PACKED_SHAPE_NQ, PACKED_SHAPE_S = 8, 16
+PACKED_PATH_MS = 1.2479            # PERF.md: the parent design at the path
 K8192 = 8192                       # ColBERT's K rule at ~3.6e5 vectors
 # random weights make a query's tokens nearly alike: at K = 8,192 and
 # nprobe 8 a query probes few centroids in all and keeps a few candidates
@@ -278,6 +292,7 @@ MUTATE_DIR = os.path.join(ROOT, "build", "chip_smoke_mutate")
 HNSW_DIR = os.path.join(ROOT, "build", "chip_smoke_hnsw")
 STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke_stream")
 PARITY_DIR = os.path.join(ROOT, "build", "chip_smoke_parity")
+SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serve")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -296,6 +311,9 @@ PATH_KERNELS = {
     "facade": ("plaid_probe", "maxsim_packed"),
     "stream": ("ward_pool", "plaid_probe", "maxsim_packed"),
     "stream_parity": ("ward_pool", "maxsim"),
+    "eval_sweep": ("ward_pool", "kmeans_assign", "maxsim"),
+    "eval_main": ("plaid_probe", "maxsim_packed"),
+    "serve": ("plaid_probe", "maxsim_packed"),
     "lm": ("flash_attention",),
     "lm_long": ("flash_attention",),
 }
@@ -484,7 +502,8 @@ def main_path(rt, torch, dev):
           f"index search {t_search:.4f}s)")
     MAIN_NUMBERS.update(build_docs_s=stats.n_docs / build_s,
                         index_search_s=t_search)
-    return index, stats, model, docs, searcher, queries, S, I
+    qrels = [dict(q) for q in corpus.qrels]
+    return index, stats, model, docs, searcher, queries, qrels, S, I
 
 
 def _candidate_report(torch, index, qv):
@@ -863,6 +882,7 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
                      run(long_args, p.codec.bits),
                      run(long_args, p.codec.bits, "ref"), errs)
     print(f"maxsim_packed at Lq={LONG_LQ}: max abs err {long_err:.3g}")
+    shapes = _packed_shapes(torch, dev, run, errs)
     syn, bits = cases[f"b={p.codec.bits}"]
     plain_ms = _time_ms(lambda: run(syn, bits, "ref"), reps=2)
     path_plain_ms = _time_ms(lambda: run(path_args, bits, "ref"), reps=2)
@@ -874,7 +894,9 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
           f"valid token, {int(pdm.sum())} valid tokens; bound "
           f"{path_bound:.4f} ms ({path_by}), plain {path_plain_ms:.4f} ms")
     print("maxsim_packed times (ms): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in times.items()) + f"; {_hmma_count('maxsim_packed')}")
+        f"{k} {v:.4f}" for k, v in times.items()) + f"; path "
+        f"{times['path'] / PACKED_PATH_MS:.4f}x the parent design's "
+        f"{PACKED_PATH_MS} ms (PERF.md); {_hmma_count('maxsim_packed')}")
     return dict(name="maxsim_packed", route="cuda",
                 source="src/repro_torch/csrc/maxsim_packed.cu",
                 replaces="src/repro/kernels/maxsim_packed/kernel.py:66",
@@ -884,12 +906,15 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
                 path_plain_ms=path_plain_ms, path_bound_ms=path_bound,
                 parent_ms=times.get(f"b={bits} parent"),
                 parent_path_ms=times.get("path parent"), times_ms=times,
+                shapes=shapes,
                 check=f"allclose rtol 1e-5 atol {SCORE_ATOL} at b=2 and b=4 "
                       f"(Nq={Nq}, S={S}, Ld={ids.shape[1]}), at the main "
                       f"path's own inputs"
                       f"{' (equal to the parent design)' if parent else ''}"
                       f" and at Lq={LONG_LQ}, S=256 (three "
-                      f"launches); timed at b={bits}; bound: valid tokens' "
+                      f"launches), and at dim 256 / 768 (Ld 129) and Ld "
+                      f"12,000 / 20,000 (dim 128), b=2 and 4; timed at "
+                      f"b={bits}; bound: valid tokens' "
                       f"bytes, products at 3 passes of the TF32 rate "
                       f"{TF32_OPS_PER_S:.4g}/s, reconstruction at f32")
 
@@ -1609,6 +1634,346 @@ def stream_parity_path(rt, torch, model, docs, queries, card):
     shutil.rmtree(PARITY_DIR, ignore_errors=True)
 
 
+def _ref_metric(name, ranked, qrels):
+    """``name`` ("ndcg@10", ...) by the numpy reference metrics
+    (``retrieval/metrics.py``) on ranked id lists."""
+    from repro_torch.retrieval import metrics as R
+    base, k = name.split("@")
+    fn = {"ndcg": R.ndcg_at_k, "recall": R.recall_at_k,
+          "success": R.success_at_k, "mrr": R.mrr_at_k}[base]
+    return fn(ranked, qrels, int(k))
+
+
+def eval_path(rt, torch, dev, model, docs, queries, qrels, searcher):
+    """The paper's comparison through ``QualitySweep`` at full width over
+    ``synthetic_dataset("trec-covid")`` (1,200 docs, 64 queries): Ward,
+    k-means and sequential pooling at factors 1, 2, 3, 4 and 6, flat and
+    plaid at 2 bits, every cell through the ``Retriever`` facade; then
+    ``Retriever.evaluate`` of the main artifact (16,384 docs, 64 queries
+    with qrels, the prune engaged), held to the numpy reference metrics
+    on the same rankings and to a re-run on the plain versions. The
+    paper's envelope (``run_gate``) is printed as a reading: it is the
+    claim for trained encoders, and these weights are random."""
+    from repro_torch.eval import (EvalDataset, QualitySweep,
+                                  compute_metrics, run_gate,
+                                  synthetic_dataset)
+    from repro_torch.eval.metrics import max_k
+    cfg = model.cfg
+    ds = synthetic_dataset(EVAL_DATASET, cfg.trunk.vocab_size,
+                           cfg.doc_maxlen - 2, cfg.query_maxlen - 2)
+
+    def sweep():
+        t0 = time.perf_counter()
+        rep = QualitySweep(model, ds, methods=EVAL_METHODS,
+                           factors=EVAL_FACTORS, backends=("flat", "plaid"),
+                           quant_bits=(2,), metrics=EVAL_METRICS,
+                           k=TOP_K, encode_batch=ENCODE_BATCH,
+                           device=dev).run()
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    rep, sweep_s = run_path("eval_sweep", torch, sweep)
+    n_valid = _n_valid(cfg, ds.doc_tokens)
+    for c in rep.cells:
+        if c.factor == 1:
+            if not (c.shared_baseline
+                    and all(v == 100.0 for v in c.relative.values())):
+                raise AssertionError(f"eval: factor-1 cell {c.backend} "
+                                     f"{c.method} is not exactly 100.0")
+            continue
+        f = c.factor
+        if c.method == "sequential":
+            want = int((-(-n_valid // f)).sum())
+            ok = c.n_vectors == want
+        else:                   # ward, kmeans: n_valid // f + 1 a doc
+            want = int(np.minimum(n_valid, n_valid // f + 1).sum())
+            ok = c.n_vectors <= want
+        if not ok:
+            raise AssertionError(f"eval: {c.backend} {c.method} f={f} "
+                                 f"stores {c.n_vectors} vectors (bound "
+                                 f"{want})")
+    print(f"eval sweep: {EVAL_DATASET} ({ds.n_docs} docs, {ds.n_queries} "
+          f"queries), {len(rep.cells)} cells over {len(rep.baselines)} "
+          f"baselines in {sweep_s:.3f}s; factor-1 cells exactly 100.0, "
+          f"stored vectors within their bounds")
+    for backend, qb in (("flat", None), ("plaid", 2)):
+        for metric in ("ndcg@10", "recall@5"):
+            print(rep.markdown_table(metric, backend, qb))
+    print(rep.summary())
+    gate = run_gate(rep)
+    print("eval: the paper's envelope (a reading at random weights, not "
+          "enforced): " + gate.summary().replace("\n", "; "))
+
+    main_ds = EvalDataset("chip-smoke", docs, queries, qrels)
+    retr = rt.Retriever(model, searcher.index, encode_batch=QUERY_BATCH)
+    depth = max(TOP_K, max_k(EVAL_METRICS))
+
+    def evaluate():
+        t0 = time.perf_counter()
+        out = retr.evaluate(main_ds, metrics=EVAL_METRICS, k=TOP_K)
+        return out, time.perf_counter() - t0
+
+    got, eval_s = run_path("eval_main", torch, evaluate)
+    S, I = retr.search(queries, k=depth)
+    ranked = [[int(d) for d in row if d >= 0] for row in I]
+    ref = {n: _ref_metric(n, ranked, qrels) for n in EVAL_METRICS}
+    S1, I1 = searcher.search(queries, k=depth, impl="ref")
+    _agree("eval_main rankings vs plain versions", S, I, S1, I1)
+    plain = compute_metrics(I1, qrels, EVAL_METRICS, device=dev)
+    # a tie-aware swap of two ranks moves a metric by at most one query
+    swapped = int((I != I1).any(1).sum())
+    print(f"eval_main: Retriever.evaluate of the main artifact in "
+          f"{eval_s:.3f}s: " + ", ".join(
+              f"{n} {v:.6f} (numpy reference {ref[n]:.6f}, plain versions "
+              f"{plain[n]:.6f})" for n, v in got.items())
+          + f"; {swapped} queries' rankings differ from the plain run "
+            f"by ties")
+    for n, v in got.items():
+        if abs(v - ref[n]) > 1e-6:
+            raise AssertionError(f"eval_main: {n} {v} against the numpy "
+                                 f"reference's {ref[n]}")
+        if abs(v - plain[n]) > 1e-6 + swapped / len(queries):
+            raise AssertionError(f"eval_main: {n} {v} against the plain "
+                                 f"versions' {plain[n]}")
+    return dict(sweep_s=sweep_s, evaluate_s=eval_s, main_metrics=got,
+                relative={f"{c.backend} {c.method} f={c.factor}":
+                          c.relative["ndcg@10"] for c in rep.cells})
+
+
+def serve_path(rt, torch, model, index, searcher, queries):
+    """``Retriever.serve`` over the main artifact, saved to SERVE_DIR
+    and watched (the engine serves its own copy, generation 1), with
+    ``max_batch`` 32: 4 submitter threads send requests of 1-8 of the
+    main corpus's queries; after half of SERVE_REQUESTS the main index is
+    saved there again (generation 2) and the threads go on until the
+    swap has served SERVE_AFTER_SWAP more requests. Fails on any failed
+    request, a request outside the parity contract against a direct
+    ``searcher.search`` of its tokens (both generations hold the same
+    index), a kernel library loaded after ``start()``, or a retired
+    generation whose device memory is not freed. Then closed-loop QPS at
+    batch sizes 1, 8 and 32 and open-loop p50 / p99 at a fixed-seed
+    Poisson rate."""
+    import threading
+    from repro_torch.core.maxsim import tie_aware_mismatches
+    from repro_torch.launch.engine import CompileCounter, run_open_loop
+    from repro_torch.launch.serve import serve_microbatches
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    retr = rt.Retriever(model, index, rt.RetrieverSpec(
+        pooling=rt.PoolingSpec("ward", 2), index=rt.IndexSpec(ndocs=NDOCS)),
+        encode_batch=QUERY_BATCH)
+    retr.save(SERVE_DIR)
+    spec = rt.ServeSpec(max_batch=SERVE_MAX_BATCH, k=TOP_K,
+                        poll_interval_s=0.05)
+    gc.collect()
+    torch.cuda.synchronize()
+    level0 = torch.cuda.memory_allocated()
+    done, lock = [], threading.Lock()
+    errors, swap = [], {}
+
+    def drive():
+        eng = retr.serve(spec, index_dir=SERVE_DIR)
+        t0 = time.perf_counter()
+        eng.start()
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        level1 = torch.cuda.memory_allocated()
+        first = eng._handle
+        with CompileCounter() as cc:
+            def client(seed):
+                rng = np.random.default_rng(seed)
+                try:
+                    while True:
+                        with lock:
+                            sent = len(done)
+                            if "t" in swap and sent >= max(
+                                    SERVE_REQUESTS,
+                                    swap["sent"] + SERVE_AFTER_SWAP):
+                                return
+                        lo, n = int(rng.integers(0, len(queries))), \
+                            int(rng.integers(1, 9))
+                        rows = (lo + np.arange(n)) % len(queries)
+                        S, I = eng.submit(queries[rows]).result(timeout=120)
+                        with lock:
+                            done.append((rows, S, I))
+                except BaseException as e:            # noqa: BLE001
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(SEED + i,))
+                       for i in range(SERVE_THREADS)]
+            t_run = time.perf_counter()
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 300
+            while len(done) < SERVE_REQUESTS // 2 and not errors and \
+                    time.monotonic() < deadline:
+                time.sleep(0.001)
+            retr.save(SERVE_DIR)                       # generation 2
+            t_pub = time.perf_counter()
+            while eng.generation < 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            with lock:
+                swap.update(t=time.perf_counter() - t_pub, sent=len(done))
+            for t in threads:
+                t.join(timeout=300)
+            run_s = time.perf_counter() - t_run
+        drained = first.wait_drained(timeout=60)
+        gc.collect()
+        torch.cuda.synchronize()
+        # the engine's one served copy is the one-index level; after the
+        # swap drained, the retired copy's memory must be gone
+        level2 = torch.cuda.memory_allocated()
+        snap = eng.stats.snapshot()
+        eng.stop()
+        return (eng, snap, cc.count, start_s, run_s, level1, level2,
+                drained, first.index is None)
+
+    (eng, snap, compiles, start_s, run_s, level1, level2, drained,
+     freed) = run_path("serve", torch, drive)
+    gc.collect()
+    torch.cuda.synchronize()
+    level3 = torch.cuda.memory_allocated()        # the engine stopped
+    print(f"serve: {len(done)} requests ({sum(len(r) for r, _, _ in done)} "
+          f"queries) from {SERVE_THREADS} threads in {run_s:.3f}s; "
+          f"start (load, warm every bucket) {start_s:.3f}s; swap to "
+          f"generation 2 {swap.get('t', float('nan')):.4f}s after the "
+          f"publish, at request {swap.get('sent')}; batches "
+          f"{snap['batches']}, mean batch {snap['mean_batch_size']:.2f}, "
+          f"flushes {snap['flush_reasons']}, generations "
+          f"{sorted(set(snap['generations_seen']))}, failed "
+          f"{snap['failed']}; kernel libraries loaded after start "
+          f"{compiles}; device memory before the engine {level0}, one "
+          f"served copy {level1}, after the swap drained {level2}, after "
+          f"stop {level3}")
+    if errors or snap["failed"]:
+        raise AssertionError(f"serve: failed requests: {snap['failed']} "
+                             f"{errors[:3]}")
+    if eng.generation != 2 or sorted(set(snap["generations_seen"])) != [1, 2]:
+        raise AssertionError("serve: the swap was not observed")
+    if compiles:
+        raise AssertionError(f"serve: {compiles} kernel libraries loaded "
+                             f"after start()")
+    if not (drained and freed) or level3 != level0 or \
+            abs(level2 - level1) > 0.05 * (level1 - level0):
+        raise AssertionError("serve: the retired generation's device "
+                             "memory was not freed")
+    bitwise = worst = 0
+    for rows, S, I in done:
+        S1, I1 = searcher.search(queries[rows], k=TOP_K)
+        if tie_aware_mismatches(I1, S1, I, S, SCORE_ATOL) or \
+                not np.allclose(S, S1, rtol=0, atol=SCORE_ATOL):
+            raise AssertionError(f"serve: request {rows.tolist()} outside "
+                                 f"the parity contract")
+        bitwise += bool(np.array_equal(S, S1) and np.array_equal(I, I1))
+        worst = max(worst, float(np.abs(S - S1).max()))
+    print(f"serve parity: {len(done)} requests against direct "
+          f"searcher.search, ids tie-aware, max score diff {worst:.3g}; "
+          f"{bitwise} bitwise equal")
+
+    # one query's encode at the searcher's one width (QUERY_BATCH rows,
+    # what parity needs) and alone (one row, the reference's width)
+    from repro_torch.models.colbert import encode_queries
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    enc_ms = {"width 32": host_ms(lambda: searcher.encode_queries(
+        queries[:1])), "width 1": host_ms(lambda: encode_queries(
+            model, queries[:1]))}
+    print("serve: one query's encode, host ms with the card synced: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in enc_ms.items()))
+    # what the one width buys: each query encoded alone (one row, the
+    # reference's width for a lone query) against the searcher's width
+    alone = torch.cat([encode_queries(model, queries[i:i + 1])[0]
+                       for i in range(len(queries))])
+    fixed = searcher.encode_queries(queries)
+    Sa, Ia = searcher.search_encoded(alone, k=TOP_K)
+    Sf, If = searcher.search_encoded(fixed, k=TOP_K)
+    width = dict(vector_max_diff=float((alone - fixed).abs().max()),
+                 queries_moved=int((Ia != If).any(1).sum()),
+                 score_max_diff=float(np.abs(Sa - Sf).max()))
+    print(f"serve: each query encoded alone against the searcher's width "
+          f"({QUERY_BATCH} rows): vectors differ by up to "
+          f"{width['vector_max_diff']:.3g}, top-{TOP_K} ids differ for "
+          f"{width['queries_moved']} of {len(queries)} queries, scores by "
+          f"up to {width['score_max_diff']:.3g}")
+    closed = {}
+    for bs in (1, 8, 32):
+        lat, sizes = serve_microbatches(searcher, queries, bs,
+                                        SERVE_CLOSED_QUERIES, k=TOP_K)
+        closed[bs] = dict(qps=float(sizes.sum() / lat.sum()),
+                          p50_ms=float(np.percentile(lat * 1e3, 50)),
+                          p99_ms=float(np.percentile(lat * 1e3, 99)))
+    with rt.Retriever(model, index, encode_batch=QUERY_BATCH).serve(
+            spec.replace(poll_interval_s=0.2)) as eng:
+        row = run_open_loop(eng, queries, SERVE_RATE, SERVE_OPEN_QUERIES,
+                            k=TOP_K, seed=SEED)
+        osnap = eng.stats.snapshot()
+    print("serve closed loop (QPS, p50 / p99 ms a batch): " + ", ".join(
+        f"batch {bs} {v['qps']:.1f} QPS, {v['p50_ms']:.3f} / "
+        f"{v['p99_ms']:.3f}" for bs, v in closed.items())
+          + f"; open loop at {SERVE_RATE:.0f} QPS offered (seed {SEED}, "
+            f"{SERVE_OPEN_QUERIES} queries): achieved "
+            f"{row['achieved_qps']:.1f}, p50 {row['latency_p50_ms']:.3f} ms,"
+            f" p99 {row['latency_p99_ms']:.3f} ms, mean batch "
+            f"{osnap['mean_batch_size']:.2f}, errors {row['errors']}")
+    if row["errors"]:
+        raise AssertionError(f"serve open loop: {row['errors']} errors")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return dict(requests=len(done), swap_s=swap.get("t"), bitwise=bitwise,
+                encode_ms=enc_ms, width=width, closed=closed,
+                open_p50_ms=row["latency_p50_ms"],
+                open_p99_ms=row["latency_p99_ms"])
+
+
+def _packed_shapes(torch, dev, run, errs):
+    """``maxsim_packed`` at the shapes its token windows and dim slabs
+    opened (dim 256 and 768 at Ld 129, Ld 12,000 and 20,000 at dim 128,
+    b = 2 and 4), random codes, about half of each document valid; held
+    to the plain version and timed beside it, with the bound."""
+    out = {}
+    for dim, Ld in PACKED_SHAPES:
+        for bits in (2, 4):
+            g = torch.Generator(device=dev).manual_seed(dim + Ld + bits)
+            Nq, S = PACKED_SHAPE_NQ, PACKED_SHAPE_S
+            q = torch.randn((Nq, QUERY_LEN, dim), generator=g, device=dev)
+            q = q / q.norm(dim=-1, keepdim=True)
+            cen = torch.randn((256, dim), generator=g, device=dev)
+            cen = cen / cen.norm(dim=-1, keepdim=True)
+            args = (q, torch.ones((Nq, QUERY_LEN), dtype=torch.bool,
+                                  device=dev),
+                    torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                  (Nq, S, Ld, dim * bits // 32), generator=g,
+                                  device=dev, dtype=torch.int32),
+                    torch.randint(0, 256, (Nq, S, Ld), generator=g,
+                                  device=dev, dtype=torch.int32),
+                    torch.rand((Nq, S, Ld), generator=g, device=dev) < 0.5,
+                    cen, torch.randn((dim, 1 << bits), generator=g,
+                                     device=dev) * 0.05)
+            what = f"dim={dim},Ld={Ld},b={bits}"
+            err = _hold(f"maxsim_packed {what}", torch, run(args, bits),
+                        run(args, bits, "ref"), errs)
+            bound, by = _packed_bound(*args)
+            out[what] = dict(ms=_time_ms(lambda: run(args, bits)),
+                             plain_ms=_time_ms(lambda: run(args, bits, "ref"),
+                                               reps=1),
+                             bound_ms=bound, bound_by=by, max_abs_err=err)
+            del args
+            torch.cuda.empty_cache()
+    print(f"maxsim_packed at the new shapes (Nq={PACKED_SHAPE_NQ}, "
+          f"S={PACKED_SHAPE_S}, Lq={QUERY_LEN}, half valid; ms, plain ms, "
+          f"bound ms): " + "; ".join(
+              f"{k} {v['ms']:.4f}, {v['plain_ms']:.4f}, {v['bound_ms']:.4f} "
+              f"({v['bound_by']}), err {v['max_abs_err']:.3g}"
+              for k, v in out.items()))
+    return out
+
+
 def capture_path_args(torch, searcher, queries):
     """The arguments of the ``plaid_probe`` and ``maxsim_packed`` calls of
     the first main-path batch whose prune engages (both kernels run), and
@@ -1713,18 +2078,19 @@ def search_split(torch, searcher, qv, stages=SPLIT_STAGES, label="main"):
 
 
 # The C entries an earlier checkout must declare for ``--parent``, by
-# source: the designs of this checkout's parent (commit a762eb8). The
-# plaid_probe, maxsim_packed, kmeans_assign and all-pairs maxsim entries
-# are this checkout's designs too, so their scores must be bit-equal; the
-# rerank (f32 FMA from gathered candidates) and dequant_score (f32 FMA)
-# are the designs this checkout replaces.
+# source: the designs of this checkout's parent (commit 4f70bbf). Only
+# maxsim_packed changed since (token windows and dim slabs); at the shapes
+# both take, its plaid_probe, maxsim_packed, kmeans_assign and all-pairs
+# maxsim scores must be bit-equal to this checkout's, and its rerank
+# (from gathered candidates) and dequant_score are held to the same
+# limits.
 PARENT_ABI = {
     "plaid_probe": {
         "plaid_probe_launch": "int plaid_probe_launch(const float* q, const "
         "uint8_t* qmask, const float* centroids, const int32_t* codes, const "
         "uint8_t* cmask, const uint8_t* vmask, float* table, float* out, int "
-        "Nq, int Lq, int dim, int K, int C, int L, float t_cs, void* "
-        "stream)"},
+        "Nq, int Lq, int dim, int K, int C, int L, float t_cs, int "
+        "global_table, void* stream)"},
     "maxsim_packed": {
         "maxsim_packed_launch": "int maxsim_packed_launch(const float* q, "
         "const uint8_t* qmask, const uint32_t* words, const int32_t* ids, "
@@ -1794,10 +2160,13 @@ def parent_kernels(parent):
         libs[name] = ctypes.CDLL(lib)
     P, I = ctypes.c_void_p, ctypes.c_int
     probe = libs["plaid_probe"].plaid_probe_launch
-    probe.argtypes = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+    probe.argtypes = [P] * 8 + [I] * 6 + [ctypes.c_float, I, P]
     table_floats = libs["plaid_probe"].plaid_probe_table_floats
     table_floats.argtypes = [I, I, I]
     table_floats.restype = ctypes.c_size_t
+    probe_smem = libs["plaid_probe"].plaid_probe_smem_bytes
+    probe_smem.argtypes = [I, I, I]
+    probe_smem.restype = ctypes.c_size_t
     packed = libs["maxsim_packed"].maxsim_packed_launch
     packed.argtypes = [P] * 8 + [I] * 7 + [P]
     assign = libs["kmeans_assign"].kmeans_assign_launch
@@ -1813,14 +2182,17 @@ def parent_kernels(parent):
         return torch.cuda.current_stream().cuda_stream
 
     def run_probe(q, qm, cen, codes, cm, vm, t_cs):
+        from repro_torch.kernels.plaid_probe.ops import probe_route
         (Nq, Lq, dim), (K, _), (_, C, L) = q.shape, cen.shape, codes.shape
+        glob = int(probe_route(Lq, K, dim, probe_smem) == "global")
         o = torch.empty((Nq, C), dtype=torch.float32, device=q.device)
         table = torch.empty(table_floats(Nq, Lq, K), dtype=torch.float32,
                             device=q.device)
         build.check(probe(q.data_ptr(), qm.data_ptr(), cen.data_ptr(),
                           codes.data_ptr(), cm.data_ptr(), vm.data_ptr(),
                           table.data_ptr(), o.data_ptr(), Nq, Lq, dim, K, C,
-                          L, float(t_cs), stream()), "parent plaid_probe")
+                          L, float(t_cs), glob, stream()),
+                    "parent plaid_probe")
         return o
 
     def run_packed(q, qm, w, a, dm, cen, vals, bits):
@@ -2713,8 +3085,8 @@ def main(argv=None) -> int:
             if "registers" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    index, stats, model, docs, searcher, queries, S, I = main_path(rt, torch,
-                                                                    dev)
+    (index, stats, model, docs, searcher, queries, qrels, S,
+     I) = main_path(rt, torch, dev)
     persist_path(rt, torch, model, queries, stats, S, I)
     facade_path(rt, torch, model, queries, S, I)
     host_probe_path(torch, index, searcher, queries, S, I)
@@ -2734,6 +3106,9 @@ def main(argv=None) -> int:
     del cascade
     stream_path(rt, torch, model, docs, queries, card)
     stream_parity_path(rt, torch, model, docs, queries, card)
+    eval_numbers = eval_path(rt, torch, dev, model, docs, queries, qrels,
+                             searcher)
+    serve_numbers = serve_path(rt, torch, model, index, searcher, queries)
     gc.collect()                    # the sharded indexes go before the LM
     torch.cuda.empty_cache()
     lm_cfg, lm = _lm_model(rt, torch)
@@ -2772,7 +3147,8 @@ def main(argv=None) -> int:
            *_search_all(searcher, queries, impl="ref"))
 
     print(json.dumps({"kernels": kernels, "search_split_ms": split,
-                      "recon_split_ms": recon_split}))
+                      "recon_split_ms": recon_split, "eval": eval_numbers,
+                      "serve": serve_numbers}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

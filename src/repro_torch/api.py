@@ -21,8 +21,9 @@ hnsw and plaid (monolithic, or streamed into shards when
 ``spec.shard.sharded``) and the pooled cascade. A new backend is one
 ``register_backend(name, kind, keys, builder)`` call; its builder takes
 ``(model, docs, spec, out_dir, encode_batch, device)`` and returns
-``(index, IndexStats)``. ``evaluate`` and ``serve`` raise: eval and the
-serving runtime are not ported yet (ROADMAP queue 1, items 4 and 6).
+``(index, IndexStats)``. ``evaluate`` scores the retriever on an
+``EvalDataset`` (``eval/``); ``serve`` starts the serving runtime
+(``launch/engine.py``) over it.
 """
 from __future__ import annotations
 
@@ -236,15 +237,26 @@ class Retriever:
         self.searcher.warmup(batch_sizes, k=k)
 
     def evaluate(self, dataset, metrics=("ndcg@10",), k: int = 10):
-        raise NotImplementedError(
-            "Retriever.evaluate: the eval subsystem is not ported yet "
-            "(ROADMAP queue 1, item 4)")
+        """Score this retriever against an ``EvalDataset`` (synthetic or
+        BEIR-loaded): ONE batched search at depth ``max(k, metric ks)``,
+        then the metrics (``"<name>@<k>"`` strings) on the searcher's
+        device. Returns ``{name: value}``."""
+        from repro_torch.eval.metrics import compute_metrics, max_k
+        depth = max(int(k), max_k(metrics))
+        _, ids = self.search(dataset.query_tokens, k=depth)
+        return compute_metrics(ids, dataset.qrels, metrics,
+                               device=self.model.device)
 
     def serve(self, spec: Optional[ServeSpec] = None, index_dir=None,
               index_generation=None):
-        raise NotImplementedError(
-            "Retriever.serve: the serving runtime is not ported yet "
-            "(ROADMAP queue 1, item 6)")
+        """The serving runtime (``launch/engine.py``) over this
+        retriever, configured by ``spec`` (default: the build spec's
+        ``serve`` block). Use as a context manager; pass ``index_dir``
+        to watch an artifact directory for hot swaps."""
+        from repro_torch.launch.engine import ServingEngine
+        return ServingEngine.from_spec(
+            self.searcher, spec or self.spec.serve, index_dir=index_dir,
+            index_generation=index_generation, device=self.model.device)
 
     # ----------------------------------------------------------------- CRUD
     def _encode_pool(self, doc_tokens, factor: int) -> List[torch.Tensor]:

@@ -22,9 +22,9 @@ Serving toggles, never persisted: ``packed_rerank`` (plaid rerank from
 packed codes, or from the f32 reconstruction store) and
 ``probe_kernel`` (``"auto"``/``"device"``/``"host"`` candidate path).
 The pooled cascade is its own class (``retrieval/cascade.py``).
-``warm_shapes`` is a no-op (PyTorch does not trace per shape); the
-reference's ``candidate_widths``, which only its serving engine's warmup
-reads, waits for the serving runtime (ROADMAP queue 1, item 6).
+``warm_shapes`` is a no-op (PyTorch does not trace per shape);
+``candidate_widths`` gives the slate widths a batch shape can reach (the
+reference's engine warmup compiles each; here no search path needs it).
 
 ``impl`` on the search methods selects the kernels' plain versions
 (``"ref"``); only the tests and ``chip_smoke.py`` pass it.
@@ -331,6 +331,39 @@ class MultiVectorIndex:
         scores, cand = self.scored_candidates(qs, q_mask, impl)
         with record_function("search.topk"):
             return topk_with_pads(scores, cand, k)
+
+    def candidate_widths(self, qs) -> Tuple[List[int], bool]:
+        """Slate widths a stream at this batch shape can reach:
+        ``(widths, dense)``, the geometric pad ladder {32, 64, ...}
+        (``pad_candidate_sets``) capped by the stage-1 budget (plaid:
+        ndocs before the prune; hnsw: the token-probe hit bound) plus
+        plaid's post-prune width, restricted to widths below ``n_docs``;
+        ``dense`` says whether the corpus-wide dispatch is reachable. On
+        plaid's device path, one static slate width."""
+        if self.n_docs == 0:
+            return [], False
+        if self.backend == "flat":
+            return [], True                 # dense only
+        block = 32                          # pad_candidate_sets block
+        if self.backend == "plaid":
+            use_dev, geom = self._probe_plan(qs.shape[1])
+            if use_dev:
+                return [geom[3]], False
+            cap = min(self.n_docs, self.ndocs)
+        else:
+            Lq = max(qs.shape[1], 1)
+            per_tok = max(self.hnsw_candidates // Lq, 8)
+            cap = min(self.n_docs, per_tok * Lq)
+        widths = set()
+        C = block
+        while C < cap:
+            widths.add(C)
+            C <<= 1
+        widths.add(C)                       # first ladder value >= cap
+        if self.backend == "plaid":         # post-prune width
+            widths.add(-(-min(self.ndocs, self.n_docs) // block) * block)
+        return (sorted(w for w in widths if w < self.n_docs),
+                max(widths) >= self.n_docs)
 
     def warm_shapes(self, qs, k: int = 10) -> None:
         """No-op: PyTorch does not trace per shape, so no candidate width

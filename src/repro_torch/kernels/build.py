@@ -8,6 +8,8 @@ loads a stale library) and opened once per process.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception. Nothing here runs at import.
+``library_events()`` counts the libraries compiled or opened so far in
+this process (the serving engine's ``CompileCounter`` reads it).
 """
 from __future__ import annotations
 
@@ -29,6 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_events = [0]          # libraries compiled or opened in this process
+
+
+def library_events() -> int:
+    """Libraries compiled (``nvcc`` runs) or opened (``ctypes``) so far."""
+    return _events[0]
 
 
 def _nvcc() -> str:
@@ -72,6 +80,7 @@ def _finish(name: str, job) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    _events[0] += 1
     return log
 
 
@@ -95,6 +104,7 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _libs[name] = lib
+                _events[0] += 1
     return lib
 
 

@@ -3,12 +3,11 @@
 Same argument layout as ``src/repro/kernels/maxsim_packed/ops.py``
 ``maxsim_packed_rerank``. CPU tensors (or ``impl="ref"``) run the plain
 version; CUDA tensors launch the kernel on the current stream or raise.
-A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
-into chunks, one launch each, and the partial scores summed. The chunk is
-the widest of ``CHUNK_WIDTHS`` whose shared memory fits beside the
-candidates' token list (which grows with Ld): at dim 128 and 4 bits,
-128 query tokens a launch up to Ld 509, 96 up to 2,685, 64 up to 4,861,
-32 up to 7,037 (2 bits: 1,149, 3,325, 5,501, 7,677).
+The kernel takes any document length and any token width the codec
+packs (``W * 32 == dim * bits``): its shared memory holds a window of 256
+tokens a candidate and a slab of 128 dims, whatever Ld and dim are. A
+launch takes at most ``MAX_LQ`` query tokens; longer queries are split
+into chunks, one launch each, and the partial scores summed.
 """
 from __future__ import annotations
 
@@ -23,13 +22,7 @@ from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "maxsim_packed"
-_SMEM_LIMIT = 232448
 MAX_LQ = 128        # query tokens a launch (csrc: 32 * MAX_QCH)
-# query tokens a launch, widest first: the query rows take most of a
-# block's shared memory, so a long document narrows the chunk
-CHUNK_WIDTHS = (MAX_LQ, 96, 64, 32)
-MAX_DIM = 128       # token width the kernel takes, a multiple of 8
-MAX_LD = 8191       # doc tokens a candidate (csrc: CPB * Ld < 65536)
 _lib = None
 
 
@@ -40,8 +33,6 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.maxsim_packed_launch.argtypes = [P] * 8 + [I] * 7 + [P]
         lib.maxsim_packed_launch.restype = I
-        lib.maxsim_packed_smem_bytes.argtypes = [I, I, I, I]
-        lib.maxsim_packed_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -80,18 +71,7 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
                          f"words {tuple(words.shape)} ids {tuple(ids.shape)} "
                          f"centroids {tuple(centroids.shape)} "
                          f"values {tuple(values.shape)}")
-    if dim > MAX_DIM or dim % 8 or Ld > MAX_LD:
-        raise ValueError(f"{_NAME}: dim={dim} (at most {MAX_DIM}, a multiple"
-                         f" of 8) or Ld={Ld} (at most {MAX_LD}) not taken")
     lib = _load()
-    # the widest query chunk whose shared memory fits: at Lq <= 128 and
-    # short documents one launch on the tensors as given
-    fits = [w for w in CHUNK_WIDTHS
-            if lib.maxsim_packed_smem_bytes(min(Lq, w), dim, bits, Ld)
-            <= _SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"{_NAME}: dim={dim}, Ld={Ld} exceed shared memory "
-                         f"at {CHUNK_WIDTHS[-1]} query tokens a launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def launch(qc, qmc):
@@ -104,4 +84,4 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
         LAUNCHES.bump()
         return out
 
-    return sum_over_query_chunks(launch, q, q_mask, fits[0])
+    return sum_over_query_chunks(launch, q, q_mask, MAX_LQ)

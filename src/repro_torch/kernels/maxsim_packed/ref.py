@@ -24,17 +24,26 @@ def maxsim_packed_rerank_ref(q, q_mask, words, ids, d_mask, centroids,
     return maxsim_rerank_ref(q, q_mask, v.reshape(Nq, S, Ld, dim), d_mask)
 
 
+SLAB = 128     # dims the kernel multiplies a step (csrc: SLAB)
+
+
 def maxsim_packed_3xtf32_ref(q, q_mask, words, ids, d_mask, centroids,
                              values, *, bits: int, passes: int = 3):
     """``maxsim_packed_rerank_ref`` with the kernel's products: q . d as
     hi.hi + hi.lo + lo.hi of ``tf32_split_ref`` parts, lo rounded
     (``passes=1``: hi.hi alone, single-pass TF32), each product exact in
-    f32."""
+    f32, taken a slab of ``SLAB`` dims at a time and the slabs' partial
+    sums added in order, as the kernel's K loop (one slab at dim <= 128)."""
     Nq, S, Ld, W = words.shape
     dim = centroids.shape[1]
     d = decode_rows_ref(words.reshape(-1, W), ids.reshape(-1), centroids,
                         values, bits).reshape(Nq, S * Ld, dim)
-    sim = einsum_3xtf32("qld,qtd->qlt", q, d, passes=passes, round_lo=True)
+    sim = None
+    for lo in range(0, dim, SLAB):
+        part = einsum_3xtf32("qld,qtd->qlt", q[..., lo:lo + SLAB],
+                             d[..., lo:lo + SLAB], passes=passes,
+                             round_lo=True)
+        sim = part if sim is None else sim + part
     sim = sim.reshape(Nq, -1, S, Ld).masked_fill(~d_mask[:, None],
                                                  float("-inf"))
     best = sim.amax(dim=-1)                                  # [Nq, Lq, S]

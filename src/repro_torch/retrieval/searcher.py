@@ -1,8 +1,14 @@
 """Searcher: query encode -> staged candidate generation -> rerank.
 
 Counterpart of ``src/repro/retrieval/searcher.py``: ``encode_queries``
-pads each chunk of up to ``encode_batch`` queries to the nearest
-power-of-two width; ``search_encoded`` runs the index's batched
+encodes chunks of up to ``encode_batch`` queries, each padded to the
+full ``encode_batch`` width (the reference pads to the nearest power of
+two): on the card cuBLAS picks its bf16 GEMM by the number of rows, and
+a query encoded in a batch of 2 and in one of 32 differs by up to ~3e-3
+a coordinate, which moves its candidate set; at one width its vector is
+the same whichever queries share the batch, so a serving engine's
+coalesced batches return a direct search's results. ``search_encoded``
+runs the index's batched
 two-stage engine; ``search`` (alias ``search_batch``) chains the two;
 ``rankings`` gives each query's ranked ids; ``from_dir`` serves a saved
 artifact (written by either package): a flat, hnsw or plaid
@@ -50,14 +56,6 @@ class Searcher:
         return cls(model, load_artifact(path, mmap=mmap, device=device),
                    encode_batch=encode_batch)
 
-    def _encode_width(self, n: int) -> int:
-        """Smallest power-of-two width holding n queries, capped at
-        ``encode_batch``."""
-        w = 1
-        while w < n and w < self.encode_batch:
-            w <<= 1
-        return min(w, self.encode_batch)
-
     def encode_queries(self, query_tokens: np.ndarray) -> torch.Tensor:
         """[Nq, L] raw ids -> [Nq, Lq, dim] on the model's device."""
         query_tokens = np.asarray(query_tokens)
@@ -65,7 +63,7 @@ class Searcher:
         for lo in range(0, query_tokens.shape[0], self.encode_batch):
             chunk = query_tokens[lo:lo + self.encode_batch]
             n = chunk.shape[0]
-            pad = self._encode_width(n) - n
+            pad = self.encode_batch - n
             if pad:
                 chunk = np.pad(chunk, ((0, pad), (0, 0)))
             v, _ = encode_queries(self.model, chunk)

@@ -25,8 +25,9 @@ exactly 0 on both. The probe is also held at large centroid counts
 both serve. The probe and packed-rerank
 designs are also held on the shapes they were built for (a sparse path-like slate, duplicate
 codes, an all-zero table, ragged tails, Ld = 129) to 1e-5; the packed
-kernel past the shared memory of 128 query tokens a launch (narrower
-chunks, counted) and past its last limits (a raise); the all-pairs MaxSim
+kernel past the limits it had before its token windows and dim slabs
+(Ld to 20,000, dim 136 to 768, one launch a chunk of 128 query tokens,
+counted); the all-pairs MaxSim
 on the tile edges of its tensor-core design (one-token, short, long and
 fully masked docs, sparse masks, a doc over two tiles, Lq = 40 and 300)
 and the k-means assignment on its pass and row edges (K below 8, 136,
@@ -318,30 +319,21 @@ def test_packed_kernel_design_cases(dev, bits, S, dim):
     assert (got[~dm.any(-1)] == 0).all()
 
 
-@pytest.mark.parametrize("Lq,bits,dim,Ld,launches", [
-    (128, 4, 128, 509, 1),       # b = 4: 128 query tokens a launch to 509
-    (128, 4, 128, 510, 2),       # then chunks of 96 (two launches),
-    (300, 4, 128, 512, 4),       # a long query on an unpooled document,
-    (128, 4, 128, 2686, 2),      # chunks of 64 past 2,685,
-    (128, 4, 128, 4862, 4),      # chunks of 32 past 4,861,
-    (32, 4, 128, 7037, 1),
-    (32, 4, 128, 7038, 0),       # and no chunk past 7,037
-    (128, 2, 128, 1149, 1),      # b = 2: 128 query tokens a launch to 1,149
-    (128, 2, 128, 1150, 2),
-    (300, 2, 128, 1500, 4),
-    (32, 2, 128, 7677, 1),
-    (32, 2, 128, 7678, 0),       # no chunk past 7,677
-    (32, 2, 64, 8191, 1),        # Ld <= 8,191 (16-bit token indices)
-    (32, 2, 64, 8192, 0),
-    (32, 4, 136, 16, 0),         # dim <= 128
+@pytest.mark.parametrize("Lq,bits,dim,Ld", [
+    (128, 4, 128, 509),          # one window of 256 tokens a candidate ...
+    (128, 4, 128, 512),          # ... two full windows,
+    (300, 4, 128, 512),          # a long query on an unpooled document,
+    (128, 4, 128, 7038),         # Ld past the old shared-memory limits
+    (128, 2, 128, 7678),
+    (32, 2, 64, 8192),           # past the old 16-bit token index
+    (32, 4, 136, 16),            # dim past 128: two slabs, the last ragged
+    (128, 2, 256, 129),          # two full slabs
+    (40, 4, 200, 300),           # a ragged slab beside two windows
 ])
-def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, launches):
-    """The packed kernel's limits (the plain version takes any): the
-    shared memory of a launch grows with Ld, so the wrapper takes the
-    widest query chunk of 128, 96, 64 or 32 tokens that fits and sums the
-    chunks; each case agrees with the plain version in that many
-    launches. Past the last chunk, Ld 8,191 and dim 128 (``launches``
-    0) the wrapper raises before any launch."""
+def test_packed_kernel_limits(dev, Lq, bits, dim, Ld):
+    """Past the limits the kernel had before its windows (Ld) and slabs
+    (dim): every case launches once a chunk of 128 query tokens and
+    agrees with the plain version to rtol 1e-5, atol 1e-5."""
     g = torch.Generator(device=dev).manual_seed(Ld)
     Nq, S, K = 1, 9, 64
     q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
@@ -354,16 +346,37 @@ def test_packed_kernel_limits(dev, Lq, bits, dim, Ld, launches):
     vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
     args = (q, qm, w, ids, dm, cen, vals)
     before = launch_counts()["maxsim_packed"]
-    if not launches:
-        with pytest.raises(ValueError, match="maxsim_packed"):
-            maxsim_packed_rerank(*args, bits=bits)
-        assert launch_counts()["maxsim_packed"] == before
-        return
     got = maxsim_packed_rerank(*args, bits=bits)
-    assert launch_counts()["maxsim_packed"] == before + launches
+    assert launch_counts()["maxsim_packed"] == before + -(-Lq // 128)
     torch.testing.assert_close(
         got, maxsim_packed_rerank(*args, bits=bits, impl="ref"),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dim,Ld", [(256, 129), (768, 129), (128, 12000),
+                                    (128, 20000)])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_packed_kernel_wide_and_long(dev, bits, dim, Ld):
+    """The shapes the kernel took only after its windows and slabs: dim
+    256 and 768 at Ld 129, Ld 12,000 and 20,000 at dim 128, a path-like
+    slate (32 query tokens, S = 16, about a third of each document
+    valid, one candidate fully masked) to rtol 1e-5, atol 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(dim + Ld + bits)
+    Nq, Lq, S, K = 2, 32, 16, 256
+    q, cen = _unit(g, (Nq, Lq, dim), dev), _unit(g, (K, dim), dev)
+    qm = torch.rand((Nq, Lq), generator=g, device=dev) < 0.9
+    w = torch.randint(-2 ** 31, 2 ** 31 - 1, (Nq, S, Ld, dim * bits // 32),
+                      generator=g, device=dev, dtype=torch.int32)
+    ids = torch.randint(0, K, (Nq, S, Ld), generator=g, device=dev,
+                        dtype=torch.int32)
+    dm = torch.rand((Nq, S, Ld), generator=g, device=dev) < 0.35
+    dm[0, 3] = False
+    vals = torch.randn((dim, 1 << bits), generator=g, device=dev) * 0.1
+    got = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits)
+    want = maxsim_packed_rerank(q, qm, w, ids, dm, cen, vals, bits=bits,
+                                impl="ref")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert float(got[0, 3]) == 0.0
 
 
 @pytest.mark.parametrize("Nq,Lq,dim,Nd,Ld", [

@@ -122,3 +122,17 @@ def test_3xtf32_products_match_reference(seed, bits):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     one = maxsim_packed_3xtf32_ref(*t, bits=bits, passes=1).numpy()
     assert not np.allclose(one, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_3xtf32_slabs_match_reference_wide_and_long(bits):
+    """The kernel's slab order (128 dims a step, partial sums added in
+    order) at dim 256 and Ld 9,000, past the widths the kernel took
+    before its windows and slabs, against the JAX reference to rtol 1e-5,
+    atol 1e-5."""
+    args = _inputs(bits + 7, bits, Nq=1, Lq=32, S=2, Ld=9000, dim=256)
+    want = _both(args, bits)[1]
+    t = [torch.from_numpy(a) for a in args]
+    t[2] = torch.from_numpy(args[2].view(np.int32))
+    got = maxsim_packed_3xtf32_ref(*t, bits=bits).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

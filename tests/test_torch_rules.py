@@ -7,7 +7,8 @@
 * CPU tensors run the kernels' plain versions (no launch is counted);
 * where the reference takes the host probe path and the dense
   fallback, so does the port, with the reference's results; what is not
-  ported yet raises ``NotImplementedError`` naming ROADMAP.
+  ported yet (the replicated index's SPMD flat plan, the MoE, GNN and
+  recsys architectures) raises ``NotImplementedError`` naming ROADMAP.
 """
 import os
 import pkgutil
@@ -43,7 +44,9 @@ def test_port_imports_neither_jax_nor_reference():
               "kernels.flash_attention.ops", "kernels.flash_attention.ref",
               "models.transformer", "models.attention", "launch.steps",
               "configs.qwen3_0_6b", "configs.qwen1_5_0_5b",
-              "configs.qwen2_5_14b", "core.sharded", "core.spec", "api"):
+              "configs.qwen2_5_14b", "core.sharded", "core.spec", "api",
+              "core.replicated", "eval.metrics", "eval.sweep",
+              "launch.engine", "launch.serve", "retrieval.evaluate"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -113,6 +116,15 @@ def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
         rt.Retriever.build(model, toks)
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.Retriever.load(model, empty)
+    from repro_torch.eval import QualitySweep, compute_metrics
+    from repro_torch.launch.engine import ServingEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_metrics(np.zeros((1, 2), np.int64), [{0: 1}], ("ndcg@2",))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QualitySweep(model, None)
+    searcher = rt.Searcher(model, MultiVectorIndex(dim=8, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(searcher)
     assert load_sharded(empty, device="cpu").n_docs == 0
     assert rt.resolve_device("cpu").type == "cpu"
 
@@ -177,15 +189,17 @@ def test_refused_device_plan_raises_not_implemented():
     np.testing.assert_allclose(S, np.asarray(jS), rtol=1e-5, atol=1e-4)
 
 
-def test_retriever_evaluate_and_serve_raise_naming_roadmap():
-    import repro_torch as rt
-    model = rt.init_colbert(SMOKE, device="cpu")
-    r = rt.Retriever(model, rt.MultiVectorIndex(dim=SMOKE.proj_dim,
-                                                device="cpu"))
+def test_replicated_shard_map_raises_naming_roadmap():
+    """The reference's SPMD flat plan (a shard_map program over a JAX
+    mesh) is not ported: forcing it raises; auto and off serve through
+    the per-lane dispatch."""
+    from repro_torch.core.replicated import ReplicatedIndex
+    idx, _ = _index(12, nprobe=2, ndocs=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.evaluate(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.serve()
+        ReplicatedIndex.replicate(idx, 2, use_shard_map=True)
+    for flag in (None, False):
+        assert ReplicatedIndex.replicate(idx, 2,
+                                         use_shard_map=flag).n_replicas == 2
 
 
 def test_unported_options_raise():
