@@ -116,6 +116,28 @@
      launches), held against the plain path, which at this length is
      the chunked online-softmax path; the first and last layer's kernel
      calls are again held against the plain version.
+   * colbert_train: ``examples/train_colbert.py`` at full ColBERTv2
+     width (remat, bf16 compute, f32 AdamW): 200 ``Trainer`` steps of 32
+     scidocs pairs (docs at the full 254 ids) under the example's
+     ``cosine_schedule(3e-3, 10, 200)``, ``max_retries=0``, checkpointed
+     at step 100; every parameter's first gradient finite; the loss of
+     the last 20 steps below the first 20's; a second ``Trainer`` on
+     other weights restores step 100 (the run's final checkpoint
+     removed, as after a crash) and runs to 200: parameters bitwise
+     equal to the uninterrupted run's. Then ``QualitySweep`` (Ward,
+     f = 1-4, plaid 2-bit, ndcg@10 over scifact) with the trained
+     encoder (factor-1 cells exactly 100.0), held to the plain versions
+     (the Ward kernel tie-aware on the encoder's own docs, each cell's
+     search on the same index), and, as readings, at the step-0 weights
+     and after the same run at lr 3e-4; the median step ms, pairs/s,
+     peak memory and one profiled step printed;
+   * lm_train: Qwen3-0.6B at full width (remat, AdamW):
+     ``launch.train.main`` for 4 steps of 8 x 2,048 tokens in 2
+     microbatches, checkpointed, then to 6 steps, which must resume at
+     4; ``make_lm_train_step`` 4 times on one batch (the loss falls);
+     every gradient finite; remat on against off at 2 x 2,048; 2
+     microbatches of 4 against one batch of 8; ``use_flash_kernel``
+     refused; no kernel launches on either train path.
    The dense, flat, kmeans and cascade paths are re-run with the plain
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
@@ -273,6 +295,45 @@ LM_REL = 0.05                      # logits, each layer's cache: |a-b|/|b|
 # the limits above, else those limits could not see a wrong kernel
 LM_FAULTS = ("causal=False", "kv head h % KV, not h // G",
              "diagonal off by one")
+# colbert_train: examples/train_colbert.py at full ColBERTv2 width
+CT_TRAIN_DATASET = "scidocs"       # the example's training pairs
+CT_SWEEP_DATASET = "scifact"       # its sweep: 600 docs, 80 queries
+CT_STEPS = 200
+CT_BATCH = 32
+CT_RESTART = 100                   # the checkpoint a second Trainer resumes
+CT_LR = 3e-3                       # cosine_schedule(3e-3, 10, CT_STEPS)
+CT_WARMUP = 10
+CT_WARM = 10                       # steps left out of the median step time
+CT_LOG = 20
+CT_LOSS_WINDOW = 20                # the loss must fall: last 20 vs first 20
+CT_FACTORS = (1, 2, 3, 4)
+# restarted vs uninterrupted parameters: bitwise (every op of a step is
+# deterministic; F.embedding's backward sums a row's gradients by sorting)
+CT_RESTART_ATOL = 0.0
+# ward_pool against its plain version on the encoder's own docs: a doc's
+# tokens sit at cosines near 1 (mean 0.965 at step 0, 0.986 trained), so
+# squared distances of ~1e-6 carry 2 - 2 cos's f32 rounding (~2^-22),
+# merges are picked inside that noise and the two greedy paths part
+# (on an H100: 7-13% of docs, objectives up to 3.05% apart). Held as
+# ``ward_agree`` does, as many clusters and Ward objectives within:
+WARD_OBJ_RTOL = 0.05
+CT_READING_LR = 3e-4               # a second run, a reading: 10x lower lr
+# lm_train: Qwen3-0.6B at full width
+LMT_BATCH = 8
+LMT_SEQ = 2048
+LMT_MICRO = 2                      # launch.train's --microbatches
+LMT_STEPS = 4                      # launch.train run A, then resumed to 6
+LMT_RESUME = 6
+LMT_B_STEPS = 4                    # make_lm_train_step calls on one batch
+LMT_REMAT_BATCH = 2                # remat off keeps 28 layers' scores
+# remat on vs off: relative Frobenius, bitwise (the recompute runs the
+# same deterministic kernels on the same inputs; equal on an H100)
+LMT_REMAT_REL = 0.0
+# 2 x 4 vs 1 x 8: each microbatch's weight gradients leave the bf16 GEMMs
+# rounded once (on an H100: losses equal to 1e-6, gradients 0.00235
+# relative at worst)
+LMT_MICRO_LOSS = 1e-3              # loss, max abs
+LMT_MICRO_REL = 1e-2               # gradients, relative Frobenius
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}     # atol = rtol
 FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
     ("qwen3 16/8/64", 1, 16, 8, 4096, 4096, 64, True, "bfloat16"),
@@ -293,6 +354,8 @@ HNSW_DIR = os.path.join(ROOT, "build", "chip_smoke_hnsw")
 STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke_stream")
 PARITY_DIR = os.path.join(ROOT, "build", "chip_smoke_parity")
 SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serve")
+CT_DIR = os.path.join(ROOT, "build", "chip_smoke_colbert_train")
+LMT_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -316,6 +379,8 @@ PATH_KERNELS = {
     "serve": ("plaid_probe", "maxsim_packed"),
     "lm": ("flash_attention",),
     "lm_long": ("flash_attention",),
+    "colbert_train": ("ward_pool", "maxsim_packed"),   # the sweeps
+    "lm_train": (),                    # plain torch: no kernel, no flash
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
@@ -2932,6 +2997,478 @@ def lm_long_path(rt, torch, cfg, model):
     _check_cache("lm_long", cache, p_cache, LM_LONG)
 
 
+def _params_equal(torch, a, b):
+    """(bitwise equal, max abs difference) of two parameter lists."""
+    diff = max(float((x - y).abs().max().detach()) for x, y in zip(a, b))
+    return all(torch.equal(x, y) for x, y in zip(a, b)), diff
+
+
+def _train_batches(cfg):
+    """``examples/train_colbert.py``'s pairs (``train_pairs(steps x
+    batch, seed=1)`` of scidocs), the queries at query_maxlen - 2 ids and
+    the positive docs at the full doc_maxlen - 2 (the example's 64 cut
+    to size for a CPU)."""
+    from repro_torch.data.corpus import DATASET_SPECS, SyntheticRetrievalCorpus
+    corpus = SyntheticRetrievalCorpus(DATASET_SPECS[CT_TRAIN_DATASET],
+                                      vocab_size=cfg.trunk.vocab_size)
+    qs, ds = corpus.train_pairs(CT_STEPS * CT_BATCH, seed=1)
+    qlen, dlen = cfg.query_maxlen - 2, cfg.doc_maxlen - 2
+    out = []
+    for s in range(CT_STEPS):
+        q = np.zeros((CT_BATCH, qlen), np.int32)
+        d = np.zeros((CT_BATCH, dlen), np.int32)
+        for b in range(CT_BATCH):
+            qq = qs[s * CT_BATCH + b][:qlen]
+            dd = corpus.docs[ds[s * CT_BATCH + b]][:dlen]
+            q[b, :len(qq)], d[b, :len(dd)] = qq, dd
+        out.append({"q": q, "d": d})
+    return out
+
+
+def _grads_all_finite(what, torch, model, loss):
+    """Every parameter gets a gradient (not None) and it is finite."""
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True)
+    missing = [n for n, g in zip(names, grads) if g is None]
+    bad = [n for n, g in zip(names, grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    print(f"{what}: {len(names)} parameters, gradients missing "
+          f"{len(missing)}, non-finite {len(bad)}")
+    if missing or bad:
+        raise AssertionError(f"{what}: gradients missing {missing[:5]} or "
+                             f"non-finite {bad[:5]}")
+
+
+def _sweep(rt, torch, dev, model, ds):
+    from repro_torch.eval import QualitySweep
+    t0 = time.perf_counter()
+    rep = QualitySweep(model, ds, methods=("ward",), factors=CT_FACTORS,
+                       backends=("plaid",), quant_bits=(2,),
+                       metrics=("ndcg@10",), k=TOP_K, device=dev).run()
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def _sweep_plain(rt, torch, dev, model, ds, rep):
+    """The sweep's kernels against their plain versions on the trained
+    encoder's own inputs. Ward: every encode batch of the corpus at each
+    factor, each doc's assignments equal to the plain version's or
+    tie-equivalent (``ward_agree``: as many clusters, an equal Ward
+    objective). Search: each cell rebuilt through ``Indexer`` with the
+    kernels (the sweep's own calls: its metrics exactly), then searched
+    with the kernels and with the plain versions (``impl="ref"``) on that
+    index: rankings equal tie-aware, metrics equal but for rankings that
+    differ by ties (each moves the mean by one query's share). A build
+    on the plain versions is printed beside it: a tie broken the other
+    way in one doc moves the codec's centroids, so it is a reading."""
+    from repro_torch.eval import compute_metrics
+    from repro_torch.kernels.ward_pool.ops import ward_assign
+    from repro_torch.kernels.ward_pool.ref import ward_agree, ward_objective
+    from repro_torch.retrieval.indexer import EncodedDocs
+    cfg = model.cfg
+    enc = EncodedDocs.encode(model, ds.doc_tokens, 64)
+    for f in CT_FACTORS[1:]:
+        n_docs = n_equal = n_tied = 0
+        worst = 0.0
+        for v, emit, n_real in enc.batches:
+            got = ward_assign(v, emit, f)
+            want = ward_assign(v, emit, f, impl="ref")
+            ow = ward_objective(v, emit, want)
+            eq = (got == want).all(-1)[:n_real]
+            ok = ward_agree(v, emit, got, want,
+                            atol=WARD_OBJ_RTOL * ow)[:n_real]
+            gap = (ward_objective(v, emit, got) - ow).abs() / ow.clamp(
+                min=1e-30)
+            worst = max(worst, float(gap[:n_real].max()))
+            n_docs += n_real
+            n_equal += int(eq.sum())
+            n_tied += int((ok & ~eq).sum())
+            if not bool(ok.all()):
+                raise AssertionError(f"colbert_train: ward_pool f={f} "
+                                     f"disagrees with its plain version")
+        print(f"colbert_train ward_pool f={f} on the trained encoder's "
+              f"{n_docs} docs: {n_equal} equal to the plain version, "
+              f"{n_tied} tie-equivalent (as many clusters, Ward objectives "
+              f"within {WARD_OBJ_RTOL} relative; largest {worst:.3g})")
+    cells = {c.factor: c for c in rep.cells}
+    for f in CT_FACTORS:
+        got = {}
+        for build_impl in ("auto", "ref"):
+            indexer = rt.Indexer(
+                model, index_spec=rt.IndexSpec.from_config(
+                    cfg, backend="plaid", quant_bits=2),
+                pooling_spec=rt.PoolingSpec("ward" if f > 1 else "none", f),
+                encode_batch=64, device=dev)
+            index, _ = indexer.build(enc, impl=build_impl)
+            searcher = rt.Searcher(model, index, encode_batch=64)
+            for impl in (("auto", "ref") if build_impl == "auto"
+                         else ("ref",)):
+                S, I = searcher.search(ds.query_tokens, k=TOP_K, impl=impl)
+                got[build_impl, impl] = (S, I, compute_metrics(
+                    I, ds.qrels, ("ndcg@10",), device=dev)["ndcg@10"])
+        (S, I, v), (S1, I1, v1) = got["auto", "auto"], got["auto", "ref"]
+        _agree(f"colbert_train sweep f={f} vs plain versions", S, I, S1, I1)
+        swapped = int((I != I1).any(1).sum())
+        want = cells[f].metrics["ndcg@10"]
+        print(f"colbert_train sweep f={f}: ndcg@10 sweep {want:.6f}, "
+              f"rebuilt {v:.6f}, searched on the plain versions {v1:.6f} "
+              f"({swapped} queries' rankings differ by ties); built and "
+              f"searched on the plain versions {got['ref', 'ref'][2]:.6f}")
+        if abs(v - want) > 1e-9:
+            raise AssertionError(f"colbert_train: f={f} rebuilt {v} against "
+                                 f"the sweep's {want}")
+        if abs(v1 - v) > 1e-6 + swapped / ds.n_queries:
+            raise AssertionError(f"colbert_train: f={f} plain versions "
+                                 f"{v1} against {v}")
+
+
+def _mean_token_cos(torch, model, ds):
+    """Mean cosine of two emitting tokens of one doc, over the docs: how
+    far the encoder has collapsed a document onto one vector."""
+    from repro_torch.core.ward import normalize_masked
+    from repro_torch.retrieval.indexer import EncodedDocs
+    cos = []
+    for v, emit, n_real in EncodedDocs.encode(model, ds.doc_tokens,
+                                              64).batches:
+        u = normalize_masked(v, emit)
+        pair = emit[:, :, None] & emit[:, None, :] & ~torch.eye(
+            emit.shape[1], dtype=torch.bool, device=emit.device)
+        c = (u @ u.transpose(1, 2)).masked_fill(~pair, 0.0)
+        cos.append((c.sum((1, 2)) / pair.sum((1, 2)).clamp(min=1))[:n_real])
+    return float(torch.cat(cos).mean())
+
+
+def _profile_step(torch, what, step):
+    """One ``step()`` under ``torch.profiler``: wall ms, device busy ms
+    (the device activities' time, as ``search_split`` sums it; one
+    stream), the idle share and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        n_kernels += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{what}: one step under the profiler {wall:.3f} ms wall, "
+          f"{n_kernels} device activities, busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.3f}); most device time (ms): " + "; ".join(
+              f"{k[:70]} {v:.3f}" for k, v in top))
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                n_device_activities=n_kernels)
+
+
+def colbert_train_path(rt, torch, dev, card):
+    """``examples/train_colbert.py`` at full ColBERTv2 width: 200 AdamW
+    steps of 32 pairs under the example's cosine schedule through the
+    ``Trainer``, checkpointed at step 100; a second ``Trainer`` restores
+    step 100 and runs to 200 again; then ``QualitySweep`` (Ward, f = 1-4,
+    plaid, ndcg@10 over scifact) with the trained encoder, re-run with
+    the plain versions, and at the step-0 weights as a reading."""
+    from repro_torch.eval import synthetic_dataset
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = rt.CONFIG
+    if not cfg.trunk.remat or cfg.trunk.dtype != "bfloat16":
+        raise AssertionError("colbert_train: ColBERTv2 trains with remat "
+                             "in bf16")
+    t0 = time.perf_counter()
+    batches = _train_batches(cfg)
+    model = rt.init_colbert(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"colbert_train setup: {CT_STEPS} batches of {CT_BATCH} "
+          f"{CT_TRAIN_DATASET} pairs (queries {batches[0]['q'].shape[1]}, "
+          f"docs {batches[0]['d'].shape[1]} ids) and ColBERTv2 "
+          f"({n_params} params) in {time.perf_counter() - t0:.3f}s")
+    loss, _ = rt.colbert_loss(model, batches[0]["q"], batches[0]["d"])
+    _grads_all_finite("colbert_train first step", torch, model, loss)
+    del loss
+    ds = synthetic_dataset(CT_SWEEP_DATASET, cfg.trunk.vocab_size,
+                           cfg.doc_maxlen - 2, cfg.query_maxlen - 2)
+    shutil.rmtree(CT_DIR, ignore_errors=True)
+    tcfg = TrainConfig(total_steps=CT_STEPS, checkpoint_every=CT_RESTART,
+                       checkpoint_dir=CT_DIR, max_retries=0, log_every=1,
+                       lr=CT_LR, warmup=CT_WARMUP)
+    stamps, losses, accs = [], {}, {}
+
+    def feed(start):
+        for b in batches[start:]:
+            stamps.append(time.perf_counter())   # each step ends synced
+            yield b
+
+    def hook(step, loss, metrics):
+        losses[step] = loss
+        accs[step] = float(metrics["acc"])
+        if step % CT_LOG == 0:
+            print(f"colbert_train step {step}: loss {loss:.4f}, in-batch "
+                  f"acc {accs[step]:.4f} [{card}]")
+
+    def loss_fn(m, b):
+        return rt.colbert_loss(m, b["q"], b["d"])
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(loss_fn, model, tcfg, device=dev)
+        trainer.run(feed(0), hooks=hook)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trained, sweep_s = _sweep(rt, torch, dev, model, ds)
+        # readings: the step-0 weights, then the same run at a lower lr
+        low = rt.init_colbert(cfg, seed=SEED, device=dev)
+        untrained, _ = _sweep(rt, torch, dev, low, ds)
+        cos = {"step 0": _mean_token_cos(torch, low, ds)}
+        low_hist = Trainer(loss_fn, low, dataclasses.replace(
+            tcfg, lr=CT_READING_LR, checkpoint_dir=None,
+            log_every=CT_STEPS), device=dev).run(iter(batches))["history"]
+        low_rep, _ = _sweep(rt, torch, dev, low, ds)
+        cos[f"lr {CT_READING_LR}"] = _mean_token_cos(torch, low, ds)
+        cos[f"lr {CT_LR}"] = _mean_token_cos(torch, model, ds)
+        return (train_s, peak, trained, sweep_s, untrained, low_rep,
+                low_hist[-1]["loss"], cos)
+
+    (train_s, peak, trained, sweep_s, untrained, low_rep, low_loss,
+     cos) = run_path("colbert_train", torch, drive)
+    if PATH_LAUNCHES["colbert_train"]["flash_attention"]:
+        raise AssertionError("colbert_train launched flash_attention")
+    steps_ms = np.diff(stamps[:CT_STEPS]) * 1e3
+    step_ms = float(np.median(steps_ms[CT_WARM:]))
+    w = CT_LOSS_WINDOW
+    first = float(np.mean([losses[s] for s in range(1, w + 1)]))
+    last = float(np.mean([losses[s] for s in range(CT_STEPS - w + 1,
+                                                   CT_STEPS + 1)]))
+    print(f"colbert_train: {CT_STEPS} steps in {train_s:.3f}s (3 "
+          f"checkpoints included); median step {step_ms:.3f} ms after "
+          f"{CT_WARM} warm steps ({CT_BATCH / step_ms * 1e3:.1f} pairs/s); "
+          f"peak device memory {peak} bytes; mean loss of steps 1-{w} "
+          f"{first:.4f}, of steps {CT_STEPS - w + 1}-{CT_STEPS} {last:.4f}; "
+          f"in-batch acc at {CT_STEPS} {accs[CT_STEPS]:.4f} [{card}]")
+    if not last < first:
+        raise AssertionError("colbert_train: the loss did not fall")
+    after = [p.detach().clone() for p in model.parameters()]
+
+    # a crash after step 100: the final checkpoint gone, a new process
+    shutil.rmtree(os.path.join(CT_DIR, f"step_{CT_STEPS}"))
+    restarted = rt.init_colbert(cfg, seed=SEED + 1, device=dev)
+    t2 = Trainer(loss_fn, restarted, tcfg, device=dev)
+    if t2.maybe_restore() != CT_RESTART:
+        raise AssertionError(f"colbert_train: restored step {t2.step}, not "
+                             f"{CT_RESTART}")
+    stamps.clear()
+    t2.run(feed(CT_RESTART))
+    torch.cuda.synchronize()
+    equal, diff = _params_equal(torch, after, list(restarted.parameters()))
+    print(f"colbert_train: restarted at step {CT_RESTART} and run to "
+          f"{CT_STEPS}: parameters bitwise equal to the uninterrupted "
+          f"run's {equal} (max abs difference {diff:.3g}, limit "
+          f"{CT_RESTART_ATOL})")
+    if diff > CT_RESTART_ATOL:
+        raise AssertionError("colbert_train: the restarted run diverged")
+    del restarted, t2, after
+    shutil.rmtree(CT_DIR, ignore_errors=True)
+
+    print(f"colbert_train: mean cosine of two tokens of one doc: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          + f"; the lr {CT_READING_LR} run's loss at step {CT_STEPS} "
+            f"{low_loss:.4f} (a reading) [{card}]")
+    for rep, what in ((trained, f"trained {CT_STEPS} steps at lr {CT_LR}"),
+                      (untrained, "step 0 (a reading)"),
+                      (low_rep, f"trained {CT_STEPS} steps at lr "
+                                f"{CT_READING_LR} (a reading)")):
+        for c in rep.cells:
+            if c.factor == 1 and not (
+                    c.shared_baseline and c.relative["ndcg@10"] == 100.0):
+                raise AssertionError("colbert_train: a factor-1 cell is not "
+                                     "exactly 100.0")
+        base = next(iter(rep.baselines.values())).metrics["ndcg@10"]
+        print(f"colbert_train sweep, {what}: {CT_SWEEP_DATASET} "
+              f"({ds.n_docs} docs, {ds.n_queries} queries) plaid 2-bit "
+              f"ndcg@10 {base:.4f}; Ward relative ndcg@10 "
+              + ", ".join(f"f={c.factor} {c.relative['ndcg@10']:.2f}"
+                          for c in rep.cells) + f" [{card}]")
+    print(trained.markdown_table("ndcg@10", "plaid", 2))
+    _sweep_plain(rt, torch, dev, model, ds, trained)
+    opt = rt.make_optimizer("adamw", CT_LR)
+    state = opt.init(model)
+    b = batches[-1]
+    prof = _profile_step(torch, "colbert_train", lambda: rt.colbert_train_step(
+        model, state, b["q"], b["d"], opt))
+    return dict(step_ms=step_ms, pairs_s=CT_BATCH / step_ms * 1e3,
+                peak_bytes=peak, loss_first20=first, loss_last20=last,
+                acc_final=accs[CT_STEPS], restart_max_abs=diff,
+                sweep_s=sweep_s,
+                relative_trained={c.factor: c.relative["ndcg@10"]
+                                  for c in trained.cells},
+                relative_step0={c.factor: c.relative["ndcg@10"]
+                                for c in untrained.cells},
+                relative_low_lr={c.factor: c.relative["ndcg@10"]
+                                 for c in low_rep.cells},
+                mean_token_cos=cos, profile=prof)
+
+
+def _rel_errors(torch, got, want):
+    """Largest relative (Frobenius) difference over paired gradient lists
+    and its parameter index."""
+    worst, at = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        r = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        if r > worst:
+            worst, at = r, i
+    return worst, at
+
+
+def lm_train_path(rt, torch, dev, card):
+    """Qwen3-0.6B training at full width (random weights from seed 0,
+    bf16 compute, f32 AdamW, remat): ``launch.train.main`` for 4 steps
+    of 8 x 2,048 tokens in 2 microbatches, checkpointed, then again to 6
+    steps, which must resume at 4; ``make_lm_train_step`` 4 times on one
+    fixed batch (the loss must fall); every parameter's gradient finite;
+    remat on against off at 2 x 2,048; 2 microbatches of 4 against one
+    batch of 8; ``use_flash_kernel`` refused."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import lm_grads
+    from repro_torch.train.params import leaves
+    cfg = rt.get_config(LM_ARCH)
+    if not cfg.remat or cfg.use_flash_kernel or cfg.optimizer != "adamw":
+        raise AssertionError(f"{LM_ARCH}: expected remat, adamw, no flash")
+    shutil.rmtree(LMT_DIR, ignore_errors=True)
+    args = ["--arch", LM_ARCH, "--batch", str(LMT_BATCH), "--seq",
+            str(LMT_SEQ), "--microbatches", str(LMT_MICRO),
+            "--checkpoint-dir", LMT_DIR, "--max-retries", "0"]
+    rng = np.random.default_rng(SEED + 2)
+    toks = rng.integers(0, cfg.vocab_size, (LMT_BATCH, LMT_SEQ + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32,
+                                       device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
+                                       device=dev)}
+
+    def run_main(steps):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = launch_train.main(args + ["--steps", str(steps)])
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        text = out.getvalue()
+        print("\n".join(f"lm_train main: {line}"
+                        for line in text.strip().splitlines()))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return code, text, s
+
+    def drive():
+        code, text, a_s = run_main(LMT_STEPS)
+        if code or f"finished at step {LMT_STEPS}" not in text:
+            raise AssertionError("lm_train: run A did not finish")
+        code, text, r_s = run_main(LMT_RESUME)
+        if (code or f"resumed from step {LMT_STEPS}" not in text
+                or f"finished at step {LMT_RESUME}" not in text):
+            raise AssertionError("lm_train: run A did not resume")
+        model = rt.init_transformer(cfg, seed=SEED, device=dev)
+        step, opt = rt.make_lm_train_step(cfg, device=dev)
+        state = opt.init(model)
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for _ in range(LMT_B_STEPS):
+            t0 = time.perf_counter()
+            state, out = step(model, state, batch)
+            losses.append(float(out["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return model, a_s, r_s, losses, secs, torch.cuda.max_memory_allocated()
+
+    model, a_s, r_s, losses, secs, peak = run_path("lm_train", torch, drive)
+    if any(PATH_LAUNCHES["lm_train"].values()):
+        raise AssertionError("lm_train launched a kernel")
+    n_tok = LMT_BATCH * LMT_SEQ
+    step_s = float(np.median(secs[1:]))
+    print(f"lm_train: launch.train run A ({LMT_STEPS} steps, checkpoint "
+          f"included) {a_s:.3f}s, resumed to {LMT_RESUME} in {r_s:.3f}s; "
+          f"make_lm_train_step on one batch of {LMT_BATCH} x {LMT_SEQ}: "
+          f"losses {[round(x, 4) for x in losses]}, step s {secs} (median "
+          f"after the first {step_s:.4f} s, {n_tok / step_s:.1f} tokens/s); "
+          f"peak device memory {peak} bytes [{card}]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("lm_train: the loss did not fall")
+    step, opt = rt.make_lm_train_step(cfg, device=dev)
+    state = opt.init(model)
+    prof = _profile_step(torch, "lm_train", lambda: step(model, state, batch))
+    del state
+    from repro_torch.models.transformer import lm_loss
+    loss, _ = lm_loss(model, batch["tokens"], batch["labels"], cfg)
+    _grads_all_finite("lm_train", torch, model, loss)
+    del loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat on against off, at batch 2 (no remat keeps every layer's scores)
+    small = {k: v[:LMT_REMAT_BATCH] for k, v in batch.items()}
+    res = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        loss, g = lm_grads(model, small["tokens"], small["labels"], c)
+        res[remat] = (float(loss), leaves(g), torch.cuda.max_memory_allocated())
+        del g
+    equal, diff = _params_equal(torch, res[True][1], res[False][1])
+    rel, _ = _rel_errors(torch, res[True][1], res[False][1])
+    print(f"lm_train remat at {LMT_REMAT_BATCH} x {LMT_SEQ}: loss on "
+          f"{res[True][0]:.6f}, off {res[False][0]:.6f}; gradients bitwise "
+          f"equal {equal}, max abs difference {diff:.3g}, largest relative "
+          f"(Frobenius) {rel:.3g} (limit {LMT_REMAT_REL}); peak device memory "
+          f"on {res[True][2]}, off {res[False][2]} bytes [{card}]")
+    if rel > LMT_REMAT_REL or res[True][0] != res[False][0]:
+        raise AssertionError("lm_train: remat changes the gradients")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 microbatches of 4 against one batch of 8 (f32 accumulator)
+    one, g1 = lm_grads(model, batch["tokens"], batch["labels"], cfg)
+    g1 = leaves(g1)
+    two, g2 = lm_grads(model, batch["tokens"], batch["labels"],
+                       dataclasses.replace(cfg, train_microbatches=2))
+    g2 = leaves(g2)
+    rel, at = _rel_errors(torch, g2, g1)
+    name = [n for n, _ in model.named_parameters()][at]
+    print(f"lm_train microbatches: loss of one batch of {LMT_BATCH} "
+          f"{float(one):.6f}, of 2 x {LMT_BATCH // 2} {float(two):.6f} "
+          f"(limit {LMT_MICRO_LOSS}); gradients' largest relative "
+          f"(Frobenius) difference {rel:.3g} at {name} (limit "
+          f"{LMT_MICRO_REL}) [{card}]")
+    if abs(float(one) - float(two)) > LMT_MICRO_LOSS or rel > LMT_MICRO_REL:
+        raise AssertionError("lm_train: microbatches disagree")
+    del g1, g2
+    try:
+        rt.make_lm_train_step(dataclasses.replace(cfg, use_flash_kernel=True),
+                              device=dev)
+    except ValueError as e:
+        print(f"lm_train: make_lm_train_step refuses use_flash_kernel: {e}")
+    else:
+        raise AssertionError("lm_train: use_flash_kernel was not refused")
+    del model
+    shutil.rmtree(LMT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, tokens_s=n_tok / step_s, peak_bytes=peak,
+                losses=losses, run_a_s=a_s, resume_s=r_s,
+                remat_max_abs=diff, micro_rel=rel, profile=prof)
+
+
 def check_flash_attention(torch, dev):
     """The kernel against its plain version on seeded random inputs, then
     timed at the lm path's per-layer shape with the plain version and
@@ -3145,10 +3682,20 @@ def main(argv=None) -> int:
 
     _agree("main path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
+    # the train paths come last: their profiled steps open profiler
+    # sessions of their own, after which ``search_split`` found no
+    # device time in its ranges
+    gc.collect()
+    torch.cuda.empty_cache()
+    colbert_train = colbert_train_path(rt, torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train = lm_train_path(rt, torch, dev, card)
 
     print(json.dumps({"kernels": kernels, "search_split_ms": split,
                       "recon_split_ms": recon_split, "eval": eval_numbers,
-                      "serve": serve_numbers}))
+                      "serve": serve_numbers, "colbert_train": colbert_train,
+                      "lm_train": lm_train, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ monolithic or streamed into capped shards (``ShardedIndex``), or the
 pooled two-level cascade, artifacts in the JAX package's format both
 ways, and query encode -> device or host probe/prune, or HNSW token
 probes -> packed, f32 or dense rerank -> top-k, all behind the
-spec-driven ``Retriever`` facade; and causal-LM serving (prefill and
-decode) of the dense Qwen trunks.
+spec-driven ``Retriever`` facade; causal-LM serving (prefill and
+decode) of the dense Qwen trunks; and training: the ColBERT contrastive
+step and the causal-LM train step, AdamW / Adafactor, the fault-tolerant
+``Trainer`` and checkpoints in the JAX package's format.
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 
@@ -34,6 +36,11 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
         lm, {"tokens": prompts})
     logits, cache = rt.make_lm_decode_step(cfg)(
         lm, cache, {"token": logits.argmax(-1)[:, None], "pos": S})
+
+    trainer = rt.Trainer(lambda m, b: rt.colbert_loss(m, b["q"], b["d"]),
+                         model, rt.TrainConfig(total_steps=200,
+                                               checkpoint_dir="ckpt"))
+    trainer.run(batches)                # {"q": [B, Lq], "d": [B, Ld]} ids
 
 Attributes resolve lazily so ``import repro_torch`` stays cheap.
 """
@@ -77,6 +84,18 @@ _EXPORTS = {
     "make_lm_decode_step": "repro_torch.launch.steps",
     "make_colbert_index_step": "repro_torch.launch.steps",
     "make_colbert_search_step": "repro_torch.launch.steps",
+    "make_lm_train_step": "repro_torch.launch.steps",
+    "lm_loss": "repro_torch.models.transformer",
+    "colbert_loss": "repro_torch.models.colbert",
+    "colbert_train_step": "repro_torch.models.colbert",
+    "params_to_jax": "repro_torch.models.colbert",
+    "make_optimizer": "repro_torch.train",
+    "Optimizer": "repro_torch.train",
+    "CheckpointManager": "repro_torch.train",
+    "Trainer": "repro_torch.train",
+    "TrainConfig": "repro_torch.train",
+    "DataPipeline": "repro_torch.data.pipeline",
+    "lm_batches": "repro_torch.data.pipeline",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -2,11 +2,11 @@
 
 Copies of ``src/repro/configs/base.py`` ``TransformerConfig`` and
 ``ColbertConfig``. ``TransformerConfig`` keeps the fields the ported
-encoder and causal-LM paths read, each with the reference's default, so
-a config copied here equals the reference's on every field it has. The
-reference's execution and sharding hints (``scan_layers``, ``remat``,
-``attn_shard``, ``train_microbatches`` and the like) are left out until
-training or sharding is ported and reads them. Frozen, so
+encoder, causal-LM and training paths read, each with the reference's
+default, so a config copied here equals the reference's on every field
+it has. The reference's sharding hints (``scan_layers``, ``attn_shard``,
+``fsdp_params``, ``unroll_scans``) are left out until sharding is ported
+and reads them. Frozen, so
 ``dataclasses.replace`` makes variants (the tests run in
 ``dtype="float32"``; the flash kernel is switched on with
 ``use_flash_kernel=True``).
@@ -59,6 +59,13 @@ class TransformerConfig:
     max_seq_len: int = 32768
     dtype: str = "bfloat16"            # compute dtype
     param_dtype: str = "float32"
+    remat: bool = True                 # recompute each block in backward
+    logits_chunk: int = 1024           # seq-chunking of the xent loss
+
+    # --- training ---
+    optimizer: str = "adamw"           # "adamw" | "adafactor"
+    train_microbatches: int = 1        # grad accumulation in the LM step
+    grad_accum_dtype: str = "float32"  # the accumulator's dtype
 
     def __post_init__(self):
         if self.d_head == 0:

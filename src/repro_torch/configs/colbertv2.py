@@ -29,7 +29,7 @@ SMOKE_TRUNK = TransformerConfig(
     name="colbert-smoke-trunk", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=4, d_ff=128, vocab_size=1024, causal=False,
     pos_emb="learned", gated_mlp=False, act="gelu", norm="layernorm",
-    max_seq_len=64, attn_full_threshold=4096)
+    remat=False, max_seq_len=64, attn_full_threshold=4096)
 
 SMOKE = ColbertConfig(name="colbert-smoke", trunk=SMOKE_TRUNK, proj_dim=32,
                       doc_maxlen=48, query_maxlen=8, n_centroids=32)

@@ -2,7 +2,7 @@
 
 24L d_model=1024 16H (kv=16 -> MHA) d_ff=2816 vocab=151936.
 Copy of ``src/repro/configs/qwen1_5_0_5b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the training and sharding hints.
+``SMOKE``), without the sharding hints.
 """
 from repro_torch.configs.base import TransformerConfig
 
@@ -27,6 +27,7 @@ SMOKE = TransformerConfig(
     d_ff=88,
     vocab_size=512,
     qkv_bias=True,
+    remat=False,
     attn_full_threshold=4096,
     max_seq_len=128,
 )

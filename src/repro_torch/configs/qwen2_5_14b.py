@@ -2,7 +2,7 @@
 
 48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064.
 Copy of ``src/repro/configs/qwen2_5_14b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the training and sharding hints.
+``SMOKE``), without the sharding hints.
 """
 from repro_torch.configs.base import TransformerConfig
 
@@ -16,6 +16,7 @@ CONFIG = TransformerConfig(
     vocab_size=152064,
     qkv_bias=True,
     rope_theta=1_000_000.0,
+    train_microbatches=4,
 )
 
 SMOKE = TransformerConfig(
@@ -27,6 +28,7 @@ SMOKE = TransformerConfig(
     d_ff=128,
     vocab_size=512,
     qkv_bias=True,
+    remat=False,
     attn_full_threshold=4096,
     max_seq_len=128,
 )

@@ -2,7 +2,7 @@
 
 28L d_model=1024 16H (GQA kv=8) d_ff=3072 vocab=151936.
 Copy of ``src/repro/configs/qwen3_0_6b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the training and sharding hints.
+``SMOKE``), without the sharding hints.
 """
 from repro_torch.configs.base import TransformerConfig
 
@@ -27,6 +27,7 @@ SMOKE = TransformerConfig(
     d_ff=96,
     vocab_size=512,
     qk_norm=True,
+    remat=False,
     attn_full_threshold=4096,
     max_seq_len=128,
 )

@@ -1,1 +1,2 @@
-"""Offline data: hash tokenizer and synthetic retrieval corpora."""
+"""Offline data: hash tokenizer, synthetic retrieval corpora and the
+training data pipeline."""

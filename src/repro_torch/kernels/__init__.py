@@ -5,7 +5,8 @@ allocation, launch on the current stream, launch counter) and ``ref.py``
 (the plain PyTorch version of the same function). A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises. ``impl="ref"`` forces the plain version — only the
-tests and ``chip_smoke.py`` pass it.
+tests and ``chip_smoke.py`` pass it. No kernel has a backward, so every
+wrapper raises when autograd would record its call (``check_no_grad``).
 """
 from __future__ import annotations
 
@@ -60,6 +61,22 @@ class LaunchCounter:
 def check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record the call: grad mode on and an
+    input that requires grad. No kernel has a backward (nor has its
+    Pallas counterpart: no ``custom_vjp``), so a launch would hand back a
+    tensor autograd cannot see through and drop the gradient silently on
+    the card; the CPU's plain version raises too, so a CPU test shows
+    what the card would do."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and neither package has a "
+            f"backward for this kernel; call it under torch.no_grad() or "
+            f"on tensors that do not require grad")
 
 
 def check_cuda(name: str, **tensors) -> None:

@@ -1,13 +1,20 @@
-"""Serving steps of the causal LM (``src/repro/launch/steps.py``
-``make_lm_prefill_step`` and ``make_lm_decode_step``) and of ColBERT
-retrieval (``make_colbert_index_step``, ``make_colbert_search_step``).
+"""Steps of the causal LM (``src/repro/launch/steps.py``
+``make_lm_train_step``, ``make_lm_prefill_step``,
+``make_lm_decode_step``) and of ColBERT retrieval
+(``make_colbert_index_step``, ``make_colbert_search_step``).
 
 A builder takes the config that decides the attention path (so
 ``dataclasses.replace(cfg, use_flash_kernel=True)`` runs the prefill
 through the ``flash_attention`` kernel) and the device the batches go
 to: ``cuda`` unless the caller passes one, raising without a card. The
-steps take the model in place of the reference's parameter tree and run
-without autograd. Training steps are not ported yet.
+steps take the model in place of the reference's parameter tree; the
+serving steps run without autograd.
+
+The train step (``lm_grads``, then the clip and the optimizer) takes
+the gradient of ``lm_loss`` by autograd over ``cfg.train_microbatches``
+slices of the batch, summed in ``cfg.grad_accum_dtype``, and updates the
+model in place. It refuses ``use_flash_kernel``: the kernel has no
+backward, in either package.
 
 The ColBERT steps: the index step encodes a doc batch and pools it
 (Ward through the ``ward_pool`` kernel); the search step encodes the
@@ -30,6 +37,53 @@ def _check_lm(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE trunks (models/moe.py) are not ported yet "
             f"(ROADMAP queue 1)")
+
+
+def lm_grads(model, tokens: torch.Tensor, labels: torch.Tensor, cfg):
+    """The loss and gradient (in the model's groups) of ``lm_loss`` on
+    one batch: at ``cfg.train_microbatches`` > 1 the mean loss and the
+    gradients of its consecutive slices summed in ``cfg.grad_accum_dtype``
+    and divided by their count, as the reference's scan does."""
+    from repro_torch.models.layers import dt
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.params import microbatch_value_and_grad
+
+    def loss_fn(m, b):
+        return lm_loss(m, b["tokens"], b["labels"], cfg)
+
+    loss, _, grads = microbatch_value_and_grad(
+        loss_fn, model, {"tokens": tokens, "labels": labels},
+        cfg.train_microbatches, dt(cfg.grad_accum_dtype))
+    return loss, grads
+
+
+def make_lm_train_step(cfg, lr: float = 1e-4, *,
+                       device: DeviceLike = None):
+    """-> (train_step, opt): ``train_step(model, opt_state, batch{"tokens",
+    "labels" [B, S]}) -> (opt_state, {"loss", "grad_norm"})``, the model
+    updated in place; the gradient clipped to a global norm of 1.0 (the
+    norm reported is the one before the clip), then ``cfg.optimizer`` at
+    a constant ``lr``."""
+    from repro_torch.train.optimizer import (clip_by_global_norm,
+                                             make_optimizer)
+    from repro_torch.train.params import param_groups
+    _check_lm(cfg)
+    if cfg.use_flash_kernel:
+        raise ValueError(
+            f"{cfg.name}: use_flash_kernel has no train step: the "
+            f"flash_attention kernel has no backward, in either package")
+    dev = resolve_device(device)
+    opt = make_optimizer(cfg.optimizer, lr)
+
+    def train_step(model, opt_state, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        loss, grads = lm_grads(model, tokens, labels, cfg)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        opt_state = opt.update(param_groups(model), grads, opt_state)
+        return opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step, opt
 
 
 def make_lm_prefill_step(cfg, *, max_len: int = None,

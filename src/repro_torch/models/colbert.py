@@ -9,7 +9,13 @@ a linear projection to ``proj_dim`` and L2 normalization.
 
 ``init_colbert`` draws random weights from a seeded ``torch.Generator``
 with the reference initializers' distributions; ``params_from_jax``
-turns the reference's parameter tree into this module's state.
+turns the reference's parameter tree into this module's state and
+``params_to_jax`` back.
+
+Training: ``colbert_loss``, the in-batch-negative contrastive loss over
+MaxSim scores (ColBERTv2's objective without distillation), and
+``colbert_train_step``. ``encode_queries`` / ``encode_docs`` run without
+autograd; the loss encodes with it.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense, Embed, dt
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.transformer import params_from_jax as trunk_params
+from repro_torch.models.transformer import params_to_jax as trunk_to_jax
+from repro_torch.train.params import host, param_groups, value_and_grad
 
 # Special token ids (data/tokenizer.py — shared vocabulary layout)
 PAD_ID, CLS_ID, SEP_ID, MASK_ID, Q_MARK_ID, D_MARK_ID = 0, 1, 2, 3, 4, 5
@@ -85,6 +93,14 @@ def params_from_jax(tree) -> Dict[str, np.ndarray]:
     return state
 
 
+def params_to_jax(state) -> Dict:
+    """The inverse of ``params_from_jax``: this module's state (tensors
+    or arrays) -> the reference's ``{trunk, proj}`` tree of host arrays,
+    the trunk's layers stacked (no ``lm_head``: the encoder has none)."""
+    return {"trunk": trunk_to_jax(state, prefix="trunk."),
+            "proj": {"w": host(state["proj.w"])}}
+
+
 def prepare_query_tokens(tokens: torch.Tensor, query_maxlen: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, L] raw ids -> ([B, Lq] [CLS][Q] body, PAD slots as [MASK];
@@ -130,20 +146,61 @@ def _ids(model: ColBERT, tokens) -> torch.Tensor:
                            else tokens, device=model.device)
 
 
+def _encode_queries(model: ColBERT, tokens):
+    toks, attn = prepare_query_tokens(_ids(model, tokens),
+                                      model.cfg.query_maxlen)
+    return model(toks, attn), torch.ones_like(attn)
+
+
+def _encode_docs(model: ColBERT, tokens):
+    toks, attn = prepare_doc_tokens(_ids(model, tokens), model.cfg.doc_maxlen)
+    v = model(toks, attn)
+    emit = emit_mask_docs(toks, attn, model.cfg.mask_punctuation)
+    return torch.where(emit[..., None], v, torch.zeros((), device=v.device)), emit
+
+
 @torch.no_grad()
 def encode_queries(model: ColBERT, tokens):
     """Raw query ids [B, L] -> ([B, Lq, dim] unit vectors, emit mask);
     every expanded slot emits."""
-    toks, attn = prepare_query_tokens(_ids(model, tokens),
-                                      model.cfg.query_maxlen)
-    return model(toks, attn), torch.ones_like(attn)
+    return _encode_queries(model, tokens)
 
 
 @torch.no_grad()
 def encode_docs(model: ColBERT, tokens):
     """Raw doc ids [B, L] -> ([B, Ld, dim] unit vectors, emit mask);
     non-emitting slots are zero."""
-    toks, attn = prepare_doc_tokens(_ids(model, tokens), model.cfg.doc_maxlen)
-    v = model(toks, attn)
-    emit = emit_mask_docs(toks, attn, model.cfg.mask_punctuation)
-    return torch.where(emit[..., None], v, torch.zeros((), device=v.device)), emit
+    return _encode_docs(model, tokens)
+
+
+# ---------------------------------------------------------------------------
+# Training objective: in-batch-negative contrastive MaxSim
+# ---------------------------------------------------------------------------
+def colbert_loss(model: ColBERT, q_tokens, d_tokens):
+    """q_tokens [B, Lq0], d_tokens [B, Ld0] raw ids; positives on the
+    diagonal -> (loss, {"loss", "acc"}) over the full [B, B] in-batch
+    MaxSim (plain torch, as the reference's ``einsum``; encoded with
+    autograd, the trunk's blocks recomputed in backward under
+    ``remat``)."""
+    qv, qm = _encode_queries(model, q_tokens)
+    dv, dm = _encode_docs(model, d_tokens)
+    sim = torch.einsum("qld,nkd->qnlk", qv, dv)          # [B, B, Lq, Ld]
+    sim = sim.masked_fill(~dm[None, :, None, :], float("-inf"))
+    best = sim.amax(dim=-1)
+    best = torch.where(qm[:, None, :] & torch.isfinite(best), best,
+                       torch.zeros((), device=best.device))
+    scores = best.sum(dim=-1)                            # [B, B]
+    labels = torch.arange(scores.shape[0], device=scores.device)
+    logp = torch.log_softmax(scores, dim=-1)
+    loss = -logp[labels, labels].mean()
+    acc = (scores.argmax(-1) == labels).float().mean()
+    return loss, {"loss": loss.detach(), "acc": acc}
+
+
+def colbert_train_step(model: ColBERT, opt_state, q_tokens, d_tokens, opt):
+    """One contrastive step: the gradient of ``colbert_loss``, then
+    ``opt.update`` of the model's parameters in place -> (opt_state,
+    metrics)."""
+    _, metrics, grads = value_and_grad(colbert_loss, model, q_tokens,
+                                       d_tokens)
+    return opt.update(param_groups(model), grads, opt_state), metrics

@@ -9,7 +9,9 @@ activations are cast on entry, as in the reference:
   * ``dense`` casts weight (and bias) to the input's dtype, then ``@``;
   * ``RMSNorm`` and ``LayerNorm`` compute in f32 and cast back to the
     input's dtype; ``norm`` picks one by the config's name;
-  * ``embed`` casts the table first, then gathers;
+  * ``embed`` casts the table first, then gathers (``F.embedding``,
+    whose backward on the card sums each row's gradient by sorting the
+    ids, not by atomics: a train step is deterministic);
   * GELU is the tanh form (``jax.nn.gelu``'s default); ``act_fn`` maps
     the reference's activation names (silu, gelu, relu, tanh).
 """
@@ -112,7 +114,7 @@ class Embed(nn.Module):
         trunc_normal_(self.table, 0.02, generator)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.table.to(dtype)[ids]
+        return F.embedding(ids, self.table.to(dtype))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,16 @@ Embeddings and the residual stream are in the compute dtype.
     ``max_len``;
   * ``decode_step`` — one token against the cache (written in place).
 
+``lm_loss`` is the training loss (autograd through ``forward``; blocks
+recomputed in backward under ``cfg.remat``).
+
 The methods take an optional ``cfg`` that decides the attention path
 (``use_flash_kernel``, ``attn_full_threshold``, ``attn_chunk``), as the
 reference's functions take theirs; the module's own config is the
 default and fixes the shapes. ``init_transformer`` draws seeded random
 weights; ``params_from_jax`` turns the reference's parameter tree into
-a module's state. MoE trunks are not ported.
+a module's state and ``params_to_jax`` a state back into the tree. MoE
+trunks are not ported.
 """
 from __future__ import annotations
 
@@ -28,12 +32,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_forward)
 from repro_torch.models.layers import Dense, Embed, dt, norm
 from repro_torch.models.mlp import MLP
+from repro_torch.train.params import group, to_tree
 
 
 class Block(nn.Module):
@@ -98,12 +104,21 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, pad_mask: torch.Tensor = None,
                 cfg=None) -> torch.Tensor:
-        """tokens [B, S] -> hidden [B, S, d_model] in the compute dtype."""
+        """tokens [B, S] -> hidden [B, S, d_model] in the compute dtype.
+        Under autograd with ``cfg.remat`` each block is recomputed in the
+        backward pass (``torch.utils.checkpoint``), so only the blocks'
+        inputs are kept: the reference's ``jax.checkpoint`` of its
+        scanned block."""
         cfg = cfg or self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed(tokens, positions, cfg)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, pad_mask, positions, cfg)
+            if remat:
+                x = checkpoint(layer, x, pad_mask, positions, cfg,
+                               use_reentrant=False)
+            else:
+                x = layer(x, pad_mask, positions, cfg)
         return self.final_norm(x)
 
     def load_params(self, state: Dict[str, np.ndarray]) -> "Transformer":
@@ -168,6 +183,46 @@ class TransformerLM(Transformer):
         return self.logits_head(self.final_norm(x)), cache
 
 
+def lm_loss(model: TransformerLM, tokens: torch.Tensor,
+            labels: torch.Tensor, cfg=None, loss_mask=None):
+    """Causal-LM cross entropy (``src/repro/models/transformer.py``
+    ``lm_loss``); tokens and labels [B, S], labels pre-shifted ->
+    (loss + aux, {"xent", "aux", "tokens"}).
+
+    The head and the f32 cross entropy run over ``cfg.logits_chunk``
+    slices of the sequence, each recomputed in the backward pass under
+    autograd, so the [B, S, V] logits never live at once: at most one
+    chunk's. ``aux`` (the MoE router loss) is 0 on a dense trunk."""
+    cfg = cfg or model.cfg
+    hidden = model(tokens, cfg=cfg)
+    B, S, _ = hidden.shape
+    chunk = min(cfg.logits_chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of logits_chunk "
+                         f"{chunk}")
+    labels = labels.long()
+    mask = (torch.ones(labels.shape, device=hidden.device)
+            if loss_mask is None else loss_mask.float())
+
+    def chunk_nll(h, lab, msk):
+        lg = model.logits_head(h).float()
+        gold = torch.gather(lg, -1, lab[..., None])[..., 0]
+        return ((torch.logsumexp(lg, dim=-1) - gold) * msk).sum()
+
+    tot = torch.zeros((), device=hidden.device)
+    for lo in range(0, S, chunk):
+        args = (hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk],
+                mask[:, lo:lo + chunk])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(chunk_nll, *args, use_reentrant=False)
+        else:
+            tot = tot + chunk_nll(*args)
+    cnt = mask.sum()
+    loss = tot / torch.clamp(cnt, min=1.0)
+    aux = torch.zeros((), device=hidden.device)
+    return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
+
+
 def init_transformer(cfg, generator: Optional[torch.Generator] = None, *,
                      seed: int = 0, device: DeviceLike = None
                      ) -> TransformerLM:
@@ -212,3 +267,11 @@ def params_from_jax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             _flatten(sub, f"{prefix}{key}.", state)
     return state
+
+
+def params_to_jax(state, prefix: str = "") -> Dict:
+    """The inverse of ``params_from_jax``: a trunk's state (the names
+    under ``prefix``; tensors or arrays) -> the reference's tree of host
+    arrays, ``layers.<i>`` stacked on axis 0 under ``dense_layers``."""
+    return to_tree(group((name[len(prefix):], v) for name, v in state.items()
+                         if name.startswith(prefix)))

@@ -5,6 +5,8 @@
 * entry points given no device run on ``cuda`` and raise without one —
   they never fall back to the CPU quietly;
 * CPU tensors run the kernels' plain versions (no launch is counted);
+* every kernel wrapper refuses a call autograd would record (no kernel
+  has a backward), on the CPU as on the card;
 * where the reference takes the host probe path and the dense
   fallback, so does the port, with the reference's results; what is not
   ported yet (the replicated index's SPMD flat plan, the MoE, GNN and
@@ -46,7 +48,9 @@ def test_port_imports_neither_jax_nor_reference():
               "configs.qwen3_0_6b", "configs.qwen1_5_0_5b",
               "configs.qwen2_5_14b", "core.sharded", "core.spec", "api",
               "core.replicated", "eval.metrics", "eval.sweep",
-              "launch.engine", "launch.serve", "retrieval.evaluate"):
+              "launch.engine", "launch.serve", "retrieval.evaluate",
+              "train.optimizer", "train.checkpoint", "train.trainer",
+              "train.params", "data.pipeline", "launch.train"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -122,6 +126,15 @@ def test_entry_points_without_device_need_cuda(monkeypatch, tmp_path):
         compute_metrics(np.zeros((1, 2), np.int64), [{0: 1}], ("ndcg@2",))
     with pytest.raises(RuntimeError, match="CUDA"):
         QualitySweep(model, None)
+    from repro_torch.launch import train as launch_train
+    lm_cfg = rt.get_smoke_config("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.make_lm_train_step(lm_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.Trainer(lambda m, b: rt.colbert_loss(m, b["q"], b["d"]), model,
+                   rt.TrainConfig())
     searcher = rt.Searcher(model, MultiVectorIndex(dim=8, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(searcher)
@@ -249,3 +262,65 @@ def test_moe_config_raises_in_the_lm_entry_points():
             build(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params_from_jax({"moe_layers": {}})
+
+
+
+def _kernel_calls():
+    """name -> a call of each kernel wrapper on small CPU tensors, its
+    float inputs requiring grad (the plain versions run)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bh)
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    from repro_torch.kernels.maxsim.ops import (maxsim, maxsim_rerank,
+                                                maxsim_rerank_indexed)
+    from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
+    from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
+    from repro_torch.kernels.quant.ops import dequant_score
+    from repro_torch.kernels.ward_pool.ops import ward_assign
+    g = torch.Generator().manual_seed(0)
+
+    def f(*shape):
+        return torch.randn(*shape, generator=g).requires_grad_()
+
+    def ones(*shape):
+        return torch.ones(*shape, dtype=torch.bool)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, dtype=torch.int32)
+
+    q, q16, qm = f(2, 3, 8), f(2, 3, 16), ones(2, 3)     # 2-bit: dim 16
+    return {
+        "ward_pool": lambda: ward_assign(f(2, 6, 8), ones(2, 6), 2),
+        "plaid_probe": lambda: plaid_probe_scores(
+            q, qm, f(4, 8), ints(4, 2, 5, 3), ones(2, 5, 3), ones(2, 5),
+            t_cs=0.3),
+        "maxsim_packed": lambda: maxsim_packed_rerank(
+            q16, qm, ints(2 ** 30, 2, 5, 3, 1), ints(4, 2, 5, 3),
+            ones(2, 5, 3), f(4, 16), f(16, 4), bits=2),
+        "maxsim": lambda: maxsim(q, qm, f(5, 4, 8), ones(5, 4)),
+        "maxsim_rerank": lambda: maxsim_rerank(q, qm, f(2, 5, 4, 8),
+                                               ones(2, 5, 4)),
+        "maxsim_rerank_indexed": lambda: maxsim_rerank_indexed(
+            q, qm, f(5, 4, 8), ones(5, 4), ints(5, 2, 3), ones(2, 3)),
+        "kmeans_assign": lambda: kmeans_assign(f(2, 6, 8), f(2, 3, 8)),
+        "dequant_score": lambda: dequant_score(
+            ints(2 ** 30, 5, 1), ints(4, 5), f(4, 16), f(16, 4), f(3, 16)),
+        "flash_attention": lambda: flash_attention(
+            f(1, 2, 4, 8), f(1, 1, 4, 8), f(1, 1, 4, 8)),
+        "flash_attention_bh": lambda: flash_attention_bh(
+            f(2, 4, 8), f(1, 4, 8), f(1, 4, 8)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_kernel_calls()))
+def test_kernel_wrappers_raise_under_autograd(name):
+    """No kernel has a backward (nor has its Pallas counterpart), so a
+    wrapper refuses a call autograd would record, on the CPU as on the
+    card; under ``no_grad`` the same call runs."""
+    call = _kernel_calls()[name]
+    with pytest.raises(RuntimeError, match="no backward|neither package"):
+        call()
+    with torch.no_grad():
+        out = call()
+    assert all(not t.requires_grad for t in (
+        out if isinstance(out, tuple) else (out,)))
