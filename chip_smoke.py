@@ -138,6 +138,63 @@
      every gradient finite; remat on against off at 2 x 2,048; 2
      microbatches of 4 against one batch of 8; ``use_flash_kernel``
      refused; no kernel launches on either train path.
+   * moe: Moonshot (moonshot-v1-16b-a3b) at full width (d_model 2,048,
+     16 heads of 128, 64 experts top 6, moe_d_ff 1,408, vocab 163,840;
+     random weights, f32 parameters, bf16 compute), its depth cut to 8
+     of 48 layers (28.06B parameters, 112 GB in f32, at 48; 5.24B, 21 GB
+     at 8): ``make_lm_prefill_step`` of 8 x 2,048 tokens with
+     ``use_flash_kernel`` (exactly 8 ``flash_attention`` launches, one a
+     layer at dh 128, none while decoding) and 16 greedy decode steps
+     (capacity routing: C from T = B). The plain attention path runs
+     twice: with its own routes (route flips, the share of (token, slot)
+     assignments whose expert differs, printed per layer beside the
+     default capacity's drop share; the logits and cache differences
+     are readings: a flipped assignment changes a token's expert output
+     outright) and with the kernel path's routes pinned (held to the lm
+     path's limits). The first and last layer's own kernel calls are
+     held against the plain version and timed (with
+     ``scaled_dot_product_attention``) at that shape. One MoE layer on
+     2,048 tokens: ``moe_capacity`` at the largest expert's load
+     (nothing dropped) against ``moe_dense`` within 2% relative, the
+     default capacity's drop share and time. Training at 2 of 48
+     layers (1.81B parameters, ~29 GB with f32 AdamW): 4
+     ``make_lm_train_step`` calls on one batch of 4 x 2,048 tokens in 4
+     microbatches (remat): the loss falls, ``aux`` > 0, every gradient
+     group (the router's too) finite and not all zero, two runs from one
+     seed bitwise equal. Then one Kimi K2 MoE layer at full width (d
+     7,168, 384 experts top 8, moe_d_ff 2,048, bf16 parameters: 16.9B,
+     34 GB) on 2,048 tokens, capacity against the dense oracle in chunks
+     of 256 tokens (its trunk does not run: d_head 112 is outside the
+     kernel's head widths and 61 layers hold 2 TB);
+   * gnn: DimeNet at the published widths (6 blocks, hidden 128,
+     bilinear 8, spherical 7, radial 6, cutoff 5, triplet cap 8; bf16
+     compute, f32 AdamW) through ``make_gnn_train_step`` on three of the
+     reference's ``GNN_SHAPES`` with ``launch/input_specs.py``
+     ``GNN_CELL_META``'s tasks: molecule (128 graphs of 30 atoms and 64
+     directed edges between lattice neighbours, graph task; 20 steps on
+     one batch, the loss falls, two runs bitwise equal), full_graph_sm
+     (2,708 nodes, 10,556 edges, 1,433 bag-of-words features, 7
+     classes, node task; 5 steps) and minibatch_lg (``NeighborSampler``
+     with 1,024 seeds and fanouts 15, 10 over a synthetic
+     Reddit-sized graph: 232,965 nodes at in-degree 50, 11.6M edges,
+     every node on a jittered 1.5 A lattice and its sources among its
+     lattice neighbours (DimeNet's bases blow up as a distance nears 0,
+     in both packages, so no two nodes sit closer than 1 A),
+     not the cell's 114.6M, since the sampler's budgets of 169,984
+     nodes, 168,960 edges and 1.35M triplets do not depend on the
+     degree and a host sort of 114.6M edges would eat the time limit;
+     602 features, 41 classes; 3 steps, host sampling seconds and
+     device step seconds apart). Each cell's first batch through the
+     port on the card and on the CPU (f32 compute) within 1e-3
+     relative;
+   * recsys: wide-deep, deepfm, fm and dlrm-rm2 at their configs (1M
+     rows a field; dlrm-rm2's tables 6.66 GB in f32), each freed before
+     the next, on the reference's ``RECSYS_SHAPES``: train_batch (3
+     AdamW steps on one batch of 65,536 over the full tables, the loss
+     falls, two runs bitwise equal), serve_p99 (batch 512, median of 20
+     calls; held against the port on the CPU within 0.05), serve_bulk
+     (262,144) and retrieval_cand (1 x 1,000,000 candidates, top 100,
+     ids equal to a full stable sort's, tie-aware).
    The dense, flat, kmeans and cascade paths are re-run with the plain
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
@@ -334,6 +391,45 @@ LMT_REMAT_REL = 0.0
 # relative at worst)
 LMT_MICRO_LOSS = 1e-3              # loss, max abs
 LMT_MICRO_REL = 1e-2               # gradients, relative Frobenius
+# moe: Moonshot at full width, depth cut to 8 of 48 layers (28.06B
+# parameters at 48, 112 GB in its f32 param dtype; 5.24B, 21 GB at 8);
+# training at 2 layers (1.81B, ~29 GB with f32 AdamW); one Kimi K2 MoE
+# layer alone (16.9B expert parameters, 34 GB in its bf16)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 8
+MOE_BATCH = 8
+MOE_PROMPT = 2048
+MOE_DECODE = 16
+MOE_LAYER_TOKENS = 2048            # one MoE layer: capacity vs dense oracle
+# capacity (nothing dropped) against the dense oracle, both bf16: the same
+# expert products, summed over k in another order and rounded at other
+# places (each output a sum of top_k bf16 terms)
+MOE_LAYER_REL = 0.02
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH = 4                # 4 x 2,048 tokens in 4 microbatches
+MOE_TRAIN_STEPS = 4
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_CHUNK = 256                   # the dense oracle's token chunk
+# gnn: DimeNet at the published widths on three GNN_SHAPES cells with
+# launch/input_specs.py GNN_CELL_META's tasks, classes and features
+GNN_STEPS = {"molecule": 20, "full_graph_sm": 5, "minibatch_lg": 3}
+GNN_CLASSES = {"full_graph_sm": 7, "minibatch_lg": 41}
+GNN_MINIBATCH_FEAT = 602
+MINIBATCH_DEGREE = 50              # synthetic Reddit: in-degree 50, not 492
+# synthetic layouts: a jittered cubic lattice (any two nodes >= 1 A
+# apart), edges between lattice neighbours (within DimeNet's 5 A cutoff)
+LATTICE_A = 1.5
+LATTICE_JITTER = 0.25
+# card vs CPU on one batch, f32 compute (TF32 off): six blocks of f32 sums
+# in another order, and the j_l recurrence's rounding at small arguments
+# (tests/test_torch_gnn.py), relative (Frobenius)
+GNN_CPU_REL = 1e-3
+# recsys: the four models at their configs on RECSYS_SHAPES
+RECSYS_ARCHS = ("wide-deep", "deepfm", "fm", "dlrm-rm2")
+RECSYS_TRAIN_STEPS = 3
+RECSYS_SERVE_REPS = 20
+RECSYS_TOPK = 100
+RECSYS_CPU_ATOL = 0.05             # logits, bf16 on both (card vs CPU)
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}     # atol = rtol
 FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
     ("qwen3 16/8/64", 1, 16, 8, 4096, 4096, 64, True, "bfloat16"),
@@ -381,6 +477,9 @@ PATH_KERNELS = {
     "lm_long": ("flash_attention",),
     "colbert_train": ("ward_pool", "maxsim_packed"),   # the sweeps
     "lm_train": (),                    # plain torch: no kernel, no flash
+    "moe": ("flash_attention",),       # Moonshot's prefill, at dh 128
+    "gnn": (),                         # DimeNet: no kernel in either package
+    "recsys": (),                      # none in either package
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
@@ -3469,6 +3568,760 @@ def lm_train_path(rt, torch, dev, card):
                 remat_max_abs=diff, micro_rel=rel, profile=prof)
 
 
+def _cells(rt, name):
+    """The port's shape cells (``configs/base.py`` ``name``) by name."""
+    import repro_torch.configs.base as base
+    return {c.name: c for c in getattr(base, name)}
+
+
+def _checks():
+    """A list that collects failed checks: a path prints every reading
+    first and raises at its end (``_raise_failed``)."""
+    return []
+
+
+def _check(fails, ok, what):
+    print(f"  check {'ok' if ok else 'FAILED'}: {what}")
+    if not ok:
+        fails.append(what)
+
+
+def _raise_failed(name, fails):
+    if fails:
+        raise AssertionError(f"{name}: failed checks: {fails}")
+
+
+@contextlib.contextmanager
+def _moe_routes(replay=None):
+    """Keeps every MoE layer call's router ids and capacity keep mask
+    (in call order) while the model runs. With ``replay`` (such a list)
+    each call takes the replayed call's ids in place of its own top-k,
+    the weights its own probabilities there, renormalised: the routes
+    pinned to another run's."""
+    import torch
+    import repro_torch.models.moe as moe
+    router, dispatch = moe._router, moe.dispatch
+    routes = []
+
+    def routed(p, x2d, cfg):
+        weights, ids, aux = router(p, x2d, cfg)
+        if replay is not None:
+            ids = replay[len(routes)]["ids"]
+            probs = torch.softmax(x2d.float() @ p.router.w.float(), dim=-1)
+            weights = probs.gather(1, ids)
+            weights = weights / weights.sum(dim=-1, keepdim=True)
+        routes.append({"ids": ids})
+        return weights, ids, aux
+
+    def dispatched(ids, n_experts, capacity):
+        keep, slot = dispatch(ids, n_experts, capacity)
+        routes[-1]["keep"] = keep
+        return keep, slot
+
+    moe._router, moe.dispatch = routed, dispatched
+    try:
+        yield routes
+    finally:
+        moe._router, moe.dispatch = router, dispatch
+
+
+def _flash_at(torch, q, k, v):
+    """``flash_attention`` timed on one layer's own q, k, v beside its
+    plain version and ``scaled_dot_product_attention`` -> readings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    B, H, S, dh = q.shape
+    pairs = B * H * S * (S + 1) // 2
+    flop = 4 * dh * pairs
+    with torch.no_grad():
+        ms = _time_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+        plain_ms = _time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                    impl="ref"))
+        rep = H // k.shape[1]
+        kl = k.repeat_interleave(rep, dim=1) if rep > 1 else k
+        vl = v.repeat_interleave(rep, dim=1) if rep > 1 else v
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, kl, vl, is_causal=True), reps=20)
+    bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
+                          flop, BF16_OPS_PER_S)
+    print(f"flash_attention at the moe shape (q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}, bf16, causal): {ms:.4f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    return dict(shape=[list(q.shape), list(k.shape)], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def _moe_serve(rt, torch, cfg, model, card, fails):
+    """Moonshot at MOE_LAYERS layers: prefill through the kernel path
+    (counted), again (timed, layers' own kernel calls kept), then the
+    plain path; route flips, drop shares and the agreement."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels import launch_counts
+    L = cfg.n_layers
+    tokens = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    with _moe_routes() as k_routes:
+        logits, toks, cache, prefill_s, decode_s = run_path(
+            "moe", torch, lambda: _serve(rt, torch, cfg, model, tokens,
+                                         MOE_DECODE))
+    peak = torch.cuda.max_memory_allocated()
+    n = PATH_LAUNCHES["moe"]["flash_attention"]
+    n_tok = MOE_BATCH * MOE_PROMPT
+    print(f"moe: flash_attention launches {n} (one a layer, none in the "
+          f"{MOE_DECODE} decode steps); first pass prefill {prefill_s:.4f}s "
+          f"({n_tok / prefill_s:.1f} tokens/s), decode "
+          f"{decode_s / MOE_DECODE * 1e3:.3f} ms a step (batch {MOE_BATCH}); "
+          f"peak device memory {peak} bytes [{card}]")
+    _check(fails, n == L, f"moe: {n} flash_attention launches == {L}")
+    _check(fails, all(tuple(x.shape) == (MOE_BATCH, cfg.vocab_size)
+                      and bool(torch.isfinite(x).all()) for x in logits),
+           "moe: logits finite, [B, V]")
+    captured = {}
+    with _flash_replaced(_capturing((0, L - 1), captured)):
+        _, _, _, prefill_s, decode_s = _serve(rt, torch, cfg, model, tokens,
+                                              MOE_DECODE)
+    print(f"moe: steady prefill {prefill_s:.4f}s ({n_tok / prefill_s:.1f} "
+          f"tokens/s), decode {decode_s / MOE_DECODE * 1e3:.3f} ms a step")
+    try:
+        _check_captured("moe", torch, captured)
+    except AssertionError as e:
+        fails.append(str(e))
+    flash = _flash_at(torch, *captured[0][:3])
+    del captured
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    before = launch_counts()["flash_attention"]
+    with _moe_routes() as p_routes:
+        p_logits, p_toks, p_cache, p_prefill_s, _ = _serve(
+            rt, torch, plain, model, tokens, MOE_DECODE)
+    flips = [float((a["ids"] != b["ids"]).float().mean())
+             for a, b in zip(k_routes[:L], p_routes[:L])]
+    drops = [1.0 - float(r["keep"].float().mean()) for r in k_routes[:L]]
+    print(f"moe: prefill route flips, kernel vs plain path, share of "
+          f"(token, slot) assignments per layer: "
+          f"{[round(f, 6) for f in flips]}; dropped at the default capacity "
+          f"({moe.capacity_for(n_tok, cfg)} an expert) per layer: "
+          f"{[round(d, 6) for d in drops]}")
+    l_err, l_rel = _errors(logits[0], p_logits[0])
+    first, worst = _cache_errors(cache, p_cache, MOE_PROMPT)
+    print(f"moe, routes free: last-token logits max abs err {l_err:.4g}, "
+          f"relative {l_rel:.4g}; cache layers 1.. largest relative "
+          f"{worst:.4g} (readings: a flipped assignment changes a token's "
+          f"expert output outright)")
+    del p_logits, p_toks, p_cache
+    # the plain path with the kernel path's routes: attention is all that
+    # differs, so the lm path's limits hold
+    with _moe_routes(replay=k_routes):
+        p_logits, p_toks, p_cache, _, _ = _serve(rt, torch, plain, model,
+                                                 tokens, MOE_DECODE)
+    _check(fails, launch_counts()["flash_attention"] == before,
+           "moe: the plain path launched no flash_attention")
+    p_err, p_rel = _errors(logits[0], p_logits[0])
+    first, p_worst = _cache_errors(cache, p_cache, MOE_PROMPT)
+    print(f"moe, routes pinned to the kernel path's: last-token logits max "
+          f"abs err {p_err:.4g} (atol {LM_LOGITS_ATOL}), relative "
+          f"{p_rel:.4g} (limit {LM_REL}); cache layer 0 max abs {first:.4g}, "
+          f"layers 1.. largest relative {p_worst:.4g} (limit {LM_REL})")
+    _check(fails, p_err <= LM_LOGITS_ATOL and p_rel <= LM_REL,
+           "moe (routes pinned): last-token logits within the lm limits")
+    _check(fails, p_worst <= LM_REL,
+           f"moe (routes pinned): each layer's cache within {LM_REL}")
+    try:
+        _greedy_agree(logits, toks, p_logits, p_toks)
+    except AssertionError as e:
+        fails.append(f"moe greedy (routes pinned): {e}")
+    del cache, p_cache
+    prefill = rt.make_lm_prefill_step(cfg)
+    prof = _profile_step(torch, "moe prefill",
+                         lambda: prefill(model, {"tokens": tokens}))
+    return dict(prefill_s=prefill_s, prefill_tokens_s=n_tok / prefill_s,
+                decode_ms=decode_s / MOE_DECODE * 1e3,
+                plain_prefill_s=p_prefill_s, peak_bytes=peak,
+                route_flips=flips, drop_share=drops, free_logits_max_abs=l_err,
+                free_logits_rel=l_rel, free_cache_rel=worst,
+                pinned_logits_max_abs=p_err, pinned_logits_rel=p_rel,
+                pinned_cache_rel=p_worst, flash=flash, profile=prof)
+
+
+def _moe_layer(torch, dev, moe, cfg, layer, what, fails, chunk=None):
+    """One MoE layer on MOE_LAYER_TOKENS random tokens: capacity at the
+    smallest drop-free capacity against the dense oracle (in token chunks
+    of ``chunk``), the default capacity's drop share and time."""
+    T, d, E = MOE_LAYER_TOKENS, cfg.d_model, cfg.n_experts
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn((1, T, d), generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        _, ids, _ = moe._router(layer, x[0], cfg)
+        roomy = int(torch.bincount(ids.reshape(-1), minlength=E).max())
+        C = moe.capacity_for(T, cfg)
+        keep, _ = moe.dispatch(ids, E, C)
+        drop = 1.0 - float(keep.float().mean())
+        y_cap, _ = moe.moe_capacity(layer, x, cfg, capacity=roomy)
+        step = chunk or T
+        y_dense = torch.cat([moe.moe_dense(layer, x[:, i:i + step], cfg)[0]
+                             for i in range(0, T, step)], dim=1)
+        err, rel = _errors(y_cap, y_dense)
+        del y_cap, y_dense
+        ms = _time_ms(lambda: moe.moe_capacity(layer, x, cfg))
+        dense_ms = _time_ms(lambda: torch.cat(
+            [moe.moe_dense(layer, x[:, i:i + step], cfg)[0]
+             for i in range(0, T, step)], dim=1), reps=2)
+    print(f"{what}: one MoE layer ({E} experts top {cfg.top_k}, d "
+          f"{d}, moe_d_ff {cfg.moe_d_ff}) on {T} tokens: capacity at "
+          f"{roomy} (the largest expert's load: nothing dropped) against "
+          f"the dense oracle{f' in chunks of {chunk}' if chunk else ''}: "
+          f"max abs {err:.4g}, relative {rel:.4g} (limit {MOE_LAYER_REL}); "
+          f"the default capacity {C} drops {drop:.6f} of the assignments; "
+          f"default capacity {ms:.4f} ms, dense oracle {dense_ms:.4f} ms")
+    _check(fails, rel <= MOE_LAYER_REL,
+           f"{what}: capacity (nothing dropped) = dense within "
+           f"{MOE_LAYER_REL} relative")
+    return dict(tokens=T, roomy_capacity=roomy, capacity=C, drop_share=drop,
+                max_abs=err, rel=rel, capacity_ms=ms, dense_ms=dense_ms)
+
+
+def _moe_train(rt, torch, dev, card, fails):
+    """Moonshot at MOE_TRAIN_LAYERS layers: MOE_TRAIN_STEPS
+    ``make_lm_train_step`` calls on one batch, twice from one seed."""
+    from repro_torch.launch.steps import lm_grads
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.params import leaves
+    cfg = dataclasses.replace(rt.get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    toks = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_PROMPT + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32,
+                                       device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
+                                       device=dev)}
+
+    def run():
+        model = rt.init_transformer(cfg, seed=SEED, device=dev)
+        step, opt = rt.make_lm_train_step(cfg, device=dev)
+        state = opt.init(model)
+        losses, secs = [], []
+        for _ in range(MOE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, out = step(model, state, batch)
+            losses.append(float(out["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        del state
+        return model, losses, secs
+
+    torch.cuda.reset_peak_memory_stats()
+    a, losses, secs = run()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, losses_b, _ = run()
+    equal, diff = _params_equal(torch, list(a.parameters()),
+                                list(b.parameters()))
+    del a
+    n_tok = MOE_TRAIN_BATCH * MOE_PROMPT
+    step_s = float(np.median(secs[1:]))
+    n_par = sum(p.numel() for p in b.parameters())
+    print(f"moe_train: {MOE_ARCH} at {MOE_TRAIN_LAYERS} of 48 layers "
+          f"({n_par} parameters; remat {cfg.remat}, {cfg.optimizer}, "
+          f"{cfg.train_microbatches} microbatches): {MOE_TRAIN_STEPS} steps "
+          f"on one batch of {MOE_TRAIN_BATCH} x {MOE_PROMPT}: losses "
+          f"{[round(x, 4) for x in losses]}, step s {secs} (median after the "
+          f"first {step_s:.4f} s, {n_tok / step_s:.1f} tokens/s); peak device "
+          f"memory {peak} bytes; a second run from the seed: losses "
+          f"{[round(x, 4) for x in losses_b]}, parameters bitwise equal "
+          f"{equal} (max abs difference {diff:.3g}) [{card}]")
+    _check(fails, losses[-1] < losses[0], "moe_train: the loss falls")
+    _check(fails, equal, "moe_train: two runs from one seed bitwise equal")
+    with torch.no_grad():
+        _, metrics = lm_loss(b, batch["tokens"], batch["labels"], cfg)
+    aux = float(metrics["aux"])
+    _, grads = lm_grads(b, batch["tokens"], batch["labels"], cfg)
+    bad = [p for p, g in grads.items()
+           if not all(bool(torch.isfinite(t).all()) and bool(t.any())
+                      for t in leaves(g))]
+    router = sum(float(t.abs().sum()) for t in leaves(
+        grads["moe_layers/moe/router/w"]))
+    print(f"moe_train: router aux {aux:.6g}; {len(grads)} gradient groups, "
+          f"not finite or all zero: {bad}; the router's |grad| sum "
+          f"{router:.4g}")
+    _check(fails, aux > 0, "moe_train: aux > 0")
+    _check(fails, not bad and router > 0,
+           "moe_train: every gradient finite and not all zero")
+    del b, grads
+    return dict(step_s=step_s, tokens_s=n_tok / step_s, peak_bytes=peak,
+                losses=losses, bitwise_equal=equal, aux=aux)
+
+
+def moe_path(rt, torch, dev, card):
+    """Moonshot serving at full width (8 of 48 layers) against the plain
+    attention path, one Moonshot MoE layer and one Kimi K2 MoE layer
+    against the dense oracle, and Moonshot training (2 layers)."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.layers import dt
+    fails = _checks()
+    full = rt.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
+                              use_flash_kernel=True)
+    if (cfg.d_head, cfg.n_experts, cfg.top_k, cfg.dtype) != (
+            128, 64, 6, "bfloat16"):
+        raise AssertionError(f"{MOE_ARCH}: unexpected config {cfg}")
+    t0 = time.perf_counter()
+    model = rt.init_transformer(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"moe setup: {MOE_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.d_head}, {cfg.n_experts} experts top "
+          f"{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}), "
+          f"{MOE_LAYERS} of {full.n_layers} layers: {n_par} parameters "
+          f"({cfg.param_count()} by the config; the full depth "
+          f"{full.param_count()}, {full.param_count() * 4} bytes in "
+          f"{full.param_dtype}), random from seed {SEED}, in "
+          f"{time.perf_counter() - t0:.3f}s")
+    serve = _moe_serve(rt, torch, cfg, model, card, fails)
+    layer = _moe_layer(torch, dev, moe, cfg, model.moe_layers[0].moe,
+                       "moe layer", fails)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    train = _moe_train(rt, torch, dev, card, fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kcfg = rt.get_config(KIMI_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    klayer = moe.MoE(kcfg, dev, dt(kcfg.param_dtype)).requires_grad_(False)
+    klayer.router.reset_parameters(g)
+    klayer.reset_parameters(g)
+    torch.cuda.synchronize()
+    print(f"kimi setup: one {KIMI_ARCH} MoE layer at full width (d "
+          f"{kcfg.d_model}, {kcfg.n_experts} experts top {kcfg.top_k}, "
+          f"moe_d_ff {kcfg.moe_d_ff}, {kcfg.param_dtype} as its config): "
+          f"{sum(p.numel() for p in klayer.parameters())} parameters in "
+          f"{time.perf_counter() - t0:.3f}s; its trunk does not run (d_head "
+          f"{kcfg.d_head} is outside flash_attention's 64 and 128, and "
+          f"{kcfg.n_layers} layers hold {kcfg.param_count() * 2} bytes)")
+    kimi = _moe_layer(torch, dev, moe, kcfg, klayer, "kimi layer", fails,
+                      chunk=KIMI_CHUNK)
+    del klayer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check(fails, launch_counts() == counts,
+           "moe: the layer checks, training and kimi launch no kernel")
+    _raise_failed("moe", fails)
+    return dict(serve=serve, layer=layer, train=train, kimi_layer=kimi)
+
+
+# ---------------------------------------------------------------- gnn
+def _lattice(n, rng):
+    """Positions of n nodes: a cubic lattice of side ceil(n^(1/3)) at
+    LATTICE_A spacing, filled in row-major order, each point jittered by
+    up to LATTICE_JITTER: any two nodes at least 1 A apart, as atoms are
+    (DimeNet's bases blow up near d = 0, in both packages) -> (positions
+    [n, 3] f32, side)."""
+    m = int(np.ceil(n ** (1 / 3) - 1e-9))
+    idx = np.arange(n)
+    grid = np.stack([idx // (m * m), (idx // m) % m, idx % m], 1)
+    jitter = rng.uniform(-LATTICE_JITTER, LATTICE_JITTER, (n, 3))
+    return (grid * LATTICE_A + jitter).astype(np.float32), m
+
+
+def _local_edges(dst, n, m, reach, rng):
+    """A source for each destination node: a lattice neighbour within
+    ``reach`` cells on each axis (not itself) -> src."""
+    coord = np.stack([dst // (m * m), (dst // m) % m, dst % m], 1)
+    off = rng.integers(-reach, reach + 1, (len(dst), 3))
+    off[(off == 0).all(1), 0] = 1
+    c = np.clip(coord + off, 0, m - 1)
+    src = np.minimum((c[:, 0] * m + c[:, 1]) * m + c[:, 2], n - 1)
+    same = src == dst
+    src[same] = (dst[same] + 1) % n
+    return src
+
+
+def _molecule_inputs(rt, rng, n_graphs, n_atoms, n_edges, cap):
+    """``n_graphs`` molecules of ``n_atoms`` atoms on a jittered lattice
+    (types < 10) with ``n_edges`` directed edges each (both directions
+    of random pairs of lattice neighbours), graph targets normal."""
+    lattices = [_lattice(n_atoms, rng) for _ in range(n_graphs)]
+    m = lattices[0][1]
+    dst = rng.integers(0, n_atoms, (n_graphs, n_edges // 2))
+    src = _local_edges(dst.reshape(-1), n_atoms, m, 1, rng).reshape(
+        dst.shape)
+    base = (np.arange(n_graphs) * n_atoms)[:, None]
+    ei = np.stack([np.concatenate([src + base, dst + base], 1).reshape(-1),
+                   np.concatenate([dst + base, src + base], 1).reshape(-1)]
+                  ).astype(np.int32)
+    N, E = n_graphs * n_atoms, ei.shape[1]
+    t_in, t_out, t_mask = rt.build_triplets(ei, N, cap)
+    pos = np.concatenate([p for p, _ in lattices])
+    return {"pos": pos, "edge_index": ei, "t_in": t_in, "t_out": t_out,
+            "t_mask": t_mask, "node_mask": np.ones(N, bool),
+            "edge_mask": np.ones(E, bool),
+            "z": rng.integers(0, 10, N).astype(np.int32),
+            "graph_ids": np.repeat(np.arange(n_graphs), n_atoms).astype(
+                np.int32),
+            "targets": rng.normal(size=(n_graphs, 1)).astype(np.float32)}
+
+
+def _citation_inputs(rt, rng, n_nodes, n_edges, d_feat, n_cls, cap):
+    """A citation-sized graph on a jittered lattice: ``n_edges`` directed
+    edges (both directions of random pairs of lattice neighbours within
+    2 cells), bag-of-words features at Cora's density (18 words of
+    1,433)."""
+    pos, m = _lattice(n_nodes, rng)
+    b = rng.integers(0, n_nodes, n_edges // 2)
+    a = _local_edges(b, n_nodes, m, 2, rng)
+    ei = np.stack([np.concatenate([a, b]), np.concatenate([b, a])]).astype(
+        np.int32)
+    t_in, t_out, t_mask = rt.build_triplets(ei, n_nodes, cap)
+    return {"pos": pos, "edge_index": ei, "t_in": t_in, "t_out": t_out,
+            "t_mask": t_mask, "node_mask": np.ones(n_nodes, bool),
+            "edge_mask": np.ones(ei.shape[1], bool),
+            "feat": (rng.random((n_nodes, d_feat)) < 18 / 1433).astype(
+                np.float32),
+            "targets": rng.integers(0, n_cls, n_nodes).astype(np.int32)}
+
+
+def _gnn_cpu_agree(rt, torch, model, cfg, batch, task, n_graphs, what,
+                   fails):
+    """The first batch through the port on the card and on the CPU, in
+    f32 compute (TF32 off on the card), at the initial weights."""
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+    cpu = rt.DimeNet(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.no_grad():
+        card_out = rt.dimenet_forward(model, inputs, c32, task=task,
+                                      n_graphs=n_graphs).cpu()
+        t0 = time.perf_counter()
+        cpu_out = rt.dimenet_forward(cpu, {k: (v.cpu() if torch.is_tensor(v)
+                                               else v)
+                                           for k, v in inputs.items()},
+                                     c32, task=task, n_graphs=n_graphs)
+        cpu_s = time.perf_counter() - t0
+    err, rel = _errors(card_out, cpu_out)
+    print(f"gnn {what}: the first batch on the card and on the CPU (f32 "
+          f"compute, {cpu_s:.2f}s there): max abs {err:.4g}, relative "
+          f"{rel:.4g} (limit {GNN_CPU_REL})")
+    _check(fails, rel <= GNN_CPU_REL, f"gnn {what}: card = CPU within "
+           f"{GNN_CPU_REL} relative")
+    return rel
+
+
+def _gnn_train(rt, torch, cfg, batches, task, n_graphs, what, card, fails,
+               per_step=1, unit="graphs", profile=False):
+    """``make_gnn_train_step`` over ``batches`` (a list, or a callable
+    giving (batch, host seconds)) from seed-0 weights -> readings; with
+    ``profile`` one more step on the last batch under the profiler."""
+    model = rt.init_dimenet(cfg, seed=SEED)
+    step, opt = rt.make_gnn_train_step(cfg, task, n_graphs=n_graphs)
+    state = opt.init(model)
+    losses, secs, host = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        if callable(batch):
+            batch, host_s = batch()
+            host.append(host_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(model, state, batch)
+        losses.append(float(out["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(secs[1:] if len(secs) > 1 else secs))
+    host_txt = (f"; host sampling + triplets s {[round(h, 4) for h in host]}"
+                if host else "")
+    print(f"gnn {what}: {len(secs)} steps, losses "
+          f"{[round(x, 5) for x in losses]}; step s "
+          f"{[round(s, 4) for s in secs]} (median after the first "
+          f"{step_s * 1e3:.3f} ms, {per_step / step_s:.1f} {unit}/s)"
+          f"{host_txt}; peak "
+          f"device memory {peak} bytes [{card}]")
+    _check(fails, all(np.isfinite(losses)), f"gnn {what}: losses finite")
+    prof = (_profile_step(torch, f"gnn {what}", lambda: step(model, state,
+                                                             batch))
+            if profile else None)
+    return model, dict(losses=losses, step_ms=step_s * 1e3,
+                       per_s=per_step / step_s, peak_bytes=peak,
+                       host_s=host or None, profile=prof)
+
+
+def gnn_path(rt, torch, dev, card):
+    """DimeNet at the published widths on three of the reference's
+    GNN_SHAPES cells: molecule (graph task), full_graph_sm and
+    minibatch_lg (node task, the latter through ``NeighborSampler``)."""
+    fails = _checks()
+    base = rt.get_config("dimenet")
+    rng = np.random.default_rng(SEED + 8)
+    cells = _cells(rt, "GNN_SHAPES")
+    mol_c, sm_c, lg_c = (cells[n] for n in ("molecule", "full_graph_sm",
+                                             "minibatch_lg"))
+    n_graphs = mol_c.dim("batch")
+
+    def drive():
+        out = {}
+        # molecule: 128 graphs of 30 atoms, 64 directed edges each
+        cfg = dataclasses.replace(base, d_feat_in=0, n_targets=1)
+        mol = _molecule_inputs(rt, rng, n_graphs, mol_c.dim("n_nodes"),
+                               mol_c.dim("n_edges"), cfg.triplet_cap)
+        first, o = _gnn_train(rt, torch, cfg, [mol] * GNN_STEPS["molecule"],
+                              "graph", n_graphs, "molecule", card, fails,
+                              n_graphs)
+        again, _ = _gnn_train(rt, torch, cfg, [mol] * GNN_STEPS["molecule"],
+                              "graph", n_graphs, "molecule (again)", card,
+                              fails, n_graphs)
+        equal, diff = _params_equal(torch, list(first.parameters()),
+                                    list(again.parameters()))
+        print(f"gnn molecule: two runs from one seed bitwise equal {equal} "
+              f"(max abs difference {diff:.3g})")
+        _check(fails, equal, "gnn molecule: two runs bitwise equal")
+        w = np.mean(o["losses"][-5:]) < np.mean(o["losses"][:5])
+        _check(fails, w, "gnn molecule: the loss falls (last 5 vs first 5)")
+        o["bitwise_equal"] = equal
+        o["cpu_rel"] = _gnn_cpu_agree(rt, torch, rt.init_dimenet(
+            cfg, seed=SEED), cfg, mol, "graph", n_graphs, "molecule",
+            fails)
+        out["molecule"] = o
+        del first, again
+        # full_graph_sm: 2,708 nodes, 10,556 edges, 1,433 features, 7 classes
+        n_sm = sm_c.dim("n_nodes")
+        cfg = dataclasses.replace(base, d_feat_in=sm_c.dim("d_feat"),
+                                  n_targets=GNN_CLASSES["full_graph_sm"])
+        cit = _citation_inputs(rt, rng, n_sm, sm_c.dim("n_edges"),
+                               cfg.d_feat_in, cfg.n_targets, cfg.triplet_cap)
+        _, o = _gnn_train(rt, torch, cfg, [cit] * GNN_STEPS["full_graph_sm"],
+                          "node", 1, "full_graph_sm", card, fails, n_sm,
+                          "nodes")
+        o["cpu_rel"] = _gnn_cpu_agree(rt, torch, rt.init_dimenet(
+            cfg, seed=SEED), cfg, cit, "node", 1, "full_graph_sm", fails)
+        out["full_graph_sm"] = o
+        # minibatch_lg: 1,024 seeds, fanouts 15, 10 over a synthetic
+        # Reddit-sized graph (232,965 nodes, in-degree 50)
+        cfg = dataclasses.replace(base, d_feat_in=GNN_MINIBATCH_FEAT,
+                                  n_targets=GNN_CLASSES["minibatch_lg"])
+        N = lg_c.dim("n_nodes")
+        seeds_n = lg_c.dim("batch_nodes")
+        fanouts = (lg_c.dim("fanout0"), lg_c.dim("fanout1"))
+        t0 = time.perf_counter()
+        pos, m = _lattice(N, rng)
+        dst = np.repeat(np.arange(N), MINIBATCH_DEGREE)
+        ei = np.stack([_local_edges(dst, N, m, 2, rng), dst])
+        sampler = rt.NeighborSampler(ei, N, fanouts, seed=SEED)
+        del ei, dst
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        feat = torch.randn((N, cfg.d_feat_in), generator=g, device=dev)
+        labels = torch.randint(0, cfg.n_targets, (N,), generator=g,
+                               device=dev)
+        print(f"gnn minibatch_lg setup: {N} nodes, {N * MINIBATCH_DEGREE} "
+              f"edges, the sampler's CSR in {time.perf_counter() - t0:.3f}s; "
+              f"budgets {sampler.node_budget(seeds_n)} nodes, "
+              f"{sampler.edge_budget(seeds_n)} edges, "
+              f"{sampler.edge_budget(seeds_n) * cfg.triplet_cap} triplets "
+              f"(the cell's {lg_c.dim('n_edges')} edges cut to in-degree "
+              f"{MINIBATCH_DEGREE}: the budgets do not depend on it)")
+
+        def sample():
+            t0 = time.perf_counter()
+            seeds = rng.choice(N, seeds_n, replace=False)
+            nodes, sub, nmask, emask = sampler.sample(seeds)
+            t_in, t_out, t_mask = rt.build_triplets(sub, len(nodes),
+                                                    cfg.triplet_cap)
+            host_s = time.perf_counter() - t0
+            idx = torch.as_tensor(nodes, device=dev)
+            return {"pos": pos[nodes], "edge_index": sub, "t_in": t_in,
+                    "t_out": t_out, "t_mask": t_mask, "node_mask": nmask,
+                    "edge_mask": emask, "feat": feat[idx],
+                    "targets": labels[idx]}, host_s
+
+        firsts = []
+
+        def first_sample():
+            b, s = sample()
+            firsts.append(b)
+            return b, s
+
+        _, o = _gnn_train(rt, torch, cfg, [first_sample] + [sample] * (
+            GNN_STEPS["minibatch_lg"] - 1), "node", 1, "minibatch_lg", card,
+            fails, seeds_n, "seeds", profile=True)
+        o["cpu_rel"] = _gnn_cpu_agree(rt, torch, rt.init_dimenet(
+            cfg, seed=SEED), cfg, firsts[0], "node", 1, "minibatch_lg",
+            fails)
+        out["minibatch_lg"] = o
+        return out
+
+    out = run_path("gnn", torch, drive)
+    _check(fails, not any(PATH_LAUNCHES["gnn"].values()),
+           "gnn: no kernel launched (DimeNet reaches none, in either "
+           "package)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _raise_failed("gnn", fails)
+    return out
+
+
+# ------------------------------------------------------------- recsys
+def _recsys_batch(cfg, rng, n, label=True):
+    b = {"sparse_ids": np.stack(
+        [rng.integers(0, v, (n, cfg.multi_hot)) for v in cfg.vocab_sizes],
+        axis=1).astype(np.int32)}
+    if cfg.n_dense:
+        b["dense"] = rng.normal(size=(n, cfg.n_dense)).astype(np.float32)
+    if label:
+        b["label"] = (rng.random(n) < 0.25).astype(np.float32)
+    return b
+
+
+def _recsys_model(rt, torch, dev, cfg, card, fails):
+    """One recsys model at its config: train_batch (twice from the
+    seed), serve_p99, serve_bulk, retrieval_cand, and one serve batch
+    against the port on the CPU -> readings."""
+    from repro_torch.core.maxsim import tie_aware_mismatches
+    from repro_torch.models.layers import dt
+    from repro_torch.models.recsys import embedding_bag
+    rng = np.random.default_rng(SEED + 10)
+    name = cfg.name
+    shapes = _cells(rt, "RECSYS_SHAPES")
+    n_train = shapes["train_batch"].dim("batch")
+    n_p99 = shapes["serve_p99"].dim("batch")
+    n_bulk = shapes["serve_bulk"].dim("batch")
+    n_cand = shapes["retrieval_cand"].dim("n_candidates")
+    train = _recsys_batch(cfg, rng, n_train)
+
+    def run():
+        model = rt.init_recsys(cfg, seed=SEED)
+        step, opt = rt.make_recsys_train_step(cfg)
+        state = opt.init(model)
+        losses, secs = [], []
+        for _ in range(RECSYS_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, out = step(model, state, train)
+            losses.append(float(out["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        del state
+        return model, losses, secs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, losses, secs = run()
+    peak = torch.cuda.max_memory_allocated()
+    first_s = time.perf_counter() - t0
+    again, losses_b, _ = run()
+    equal, diff = _params_equal(torch, list(model.parameters()),
+                                list(again.parameters()))
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = float(np.median(secs[1:]))
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"recsys {name}: {n_par} parameters ({cfg.n_sparse} tables of "
+          f"{max(cfg.vocab_sizes)} x {cfg.embed_dim}); train_batch "
+          f"{n_train}: losses {[round(x, 5) for x in losses]}, step s "
+          f"{[round(s, 4) for s in secs]} (median after the first "
+          f"{step_s:.4f} s, {n_train / step_s:.1f} samples/s; init + 3 steps "
+          f"{first_s:.3f}s); peak device memory {peak} bytes; again from the "
+          f"seed: losses {[round(x, 5) for x in losses_b]}, parameters "
+          f"bitwise equal {equal} (max abs difference {diff:.3g}) [{card}]")
+    _check(fails, losses[-1] < losses[0], f"recsys {name}: the loss falls")
+    _check(fails, equal, f"recsys {name}: two runs bitwise equal")
+    step, opt = rt.make_recsys_train_step(cfg)
+    state = opt.init(model)
+    prof = _profile_step(torch, f"recsys {name} train step",
+                         lambda: step(model, state, train))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = rt.make_recsys_serve_step(cfg)
+    p99 = _recsys_batch(cfg, rng, n_p99, label=False)
+    times = []
+    for _ in range(RECSYS_SERVE_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = serve(model, p99)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p99_ms = float(np.median(times[1:])) * 1e3
+    cpu = rt.Recsys(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        cpu_logits = rt.recsys_forward(cpu, p99)
+    del cpu
+    err, rel = _errors(logits.cpu(), cpu_logits)
+    _check(fails, bool(torch.isfinite(logits).all()) and tuple(
+        logits.shape) == (n_p99,),
+        f"recsys {name}: serve logits finite, [B]")
+    _check(fails, err <= RECSYS_CPU_ATOL,
+           f"recsys {name}: card = CPU within {RECSYS_CPU_ATOL}")
+    bulk = _recsys_batch(cfg, rng, n_bulk, label=False)
+    serve(model, bulk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(model, bulk)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cand = torch.randn((n_cand, cfg.embed_dim),
+                       generator=g, device=dev)
+    one = _recsys_batch(cfg, rng, 1, label=False)
+    retrieve = rt.make_recsys_retrieval_step(cfg, k=RECSYS_TOPK)
+    scores, ids = retrieve(model, dict(one, candidates=cand))
+    with torch.no_grad():
+        cdt = dt(cfg.dtype)
+        user = embedding_bag(model.tables, torch.as_tensor(
+            one["sparse_ids"], device=dev), dtype=cdt).mean(dim=1)
+        full = (user @ cand.to(cdt).T).float()
+        s_all, i_all = torch.sort(full, dim=1, descending=True, stable=True)
+    n_ties = int((s_all[0, 1:RECSYS_TOPK + 1] == s_all[0, :RECSYS_TOPK]
+                  ).sum())
+    bad = tie_aware_mismatches(
+        i_all[:, :RECSYS_TOPK].cpu().numpy(),
+        s_all[:, :RECSYS_TOPK].cpu().numpy(), ids.cpu().numpy(),
+        scores.cpu().numpy(), 0.0)
+    with torch.no_grad():
+        ret_ms = _time_ms(lambda: retrieve(model, dict(one, candidates=cand)))
+    print(f"recsys {name}: serve_p99 batch {n_p99}: "
+          f"median of {RECSYS_SERVE_REPS} calls {p99_ms:.4f} ms (slowest "
+          f"{max(times[1:]) * 1e3:.4f}); against the port on the CPU max abs "
+          f"{err:.4g} (limit {RECSYS_CPU_ATOL}), relative {rel:.4g}; "
+          f"serve_bulk {n_bulk} in {bulk_s:.4f}s "
+          f"({n_bulk / bulk_s:.1f} samples/s); "
+          f"retrieval_cand 1 x {n_cand} top "
+          f"{RECSYS_TOPK}: {ret_ms:.4f} ms, ids against a full stable sort: "
+          f"{bad} mismatches beyond exact ties ({n_ties} exact ties in the "
+          f"top {RECSYS_TOPK}) [{card}]")
+    _check(fails, bad == 0, f"recsys {name}: top-{RECSYS_TOPK} ids equal a "
+           f"full sort's, tie-aware")
+    del model, cand, full, s_all, i_all
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n_par, train_step_s=step_s,
+                train_samples_s=n_train / step_s, losses=losses,
+                bitwise_equal=equal, peak_bytes=peak, p99_batch_ms=p99_ms,
+                cpu_max_abs=err, bulk_samples_s=n_bulk / bulk_s,
+                retrieval_ms=ret_ms, profile=prof)
+
+
+def recsys_path(rt, torch, dev, card):
+    """The four recsys models at their configs (1M-row tables a field) on
+    the reference's RECSYS_SHAPES, each freed before the next."""
+    fails = _checks()
+    out = run_path("recsys", torch, lambda: {
+        arch: _recsys_model(rt, torch, dev, rt.get_config(arch), card, fails)
+        for arch in RECSYS_ARCHS})
+    _check(fails, not any(PATH_LAUNCHES["recsys"].values()),
+           "recsys: no kernel launched (no recsys model reaches one, in "
+           "either package)")
+    _raise_failed("recsys", fails)
+    return out
+
+
 def check_flash_attention(torch, dev):
     """The kernel against its plain version on seeded random inputs, then
     timed at the lm path's per-layer shape with the plain version and
@@ -3691,11 +4544,21 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_train = lm_train_path(rt, torch, dev, card)
+    del index, searcher, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_numbers = moe_path(rt, torch, dev, card)
+    gnn_numbers = gnn_path(rt, torch, dev, card)
+    recsys_numbers = recsys_path(rt, torch, dev, card)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash.update(_launches("flash_attention"))
 
     print(json.dumps({"kernels": kernels, "search_split_ms": split,
                       "recon_split_ms": recon_split, "eval": eval_numbers,
                       "serve": serve_numbers, "colbert_train": colbert_train,
-                      "lm_train": lm_train, "card": card}))
+                      "lm_train": lm_train, "moe": moe_numbers,
+                      "gnn": gnn_numbers, "recsys": recsys_numbers,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

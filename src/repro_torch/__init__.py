@@ -8,9 +8,11 @@ pooled two-level cascade, artifacts in the JAX package's format both
 ways, and query encode -> device or host probe/prune, or HNSW token
 probes -> packed, f32 or dense rerank -> top-k, all behind the
 spec-driven ``Retriever`` facade; causal-LM serving (prefill and
-decode) of the dense Qwen trunks; and training: the ColBERT contrastive
-step and the causal-LM train step, AdamW / Adafactor, the fault-tolerant
-``Trainer`` and checkpoints in the JAX package's format.
+decode) of the dense Qwen and the MoE trunks (Moonshot, Kimi K2);
+DimeNet with its neighbor sampler; the four recsys models (Wide & Deep,
+DeepFM, FM, DLRM); and training: the ColBERT contrastive step, the
+causal-LM, DimeNet and recsys train steps, AdamW / Adafactor, the
+fault-tolerant ``Trainer`` and checkpoints in the JAX package's format.
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 
@@ -41,6 +43,11 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``::
                          model, rt.TrainConfig(total_steps=200,
                                                checkpoint_dir="ckpt"))
     trainer.run(batches)                # {"q": [B, Lq], "d": [B, Ld]} ids
+
+    cfg = rt.get_config("dlrm-rm2")
+    rec = rt.init_recsys(cfg, seed=0)
+    step, opt = rt.make_recsys_train_step(cfg)
+    state, out = step(rec, opt.init(rec), batch)   # sparse_ids, dense, label
 
 Attributes resolve lazily so ``import repro_torch`` stays cheap.
 """
@@ -96,6 +103,26 @@ _EXPORTS = {
     "TrainConfig": "repro_torch.train",
     "DataPipeline": "repro_torch.data.pipeline",
     "lm_batches": "repro_torch.data.pipeline",
+    "ALL_ARCHS": "repro_torch.configs",
+    "ASSIGNED_ARCHS": "repro_torch.configs",
+    "MoE": "repro_torch.models.moe",
+    "moe_apply": "repro_torch.models.moe",
+    "DimeNet": "repro_torch.models.gnn",
+    "init_dimenet": "repro_torch.models.gnn",
+    "dimenet_forward": "repro_torch.models.gnn",
+    "dimenet_loss": "repro_torch.models.gnn",
+    "build_triplets": "repro_torch.models.gnn",
+    "NeighborSampler": "repro_torch.models.gnn",
+    "Recsys": "repro_torch.models.recsys",
+    "init_recsys": "repro_torch.models.recsys",
+    "embedding_bag": "repro_torch.models.recsys",
+    "recsys_forward": "repro_torch.models.recsys",
+    "recsys_loss": "repro_torch.models.recsys",
+    "score_candidates": "repro_torch.models.recsys",
+    "make_gnn_train_step": "repro_torch.launch.steps",
+    "make_recsys_train_step": "repro_torch.launch.steps",
+    "make_recsys_serve_step": "repro_torch.launch.steps",
+    "make_recsys_retrieval_step": "repro_torch.launch.steps",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -8,6 +8,12 @@ which sums in row order; on the card they sum through one-hot products
 (cuBLAS sums each product in one order, and row chunks add in row
 order). The one-hot factors are exact, so the sums are f32 sums of the
 same terms (with TF32 off, PyTorch's default for f32 products).
+
+``sorted_segment_sum`` is the route for many segments (a graph's nodes,
+where an [n, M] one-hot would cost n * M * f products): each segment's
+rows are gathered through a padded CSR table and summed along it, in
+row order, on every device; it keeps x's dtype and autograd (the
+gather is ``F.embedding``, whose backward sums by sorting).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _ONEHOT_ELEMS = 1 << 26     # one-hot elements a chunk (256 MB of f32)
 
@@ -63,3 +70,23 @@ def batched_segment_sum(x: torch.Tensor, assign: torch.Tensor,
     onehot = (assign.long()[..., None] == torch.arange(
         n, device=x.device)).float() * w[..., None]            # [B, N, n]
     return torch.bmm(onehot.transpose(1, 2), x), onehot.sum(dim=1)
+
+
+def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """x [M, f] rows summed by segment id seg [M] in [0, n) -> [n, f] in
+    x's dtype: each segment's rows gathered through a padded CSR table
+    ([n, max count] row ids in ascending order, the pad a zero row) and
+    summed along it, the same order on every run and device."""
+    M = x.shape[0]
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=n)
+    width = int(counts.max()) if M else 0
+    first = torch.cumsum(counts, 0) - counts
+    sorted_seg = seg[order]
+    col = torch.arange(M, device=x.device) - first[sorted_seg]
+    table = torch.full((n, max(width, 1)), M, dtype=torch.long,
+                       device=x.device)
+    table[sorted_seg, col] = order
+    rows = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    return F.embedding(table, rows, padding_idx=M).sum(dim=1)

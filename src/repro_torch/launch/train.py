@@ -2,6 +2,7 @@
 mesh: one card).
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --steps 50
+    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke
     python -m repro_torch.launch.train --arch qwen3-0.6b --steps 4 \\
         --batch 8 --seq 2048 --microbatches 2 --checkpoint-dir DIR
 
@@ -10,7 +11,9 @@ Random weights from seed 0, a synthetic token stream from seed 0
 optimizer under the cosine schedule. With ``--checkpoint-dir`` it resumes
 from the latest checkpoint there (either package's) and fast-forwards the
 stream to that step; it checkpoints every ``max(steps // 4, 10)`` steps
-and at the end. Runs on ``cuda`` unless ``--device`` names another.
+and at the end. A MoE trunk routes with ``moe_impl="dense"`` under
+``--smoke`` and ``"capacity"`` otherwise, as the reference's driver
+does. Runs on ``cuda`` unless ``--device`` names another.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.data.pipeline import lm_batches
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import _check_lm
 from repro_torch.models.transformer import init_transformer, lm_loss
 from repro_torch.train.trainer import TrainConfig, Trainer
 
@@ -49,12 +51,13 @@ def main(argv=None) -> int:
            else get_config(args.arch))
     if not isinstance(cfg, TransformerConfig):
         raise ValueError(f"{args.arch}: not a causal LM")
-    _check_lm(cfg)
+    moe_impl = "dense" if args.smoke else "capacity"
     dev = resolve_device(args.device)
     model = init_transformer(cfg, seed=0, device=dev)
 
     def loss_fn(m, batch):
-        return lm_loss(m, batch["tokens"], batch["labels"], cfg)
+        return lm_loss(m, batch["tokens"], batch["labels"], cfg,
+                       moe_impl=moe_impl)
 
     tcfg = TrainConfig(total_steps=args.steps, lr=args.lr,
                        microbatches=args.microbatches,

@@ -22,8 +22,16 @@ The methods take an optional ``cfg`` that decides the attention path
 reference's functions take theirs; the module's own config is the
 default and fixes the shapes. ``init_transformer`` draws seeded random
 weights; ``params_from_jax`` turns the reference's parameter tree into
-a module's state and ``params_to_jax`` a state back into the tree. MoE
-trunks are not ported.
+a module's state and ``params_to_jax`` a state back into the tree.
+
+A MoE trunk (``cfg.moe``) holds ``cfg.first_dense_layers`` dense blocks
+(``layers``, the reference's ``dense_layers`` stack) and then the MoE
+blocks (``moe_layers``), whose feed-forward is ``models/moe.py``'s; the
+kv cache holds the dense layers first. ``forward``, ``lm_loss``,
+``prefill`` and ``decode_step`` take ``moe_impl`` ("capacity", the
+reference's default; "dense"; "ep"); a decode step routes its B new
+tokens under the same capacity rule (C from T = B). ``lm_loss`` adds the
+blocks' summed router loss to the cross entropy.
 """
 from __future__ import annotations
 
@@ -39,37 +47,56 @@ from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_forward)
 from repro_torch.models.layers import Dense, Embed, dt, norm
 from repro_torch.models.mlp import MLP
-from repro_torch.train.params import group, to_tree
+from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.train.params import from_tree, group, to_tree
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device=None, dtype=torch.float32):
+    """A pre-norm block: attention, then the dense MLP or (``is_moe``)
+    the MoE feed-forward."""
+
+    def __init__(self, cfg, device=None, dtype=torch.float32,
+                 is_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.is_moe = is_moe
         self.attn_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
                               dtype)
         self.attn = Attention(cfg, device, dtype)
         self.mlp_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
                              dtype)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.gated_mlp,
-                       device, dtype)
+        if is_moe:
+            self.moe = MoE(cfg, device, dtype)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, cfg.gated_mlp,
+                           device, dtype)
+
+    def _ffn(self, x, cfg, moe_impl: str):
+        """-> (x + the feed-forward of its norm, the router loss or None)."""
+        h = self.mlp_norm(x)
+        if self.is_moe:
+            h, aux = moe_apply(self.moe, h, cfg, impl=moe_impl)
+            return x + h, aux
+        return x + self.mlp(h), None
 
     def forward(self, x, pad_mask=None, positions=None, cfg=None,
-                return_kv: bool = False):
-        h = attention_forward(self.attn, self.attn_norm(x), cfg or self.cfg,
+                return_kv: bool = False, moe_impl: str = "capacity"):
+        """-> (x, router loss or None), and (k, v) with ``return_kv``."""
+        cfg = cfg or self.cfg
+        h = attention_forward(self.attn, self.attn_norm(x), cfg,
                               positions=positions, pad_mask=pad_mask,
                               return_kv=return_kv)
         if return_kv:
             h, kv = h
-        x = x + h
-        x = x + self.mlp(self.mlp_norm(x))
-        return (x, kv) if return_kv else x
+        x, aux = self._ffn(x + h, cfg, moe_impl)
+        return (x, aux, kv) if return_kv else (x, aux)
 
-    def decode(self, x, cache_k, cache_v, pos: int, cfg=None):
-        h, _, _ = attention_decode(self.attn, self.attn_norm(x),
-                                   cfg or self.cfg, cache_k, cache_v, pos)
-        x = x + h
-        return x + self.mlp(self.mlp_norm(x))
+    def decode(self, x, cache_k, cache_v, pos: int, cfg=None,
+               moe_impl: str = "capacity"):
+        cfg = cfg or self.cfg
+        h, _, _ = attention_decode(self.attn, self.attn_norm(x), cfg,
+                                   cache_k, cache_v, pos)
+        return self._ffn(x + h, cfg, moe_impl)[0]
 
 
 class Transformer(nn.Module):
@@ -77,23 +104,27 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE trunks (models/moe.py) are not ported yet "
-                f"(ROADMAP queue 1)")
         pdt = dt(cfg.param_dtype)
+        n_moe = max(cfg.n_layers - cfg.first_dense_layers, 0) if cfg.moe else 0
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, device, pdt)
         self.pos_embed = (Embed(cfg.max_seq_len, cfg.d_model, device, pdt)
                           if cfg.pos_emb == "learned" else None)
         self.layers = nn.ModuleList(Block(cfg, device, pdt)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(cfg.n_layers - n_moe))
+        self.moe_layers = nn.ModuleList(Block(cfg, device, pdt, is_moe=True)
+                                        for _ in range(n_moe))
         self.final_norm = norm(cfg.norm, cfg.d_model, cfg.norm_eps, device,
                                pdt)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    @property
+    def blocks(self):
+        """Every block in order: the dense ones, then the MoE ones."""
+        return list(self.layers) + list(self.moe_layers)
 
     def _embed(self, tokens, positions, cfg):
         cdt = dt(cfg.dtype)
@@ -103,23 +134,29 @@ class Transformer(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, pad_mask: torch.Tensor = None,
-                cfg=None) -> torch.Tensor:
-        """tokens [B, S] -> hidden [B, S, d_model] in the compute dtype.
-        Under autograd with ``cfg.remat`` each block is recomputed in the
-        backward pass (``torch.utils.checkpoint``), so only the blocks'
-        inputs are kept: the reference's ``jax.checkpoint`` of its
-        scanned block."""
+                cfg=None, moe_impl: str = "capacity",
+                return_aux: bool = False):
+        """tokens [B, S] -> hidden [B, S, d_model] in the compute dtype,
+        and with ``return_aux`` the MoE blocks' summed router loss (f32;
+        0 on a dense trunk). Under autograd with ``cfg.remat`` each block
+        is recomputed in the backward pass (``torch.utils.checkpoint``),
+        so only the blocks' inputs are kept: the reference's
+        ``jax.checkpoint`` of its scanned block."""
         cfg = cfg or self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed(tokens, positions, cfg)
+        aux = torch.zeros((), device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        for layer in self.blocks:
             if remat:
-                x = checkpoint(layer, x, pad_mask, positions, cfg,
-                               use_reentrant=False)
+                x, a = checkpoint(layer, x, pad_mask, positions, cfg, False,
+                                  moe_impl, use_reentrant=False)
             else:
-                x = layer(x, pad_mask, positions, cfg)
-        return self.final_norm(x)
+                x, a = layer(x, pad_mask, positions, cfg, moe_impl=moe_impl)
+            if a is not None:
+                aux = aux + a
+        x = self.final_norm(x)
+        return (x, aux) if return_aux else x
 
     def load_params(self, state: Dict[str, np.ndarray]) -> "Transformer":
         """Load a ``params_from_jax`` state (numpy arrays) in place."""
@@ -152,7 +189,7 @@ class TransformerLM(Transformer):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                cfg=None):
+                cfg=None, moe_impl: str = "capacity"):
         """tokens [B, S] -> (hidden [B, S, d_model], cache of length
         ``max_len`` (default S) holding the prompt's k and v)."""
         cfg = cfg or self.cfg
@@ -163,14 +200,16 @@ class TransformerLM(Transformer):
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions, cfg)
         cache = self.init_cache(B, max_len, cfg=cfg)
-        for i, layer in enumerate(self.layers):
-            x, (k, v) = layer(x, None, positions, cfg, return_kv=True)
+        for i, layer in enumerate(self.blocks):
+            x, _, (k, v) = layer(x, None, positions, cfg, return_kv=True,
+                                 moe_impl=moe_impl)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return self.final_norm(x), cache
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache, pos: int, cfg=None):
+    def decode_step(self, token: torch.Tensor, cache, pos: int, cfg=None,
+                    moe_impl: str = "capacity"):
         """token [B, 1]; cache from ``prefill`` / ``init_cache``; ``pos``
         the number of valid cache entries -> (logits [B, 1, V], cache with
         the token's k and v written at ``pos``)."""
@@ -178,23 +217,26 @@ class TransformerLM(Transformer):
         pos = int(pos)
         x = self._embed(token, torch.full((1,), pos, device=token.device),
                         cfg)
-        for i, layer in enumerate(self.layers):
-            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, cfg)
+        for i, layer in enumerate(self.blocks):
+            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, cfg,
+                             moe_impl)
         return self.logits_head(self.final_norm(x)), cache
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
-            labels: torch.Tensor, cfg=None, loss_mask=None):
+            labels: torch.Tensor, cfg=None, loss_mask=None,
+            moe_impl: str = "capacity"):
     """Causal-LM cross entropy (``src/repro/models/transformer.py``
     ``lm_loss``); tokens and labels [B, S], labels pre-shifted ->
-    (loss + aux, {"xent", "aux", "tokens"}).
+    (xent + aux, {"xent", "aux", "tokens"}).
 
     The head and the f32 cross entropy run over ``cfg.logits_chunk``
     slices of the sequence, each recomputed in the backward pass under
     autograd, so the [B, S, V] logits never live at once: at most one
-    chunk's. ``aux`` (the MoE router loss) is 0 on a dense trunk."""
+    chunk's. ``aux`` is the MoE blocks' summed router loss (0 on a
+    dense trunk)."""
     cfg = cfg or model.cfg
-    hidden = model(tokens, cfg=cfg)
+    hidden, aux = model(tokens, cfg=cfg, moe_impl=moe_impl, return_aux=True)
     B, S, _ = hidden.shape
     chunk = min(cfg.logits_chunk, S)
     if S % chunk:
@@ -219,7 +261,6 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             tot = tot + chunk_nll(*args)
     cnt = mask.sum()
     loss = tot / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), device=hidden.device)
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 
@@ -234,44 +275,25 @@ def init_transformer(cfg, generator: Optional[torch.Generator] = None, *,
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (Dense, Embed)):
+        if isinstance(m, (Dense, Embed, MoE)):
             m.reset_parameters(generator)
     return model
-
-
-def _flatten(tree, prefix: str, out: Dict[str, np.ndarray],
-             index: Optional[int] = None) -> None:
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            _flatten(val, f"{prefix}{key}.", out, index)
-        else:
-            a = np.asarray(val)
-            out[prefix + key] = a if index is None else a[index]
 
 
 def params_from_jax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """The reference's ``init_transformer`` tree (nested dicts of arrays;
     dense ``w`` is [d_in, d_out]; layers stacked on axis 0 under
-    ``dense_layers``) -> a trunk's state, keys under ``prefix``, as numpy
-    arrays. The module's names follow the tree's, so the map is a
-    flattening, ``dense_layers`` unstacked into ``layers.<i>``."""
-    if "moe_layers" in tree:
-        raise NotImplementedError("MoE trunks (models/moe.py) are not ported "
-                                  "yet (ROADMAP queue 1)")
-    state: Dict[str, np.ndarray] = {}
-    for key, sub in tree.items():
-        if key == "dense_layers":
-            n = np.asarray(sub["attn_norm"]["scale"]).shape[0]
-            for i in range(n):
-                _flatten(sub, f"{prefix}layers.{i}.", state, i)
-        else:
-            _flatten(sub, f"{prefix}{key}.", state)
-    return state
+    ``dense_layers`` and, for a MoE trunk, ``moe_layers``) -> a trunk's
+    state, keys under ``prefix``, as numpy arrays. The module's names
+    follow the tree's, so the map is a flattening, the stacks unstacked
+    into ``layers.<i>`` and ``moe_layers.<i>``."""
+    return from_tree(tree, prefix)
 
 
 def params_to_jax(state, prefix: str = "") -> Dict:
     """The inverse of ``params_from_jax``: a trunk's state (the names
     under ``prefix``; tensors or arrays) -> the reference's tree of host
-    arrays, ``layers.<i>`` stacked on axis 0 under ``dense_layers``."""
+    arrays, ``layers.<i>`` stacked on axis 0 under ``dense_layers`` and
+    ``moe_layers.<i>`` under ``moe_layers``."""
     return to_tree(group((name[len(prefix):], v) for name, v in state.items()
                          if name.startswith(prefix)))

@@ -27,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.train.params import host, tree_paths
+from repro_torch.train.params import host, listify, tree_paths
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
@@ -38,19 +38,7 @@ def _unflatten(flat: Dict[str, np.ndarray]):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = arr
-    return _listify(tree)
-
-
-def _listify(node):
-    """Convert dict nodes whose keys are 0..n-1 back into lists."""
-    if not isinstance(node, dict):
-        return node
-    out = {k: _listify(v) for k, v in node.items()}
-    if out and all(k.isdigit() for k in out):
-        idx = sorted(out, key=int)
-        if idx == [str(i) for i in range(len(idx))]:
-            return [out[k] for k in idx]
-    return out
+    return listify(tree)
 
 
 class CheckpointManager:

@@ -1,7 +1,8 @@
 """A module's parameters as the reference's parameter tree lays them out.
 
 The reference keeps a trunk's layers stacked on a leading axis under
-``dense_layers``; the port keeps one module per layer (``layers.<i>``).
+``dense_layers`` (and a MoE trunk's MoE blocks under ``moe_layers``);
+the port keeps one module per layer (``layers.<i>``, ``moe_layers.<i>``).
 Training works on *groups*, one per leaf of the reference's tree, keyed
 by its path in ``tree_paths``' syntax (``trunk/dense_layers/attn/wq/w``)
 in the reference's leaf order (sorted keys): a tensor for a parameter of
@@ -16,6 +17,8 @@ slot over all L layers) and a checkpoint holds the reference's tree.
     autograd; ``microbatch_value_and_grad`` over slices of a batch;
   * ``to_tree`` / ``load_tree``: groups to the reference's nested tree
     of host arrays (stacks stacked) and back, in place;
+  * ``from_tree``: the reference's tree to a module's state dict
+    (``params_from_jax`` of every model);
   * ``tree_paths``: the reference's ``a/b/0/c`` flattening.
 """
 from __future__ import annotations
@@ -27,15 +30,22 @@ import torch
 from torch import nn
 
 
+# the reference's stacks -> the port's per-layer module lists
+STACKS = {"dense_layers": "layers", "moe_layers": "moe_layers",
+          "blocks": "blocks"}
+_STACK_OF = {v: k for k, v in STACKS.items()}
+
+
 def jax_path(name: str) -> Tuple[str, Optional[int]]:
     """A module parameter's name -> (its path in the reference's tree,
     its layer index in a stack or None): ``trunk.layers.3.attn.wq.w`` ->
-    (``trunk/dense_layers/attn/wq/w``, 3)."""
+    (``trunk/dense_layers/attn/wq/w``, 3), ``moe_layers.1.moe.w1`` ->
+    (``moe_layers/moe/w1``, 1)."""
     parts = name.split(".")
-    if "layers" in parts:
-        i = parts.index("layers")
-        return "/".join(parts[:i] + ["dense_layers"] + parts[i + 2:]), int(
-            parts[i + 1])
+    for i, part in enumerate(parts[:-1]):
+        if part in _STACK_OF and parts[i + 1].isdigit():
+            return "/".join(parts[:i] + [_STACK_OF[part]] + parts[i + 2:]), \
+                int(parts[i + 1])
     return "/".join(parts), None
 
 
@@ -144,10 +154,21 @@ def _host_leaf(v):
     return host(v)
 
 
+def listify(node):
+    """Dict nodes keyed 0..n-1 -> lists (the reference's MLP lists)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: listify(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and sorted(
+            out, key=int) == [str(i) for i in range(len(out))]:
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
 def to_tree(groups: Dict[str, Any]) -> Dict[str, Any]:
     """Groups -> the reference's nested tree of host arrays: each path
     split on ``/``, a stack stacked on axis 0, a slot dict kept under its
-    path."""
+    path, a node keyed 0..n-1 a list."""
     tree: Dict[str, Any] = {}
     for path, v in groups.items():
         parts = path.split("/")
@@ -155,7 +176,35 @@ def to_tree(groups: Dict[str, Any]) -> Dict[str, Any]:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = _host_leaf(v)
-    return tree
+    return listify(tree)
+
+
+def from_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The reference's parameter tree -> a module's state (names under
+    ``prefix``, numpy arrays): a stack of ``STACKS`` unstacked into its
+    module list (``dense_layers`` -> ``layers.<i>``), a list's entries
+    as ``<key>.<i>``, the rest flattened with ``.``."""
+    state: Dict[str, np.ndarray] = {}
+
+    def walk(node, name, index=None):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{name}{k}.", index)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{name}{i}.", index)
+        else:
+            a = np.asarray(node)
+            state[name[:-1]] = a if index is None else a[index]
+
+    for key, sub in tree.items():
+        if key in STACKS and isinstance(sub, dict):
+            n = np.asarray(tree_paths(sub)[0][1]).shape[0]
+            for i in range(n):
+                walk(sub, f"{prefix}{STACKS[key]}.{i}.", i)
+        else:
+            walk(sub, f"{prefix}{key}.")
+    return state
 
 
 def _copy_into(leaf, node, path: str) -> None:
@@ -186,9 +235,13 @@ def load_tree(groups: Dict[str, Any], tree) -> None:
     for path, leaf in groups.items():
         node = tree
         for p in path.split("/"):
-            if not isinstance(node, dict) or p not in node:
+            if isinstance(node, (list, tuple)) and p.isdigit() and int(
+                    p) < len(node):
+                node = node[int(p)]
+            elif isinstance(node, dict) and p in node:
+                node = node[p]
+            else:
                 raise KeyError(f"{path}: not in the tree")
-            node = node[p]
         _copy_into(leaf, node, path)
 
 

@@ -28,7 +28,8 @@ from repro.models import attention as jatt
 from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
 from repro.models import transformer as jtr
-from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke_config
+from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
+from repro_torch.configs.base import ColbertConfig, TransformerConfig
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import attention as tatt
@@ -86,7 +87,13 @@ def _assert_fields_equal(td, jd, jax_only):
     assert td == {k: jd[k] for k in td}
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+# the causal LMs (dense and MoE) and ColBERT; tests/test_torch_rules.py
+# holds every architecture's configs
+LM_ARCHS = [a for a in ALL_ARCHS
+            if isinstance(get_config(a), (TransformerConfig, ColbertConfig))]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
 def test_configs_equal_reference_field_by_field(arch, which):
     if which == "CONFIG":

@@ -171,14 +171,20 @@ def test_make_lm_train_step_matches_reference(micro, acc, opt):
 
 
 def test_train_step_refuses_flash_and_moe():
+    """``use_flash_kernel`` has no train step, on a dense or a MoE trunk
+    (MoE trunks train since the MoE port: without the flag a step is
+    built)."""
     tc = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
                              use_flash_kernel=True)
     with pytest.raises(ValueError, match="backward"):
         tsteps.make_lm_train_step(tc, device="cpu")
     moe = dataclasses.replace(get_smoke_config("qwen3-0.6b"), moe=True,
                               n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_lm_train_step(moe, device="cpu")
+    with pytest.raises(ValueError, match="backward"):
+        tsteps.make_lm_train_step(dataclasses.replace(
+            moe, use_flash_kernel=True), device="cpu")
+    step, opt = tsteps.make_lm_train_step(moe, device="cpu")
+    assert callable(step) and opt.init is not None
 
 
 def test_trunk_checkpoints_cross_packages(tmp_path):
