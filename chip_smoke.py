@@ -75,6 +75,19 @@
      ``probe_kernel="device"`` the device path; both prune (the
      ``plaid_probe`` kernel reading its table from device memory) and
      agree with each other and with the plain versions;
+   * sharding: one rank on the card, the ("data", "model") mesh over
+     NCCL (an in-process store): ``ReplicatedIndex.replicate(flat index,
+     2, use_shard_map=True)`` over the flat path's 4,096-doc index serves
+     each lane through a one-cell flat plan (``maxsim`` counted), bitwise
+     equal to ``search_batch``; a forced plan over the same docs in 4
+     flat shards falls back to the dispatch merge (its row reuses the
+     card), bitwise equal to that index's ``search_batch``; later, after
+     the train paths (one call profiled), ``moe_ep`` at
+     one Moonshot MoE layer's width on 2,048 tokens takes the
+     expert-parallel path under the mesh (one rank: both all-to-alls run
+     over NCCL), at a capacity where nothing drops held to ``moe_dense``
+     within 2% relative, and timed beside ``moe_capacity``; without a
+     context it is ``moe_capacity`` bit for bit;
    * facade: ``Retriever.load`` of the main artifact (run right after
      from_dir): the spec read back from the manifest equals the main
      path's, and its search the main path's results exactly;
@@ -161,11 +174,16 @@
      ``make_lm_train_step`` calls on one batch of 4 x 2,048 tokens in 4
      microbatches (remat): the loss falls, ``aux`` > 0, every gradient
      group (the router's too) finite and not all zero, two runs from one
-     seed bitwise equal. Then one Kimi K2 MoE layer at full width (d
-     7,168, 384 experts top 8, moe_d_ff 2,048, bf16 parameters: 16.9B,
-     34 GB) on 2,048 tokens, capacity against the dense oracle in chunks
-     of 256 tokens (its trunk does not run: d_head 112 is outside the
-     kernel's head widths and 61 layers hold 2 TB);
+     seed bitwise equal. Then (path kimi) a Kimi K2 trunk at full width
+     (d_model 7,168, 64 heads of 112 over 8 kv heads, 384 experts top 8,
+     moe_d_ff 2,048, vocab 163,840, bf16 parameters), 1 of its 61 layers
+     (every layer is a 16.9B-parameter MoE layer, 34 GB; the trunk is
+     ~40 GB): a 1 x 2,048 prefill with ``use_flash_kernel`` (exactly one
+     ``flash_attention`` launch, at dh 112) and 4 decode steps, held to
+     the plain path with the kernel path's routes pinned as Moonshot is,
+     the kernel timed at the layer's own q, k, v beside
+     ``scaled_dot_product_attention``; its MoE layer on 2,048 tokens,
+     capacity against the dense oracle in chunks of 256 tokens;
    * gnn: DimeNet at the published widths (6 blocks, hidden 128,
      bilinear 8, spherical 7, radial 6, cutoff 5, triplet cap 8; bf16
      compute, f32 AdamW) through ``make_gnn_train_step`` on three of the
@@ -214,9 +232,10 @@
    b = 4 (``maxsim_packed``, whose SASS must
    hold HMMA instructions: its products run on the tensor cores);
    ``flash_attention`` on
-   seeded random inputs in the Qwen3, Qwen1.5 and Qwen2.5-14B head
-   layouts, bf16 and f32, Sq < Skv, Sq > Skv, non-causal, the lm_long
-   shape, ragged Sq and Skv at dh 128, and the timed lm shape), and
+   seeded random inputs in the Qwen3, Qwen1.5, Qwen2.5-14B and Kimi K2
+   (dh 112) head layouts, bf16 and f32 (f32 at dh 112 zero-padded to
+   128 by the wrapper), Sq < Skv, Sq > Skv, non-causal, the lm_long
+   shape, ragged Sq and Skv at dh 128 and 112, and the timed lm shape), and
    times both with CUDA events (behind a sleep kernel, so that host
    dispatch is not counted where the call does not wait on the card);
    prints each kernel's bound (bytes over 3.35 TB/s or operations over
@@ -394,7 +413,7 @@ LMT_MICRO_REL = 1e-2               # gradients, relative Frobenius
 # moe: Moonshot at full width, depth cut to 8 of 48 layers (28.06B
 # parameters at 48, 112 GB in its f32 param dtype; 5.24B, 21 GB at 8);
 # training at 2 layers (1.81B, ~29 GB with f32 AdamW); one Kimi K2 MoE
-# layer alone (16.9B expert parameters, 34 GB in its bf16)
+# trunk at 1 of 61 layers (16.9B expert parameters, 34 GB in its bf16)
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 8
 MOE_BATCH = 8
@@ -409,7 +428,14 @@ MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_BATCH = 4                # 4 x 2,048 tokens in 4 microbatches
 MOE_TRAIN_STEPS = 4
 KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 1                    # each layer 34 GB of bf16 experts
+KIMI_BATCH = 1
+KIMI_PROMPT = 2048
+KIMI_DECODE = 4
 KIMI_CHUNK = 256                   # the dense oracle's token chunk
+# sharding: one rank; moe_ep at one Moonshot MoE layer's width
+EP_TOKENS = 2048
+SHARD_PARTS = 4                    # the forced plan's sharded index
 # gnn: DimeNet at the published widths on three GNN_SHAPES cells with
 # launch/input_specs.py GNN_CELL_META's tasks, classes and features
 GNN_STEPS = {"molecule": 20, "full_graph_sm": 5, "minibatch_lg": 3}
@@ -441,6 +467,9 @@ FLASH_CASES = [  # (what, B, H, KV, Sq, Skv, dh, causal, dtype)
     ("non-causal", 1, 16, 8, 4096, 4096, 64, False, "bfloat16"),
     ("lm_long 16/8/64", 1, 16, 8, 8192, 8192, 64, True, "bfloat16"),
     ("ragged 40/8/128", 1, 40, 8, 1000, 1333, 128, True, "bfloat16"),
+    ("kimi 64/8/112", 1, 64, 8, 2048, 2048, 112, True, "bfloat16"),
+    ("kimi 64/8/112 f32", 1, 64, 8, 1000, 1000, 112, True, "float32"),
+    ("ragged 16/2/112", 2, 16, 2, 1000, 1333, 112, True, "bfloat16"),
 ]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
@@ -478,6 +507,8 @@ PATH_KERNELS = {
     "colbert_train": ("ward_pool", "maxsim_packed"),   # the sweeps
     "lm_train": (),                    # plain torch: no kernel, no flash
     "moe": ("flash_attention",),       # Moonshot's prefill, at dh 128
+    "kimi": ("flash_attention",),      # Kimi K2's prefill, at dh 112
+    "sharding": ("maxsim",),           # the one-cell flat plan
     "gnn": (),                         # DimeNet: no kernel in either package
     "recsys": (),                      # none in either package
 }
@@ -1471,6 +1502,138 @@ def capture_probe_args(searcher, queries):
     if not seen:
         raise AssertionError("the search batch made no plaid_probe call")
     return seen[0]
+
+
+def sharding_path(rt, torch, dev, card, model, flat_index, queries):
+    """One rank on the card: the replicated flat index's plans over the
+    flat path's 4,096-doc index (a one-cell plan; a forced plan over 4
+    shards falls back to the dispatch merge). ``moe_ep`` follows later
+    (``sharding_ep``): its profiled call would leave ``search_split``
+    no device time."""
+    from repro_torch.core.replicated import ReplicatedIndex, _FlatPlan
+    from repro_torch.core.sharded import ShardedIndex
+    fails = _checks()
+    qv = rt.Searcher(model, flat_index,
+                     encode_batch=QUERY_BATCH).encode_queries(queries)
+    S0, I0 = flat_index.search_batch(qv, k=TOP_K)
+
+    def drive():
+        rep = ReplicatedIndex.replicate(flat_index, 2, use_shard_map=True)
+        return rep, [rep.search_batch_on(r, qv, k=TOP_K) for r in range(2)]
+
+    rep, lanes = run_path("sharding", torch, drive)
+    plans = [rep._plans.get(r) for r in range(2)]
+    _check(fails, all(isinstance(p, _FlatPlan) and len(p.cells) == 1
+                      for p in plans),
+           "sharding: each lane serves through a one-cell flat plan")
+    _check(fails, all(np.array_equal(S, S0) and np.array_equal(I, I0)
+                      for S, I in lanes),
+           "sharding: the one-cell plan equals search_batch bitwise")
+
+    def wall(fn, reps=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    plan_ms = wall(lambda: rep.search_batch(qv, k=TOP_K))
+    flat_ms = wall(lambda: flat_index.search_batch(qv, k=TOP_K))
+    store = flat_index._store
+    cap = -(-int(store.n_vectors(live_only=False)) // SHARD_PARTS) + 256
+    sharded = ShardedIndex(dim=flat_index.dim, backend="flat",
+                           shard_max_vectors=cap,
+                           doc_maxlen=flat_index.doc_maxlen,
+                           device=flat_index.device)
+    sharded.add(flat_index.docs)
+    rep4 = ReplicatedIndex.replicate(sharded, 1, use_shard_map=True)
+    S4, I4 = rep4.search_batch(qv, k=TOP_K)
+    W4 = sharded.search_batch(qv, k=TOP_K)
+    _check(fails, rep4._plan_for(0) is None,
+           f"sharding: a forced plan over {sharded.n_shards} shards on one "
+           f"card is refused (its row reuses the card)")
+    _check(fails, np.array_equal(S4, W4[0]) and np.array_equal(I4, W4[1]),
+           "sharding: the refused plan's dispatch merge equals the sharded "
+           "index's search_batch bitwise")
+    _agree("sharding: 4 flat shards vs the monolithic flat index", S4, I4,
+           S0, I0)
+    print(f"sharding: one-cell plan over {flat_index.n_docs} docs, "
+          f"{QUERY_BATCH * 2} queries: {plan_ms:.3f} ms a search (host "
+          f"clock, to the host result), the index's own search_batch "
+          f"{flat_ms:.3f} ms; forced plan over {sharded.n_shards} shards: "
+          f"dispatch merge [{card}]")
+    del rep, rep4, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    _raise_failed("sharding", fails)
+    return dict(plan_ms=plan_ms, flat_ms=flat_ms)
+
+
+def sharding_ep(rt, torch, dev, card):
+    """``moe_ep`` under a one-rank ("data", "model") mesh over NCCL, at
+    one Moonshot MoE layer's width: the expert-parallel path against the
+    dense oracle, timed (and one call profiled) beside ``moe_capacity``;
+    without a context it is ``moe_capacity`` bit for bit."""
+    import repro_torch.models.moe as moe
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.sharding.api import lm_rules, mesh_context
+    fails = _checks()
+    mcfg = rt.get_config(MOE_ARCH)
+    T, E, k = EP_TOKENS, mcfg.n_experts, mcfg.top_k
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    layer = moe.MoE(mcfg, dev).requires_grad_(False)
+    layer.router.reset_parameters(g)
+    layer.reset_parameters(g)
+    x = torch.randn((1, T, mcfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    # C_loc = T and cap_send = T k: nothing can drop
+    roomy = dataclasses.replace(mcfg, capacity_factor=E / k)
+    with torch.no_grad():
+        y_cap, aux_cap = moe.moe_capacity(layer, x, mcfg)
+        y_free, aux_free = moe.moe_ep(layer, x, mcfg)
+        _check(fails, torch.equal(y_free, y_cap) and torch.equal(
+            aux_free, aux_cap), "sharding: moe_ep without a context is "
+                               "moe_capacity, bitwise")
+        with process_group(dev):
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            with mesh_context(mesh, lm_rules("data")):
+                st = {}
+                y_ep, aux_ep = moe.moe_ep(layer, x, roomy, capacity=T * k,
+                                          stats=st)
+                d_st = {}
+                y_def, _ = moe.moe_ep(layer, x, mcfg, stats=d_st)
+                ep_ms = _time_ms(lambda: moe.moe_ep(layer, x, mcfg))
+                prof = _profile_step(torch, "sharding: moe_ep",
+                                     lambda: moe.moe_ep(layer, x, mcfg))
+            cap_ms = _time_ms(lambda: moe.moe_capacity(layer, x, mcfg))
+        y_dense = torch.cat([moe.moe_dense(layer, x[:, i:i + KIMI_CHUNK],
+                                           mcfg)[0]
+                             for i in range(0, T, KIMI_CHUNK)], dim=1)
+    err, rel = _errors(y_ep, y_dense)
+    kept = int(st["keep2"].sum())
+    drop = 1.0 - float(d_st["keep2"].sum()) / (T * k)
+    d_err, d_rel = _errors(y_def, y_cap)
+    print(f"sharding: moe_ep under a one-rank (data, model) mesh over NCCL, "
+          f"{E} experts top {k}, d {mcfg.d_model}, {T} tokens: at cap_send "
+          f"{st['cap_send']}, C_loc {st['C_loc']} (nothing can drop; "
+          f"{kept} of {T * k} assignments kept) against the dense oracle: "
+          f"max abs {err:.4g}, relative {rel:.4g} (limit {MOE_LAYER_REL}); "
+          f"at its own default capacities (cap_send {d_st['cap_send']}, "
+          f"C_loc {d_st['C_loc']}) it drops {drop:.6f} and differs from "
+          f"moe_capacity by max abs {d_err:.4g}, relative {d_rel:.4g}; "
+          f"moe_ep {ep_ms:.4f} ms (two all-to-alls and the replicated "
+          f"output's broadcast over one rank), moe_capacity {cap_ms:.4f} ms "
+          f"[{card}]")
+    _check(fails, kept == T * k and bool(st["keep"].all()),
+           "sharding: moe_ep (roomy) kept every assignment")
+    _check(fails, rel <= MOE_LAYER_REL,
+           f"sharding: moe_ep = dense within {MOE_LAYER_REL} relative")
+    del layer, x, y_cap, y_free, y_ep, y_def, y_dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    _raise_failed("sharding", fails)
+    return dict(ep_ms=ep_ms, capacity_ms=cap_ms, ep_max_abs=err, ep_rel=rel,
+                ep_default_drop=drop, ep_profile=prof)
 
 
 def _n_valid(cfg, docs):
@@ -3625,7 +3788,7 @@ def _moe_routes(replay=None):
         moe._router, moe.dispatch = router, dispatch
 
 
-def _flash_at(torch, q, k, v):
+def _flash_at(torch, q, k, v, what="moe"):
     """``flash_attention`` timed on one layer's own q, k, v beside its
     plain version and ``scaled_dot_product_attention`` -> readings."""
     import torch.nn.functional as F
@@ -3644,7 +3807,7 @@ def _flash_at(torch, q, k, v):
             q, kl, vl, is_causal=True), reps=20)
     bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
                           flop, BF16_OPS_PER_S)
-    print(f"flash_attention at the moe shape (q {tuple(q.shape)}, k/v "
+    print(f"flash_attention at the {what} shape (q {tuple(q.shape)}, k/v "
           f"{tuple(k.shape)}, bf16, causal): {ms:.4f} ms "
           f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
@@ -3654,60 +3817,63 @@ def _flash_at(torch, q, k, v):
                 bound_by=by)
 
 
-def _moe_serve(rt, torch, cfg, model, card, fails):
-    """Moonshot at MOE_LAYERS layers: prefill through the kernel path
-    (counted), again (timed, layers' own kernel calls kept), then the
-    plain path; route flips, drop shares and the agreement."""
+def _moe_serve(rt, torch, cfg, model, card, fails, name="moe",
+               batch=MOE_BATCH, prompt=MOE_PROMPT, n_decode=MOE_DECODE):
+    """A MoE trunk (path ``name``: Moonshot at MOE_LAYERS layers, Kimi K2
+    at KIMI_LAYERS): prefill through the kernel path (counted), again
+    (timed, layers' own kernel calls kept), then the plain path; route
+    flips, drop shares and the agreement."""
     import repro_torch.models.moe as moe
     from repro_torch.kernels import launch_counts
     L = cfg.n_layers
     tokens = np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
     torch.cuda.reset_peak_memory_stats()
     with _moe_routes() as k_routes:
         logits, toks, cache, prefill_s, decode_s = run_path(
-            "moe", torch, lambda: _serve(rt, torch, cfg, model, tokens,
-                                         MOE_DECODE))
+            name, torch, lambda: _serve(rt, torch, cfg, model, tokens,
+                                        n_decode))
     peak = torch.cuda.max_memory_allocated()
-    n = PATH_LAUNCHES["moe"]["flash_attention"]
-    n_tok = MOE_BATCH * MOE_PROMPT
-    print(f"moe: flash_attention launches {n} (one a layer, none in the "
-          f"{MOE_DECODE} decode steps); first pass prefill {prefill_s:.4f}s "
+    n = PATH_LAUNCHES[name]["flash_attention"]
+    n_tok = batch * prompt
+    print(f"{name}: flash_attention launches {n} (one a layer, none in the "
+          f"{n_decode} decode steps); first pass prefill {prefill_s:.4f}s "
           f"({n_tok / prefill_s:.1f} tokens/s), decode "
-          f"{decode_s / MOE_DECODE * 1e3:.3f} ms a step (batch {MOE_BATCH}); "
+          f"{decode_s / n_decode * 1e3:.3f} ms a step (batch {batch}); "
           f"peak device memory {peak} bytes [{card}]")
-    _check(fails, n == L, f"moe: {n} flash_attention launches == {L}")
-    _check(fails, all(tuple(x.shape) == (MOE_BATCH, cfg.vocab_size)
+    _check(fails, n == L, f"{name}: {n} flash_attention launches == {L}")
+    _check(fails, all(tuple(x.shape) == (batch, cfg.vocab_size)
                       and bool(torch.isfinite(x).all()) for x in logits),
-           "moe: logits finite, [B, V]")
+           f"{name}: logits finite, [B, V]")
     captured = {}
     with _flash_replaced(_capturing((0, L - 1), captured)):
         _, _, _, prefill_s, decode_s = _serve(rt, torch, cfg, model, tokens,
-                                              MOE_DECODE)
-    print(f"moe: steady prefill {prefill_s:.4f}s ({n_tok / prefill_s:.1f} "
-          f"tokens/s), decode {decode_s / MOE_DECODE * 1e3:.3f} ms a step")
+                                              n_decode)
+    print(f"{name}: steady prefill {prefill_s:.4f}s "
+          f"({n_tok / prefill_s:.1f} tokens/s), decode "
+          f"{decode_s / n_decode * 1e3:.3f} ms a step")
     try:
-        _check_captured("moe", torch, captured)
+        _check_captured(name, torch, captured)
     except AssertionError as e:
         fails.append(str(e))
-    flash = _flash_at(torch, *captured[0][:3])
+    flash = _flash_at(torch, *captured[0][:3], what=name)
     del captured
     plain = dataclasses.replace(cfg, use_flash_kernel=False)
     before = launch_counts()["flash_attention"]
     with _moe_routes() as p_routes:
         p_logits, p_toks, p_cache, p_prefill_s, _ = _serve(
-            rt, torch, plain, model, tokens, MOE_DECODE)
+            rt, torch, plain, model, tokens, n_decode)
     flips = [float((a["ids"] != b["ids"]).float().mean())
              for a, b in zip(k_routes[:L], p_routes[:L])]
     drops = [1.0 - float(r["keep"].float().mean()) for r in k_routes[:L]]
-    print(f"moe: prefill route flips, kernel vs plain path, share of "
+    print(f"{name}: prefill route flips, kernel vs plain path, share of "
           f"(token, slot) assignments per layer: "
           f"{[round(f, 6) for f in flips]}; dropped at the default capacity "
           f"({moe.capacity_for(n_tok, cfg)} an expert) per layer: "
           f"{[round(d, 6) for d in drops]}")
     l_err, l_rel = _errors(logits[0], p_logits[0])
-    first, worst = _cache_errors(cache, p_cache, MOE_PROMPT)
-    print(f"moe, routes free: last-token logits max abs err {l_err:.4g}, "
+    first, worst = _cache_errors(cache, p_cache, prompt)
+    print(f"{name}, routes free: last-token logits max abs err {l_err:.4g}, "
           f"relative {l_rel:.4g}; cache layers 1.. largest relative "
           f"{worst:.4g} (readings: a flipped assignment changes a token's "
           f"expert output outright)")
@@ -3716,29 +3882,30 @@ def _moe_serve(rt, torch, cfg, model, card, fails):
     # differs, so the lm path's limits hold
     with _moe_routes(replay=k_routes):
         p_logits, p_toks, p_cache, _, _ = _serve(rt, torch, plain, model,
-                                                 tokens, MOE_DECODE)
+                                                 tokens, n_decode)
     _check(fails, launch_counts()["flash_attention"] == before,
-           "moe: the plain path launched no flash_attention")
+           f"{name}: the plain path launched no flash_attention")
     p_err, p_rel = _errors(logits[0], p_logits[0])
-    first, p_worst = _cache_errors(cache, p_cache, MOE_PROMPT)
-    print(f"moe, routes pinned to the kernel path's: last-token logits max "
+    first, p_worst = _cache_errors(cache, p_cache, prompt)
+    print(f"{name}, routes pinned to the kernel path's: last-token logits max "
           f"abs err {p_err:.4g} (atol {LM_LOGITS_ATOL}), relative "
           f"{p_rel:.4g} (limit {LM_REL}); cache layer 0 max abs {first:.4g}, "
           f"layers 1.. largest relative {p_worst:.4g} (limit {LM_REL})")
     _check(fails, p_err <= LM_LOGITS_ATOL and p_rel <= LM_REL,
-           "moe (routes pinned): last-token logits within the lm limits")
+           f"{name} (routes pinned): last-token logits within the lm "
+           f"limits")
     _check(fails, p_worst <= LM_REL,
-           f"moe (routes pinned): each layer's cache within {LM_REL}")
+           f"{name} (routes pinned): each layer's cache within {LM_REL}")
     try:
         _greedy_agree(logits, toks, p_logits, p_toks)
     except AssertionError as e:
-        fails.append(f"moe greedy (routes pinned): {e}")
+        fails.append(f"{name} greedy (routes pinned): {e}")
     del cache, p_cache
     prefill = rt.make_lm_prefill_step(cfg)
-    prof = _profile_step(torch, "moe prefill",
+    prof = _profile_step(torch, f"{name} prefill",
                          lambda: prefill(model, {"tokens": tokens}))
     return dict(prefill_s=prefill_s, prefill_tokens_s=n_tok / prefill_s,
-                decode_ms=decode_s / MOE_DECODE * 1e3,
+                decode_ms=decode_s / n_decode * 1e3,
                 plain_prefill_s=p_prefill_s, peak_bytes=peak,
                 route_flips=flips, drop_share=drops, free_logits_max_abs=l_err,
                 free_logits_rel=l_rel, free_cache_rel=worst,
@@ -3857,11 +4024,12 @@ def _moe_train(rt, torch, dev, card, fails):
 
 def moe_path(rt, torch, dev, card):
     """Moonshot serving at full width (8 of 48 layers) against the plain
-    attention path, one Moonshot MoE layer and one Kimi K2 MoE layer
-    against the dense oracle, and Moonshot training (2 layers)."""
+    attention path, one Moonshot MoE layer against the dense oracle,
+    Moonshot training (2 layers), then a Kimi K2 trunk at full width (1
+    of 61 layers) served through ``flash_attention`` at dh 112 against
+    the plain path, and its MoE layer against the dense oracle."""
     import repro_torch.models.moe as moe
     from repro_torch.kernels import launch_counts
-    from repro_torch.models.layers import dt
     fails = _checks()
     full = rt.get_config(MOE_ARCH)
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
@@ -3882,38 +4050,61 @@ def moe_path(rt, torch, dev, card):
           f"{full.param_dtype}), random from seed {SEED}, in "
           f"{time.perf_counter() - t0:.3f}s")
     serve = _moe_serve(rt, torch, cfg, model, card, fails)
+    counts = launch_counts()
     layer = _moe_layer(torch, dev, moe, cfg, model.moe_layers[0].moe,
                        "moe layer", fails)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    counts = launch_counts()
     train = _moe_train(rt, torch, dev, card, fails)
     gc.collect()
     torch.cuda.empty_cache()
-    kcfg = rt.get_config(KIMI_ARCH)
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    _check(fails, launch_counts() == counts,
+           "moe: the layer check and training launch no kernel")
+    kimi, kimi_layer = _kimi(rt, torch, dev, card, fails)
+    _raise_failed("moe", fails)
+    return dict(serve=serve, layer=layer, train=train, kimi=kimi,
+                kimi_layer=kimi_layer)
+
+
+def _kimi(rt, torch, dev, card, fails):
+    """Kimi K2 at full width, KIMI_LAYERS of its 61 layers (no dense
+    prefix: each layer is attention at dh 112 and a 16.9B-parameter MoE
+    layer): served as Moonshot is (path kimi), then its MoE layer against
+    the dense oracle."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels import launch_counts
+    full = rt.get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(full, n_layers=KIMI_LAYERS,
+                              use_flash_kernel=True)
+    if (cfg.d_head, cfg.n_heads, cfg.n_kv_heads, cfg.n_experts, cfg.top_k,
+            cfg.first_dense_layers, cfg.param_dtype) != (
+            112, 64, 8, 384, 8, 0, "bfloat16"):
+        raise AssertionError(f"{KIMI_ARCH}: unexpected config {cfg}")
     t0 = time.perf_counter()
-    klayer = moe.MoE(kcfg, dev, dt(kcfg.param_dtype)).requires_grad_(False)
-    klayer.router.reset_parameters(g)
-    klayer.reset_parameters(g)
+    model = rt.init_transformer(cfg, seed=SEED)
     torch.cuda.synchronize()
-    print(f"kimi setup: one {KIMI_ARCH} MoE layer at full width (d "
-          f"{kcfg.d_model}, {kcfg.n_experts} experts top {kcfg.top_k}, "
-          f"moe_d_ff {kcfg.moe_d_ff}, {kcfg.param_dtype} as its config): "
-          f"{sum(p.numel() for p in klayer.parameters())} parameters in "
-          f"{time.perf_counter() - t0:.3f}s; its trunk does not run (d_head "
-          f"{kcfg.d_head} is outside flash_attention's 64 and 128, and "
-          f"{kcfg.n_layers} layers hold {kcfg.param_count() * 2} bytes)")
-    kimi = _moe_layer(torch, dev, moe, kcfg, klayer, "kimi layer", fails,
-                      chunk=KIMI_CHUNK)
-    del klayer
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"kimi setup: {KIMI_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.d_head} over {cfg.n_kv_heads} kv "
+          f"heads, {cfg.n_experts} experts top {cfg.top_k}, moe_d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
+          f"parameters), {KIMI_LAYERS} of {full.n_layers} layers: {n_par} "
+          f"parameters ({n_par * 2} bytes; the full depth "
+          f"{full.param_count()}), random from seed {SEED}, in "
+          f"{time.perf_counter() - t0:.3f}s [{card}]")
+    serve = _moe_serve(rt, torch, cfg, model, card, fails, name="kimi",
+                       batch=KIMI_BATCH, prompt=KIMI_PROMPT,
+                       n_decode=KIMI_DECODE)
+    counts = launch_counts()
+    layer = _moe_layer(torch, dev, moe, cfg, model.moe_layers[0].moe,
+                       "kimi layer", fails, chunk=KIMI_CHUNK)
+    _check(fails, launch_counts() == counts,
+           "kimi: the layer check launches no kernel")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
-    _check(fails, launch_counts() == counts,
-           "moe: the layer checks, training and kimi launch no kernel")
-    _raise_failed("moe", fails)
-    return dict(serve=serve, layer=layer, train=train, kimi_layer=kimi)
+    return serve, layer
 
 
 # ---------------------------------------------------------------- gnn
@@ -4487,6 +4678,8 @@ def main(argv=None) -> int:
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     hnsw_path(rt, torch, model, docs, queries)
     k8192_probe = plaid_k8192_path(rt, torch, model, flat_index, queries)
+    sharding_numbers = sharding_path(rt, torch, dev, card, model, flat_index,
+                                     queries)
     del flat_index
     kmeans_path(rt, torch, model, docs, queries)
     sequential_path(rt, torch, model, docs, queries)
@@ -4547,6 +4740,7 @@ def main(argv=None) -> int:
     del index, searcher, model
     gc.collect()
     torch.cuda.empty_cache()
+    sharding_numbers.update(sharding_ep(rt, torch, dev, card))
     moe_numbers = moe_path(rt, torch, dev, card)
     gnn_numbers = gnn_path(rt, torch, dev, card)
     recsys_numbers = recsys_path(rt, torch, dev, card)
@@ -4557,6 +4751,7 @@ def main(argv=None) -> int:
                       "recon_split_ms": recon_split, "eval": eval_numbers,
                       "serve": serve_numbers, "colbert_train": colbert_train,
                       "lm_train": lm_train, "moe": moe_numbers,
+                      "sharding": sharding_numbers,
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
                       "card": card}))
     print(card)

@@ -12,7 +12,11 @@ decode) of the dense Qwen and the MoE trunks (Moonshot, Kimi K2);
 DimeNet with its neighbor sampler; the four recsys models (Wide & Deep,
 DeepFM, FM, DLRM); and training: the ColBERT contrastive step, the
 causal-LM, DimeNet and recsys train steps, AdamW / Adafactor, the
-fault-tolerant ``Trainer`` and checkpoints in the JAX package's format.
+fault-tolerant ``Trainer`` and checkpoints in the JAX package's format;
+the meshes (``DeviceMesh`` with the reference's axis names), the
+sharding rules and parameter specs, ``moe_ep``'s expert-parallel
+all-to-all, the replicated index's flat plan over a row of devices, and
+the (arch x shape) cells' shape-only inputs (``build_cell``).
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 
@@ -123,6 +127,20 @@ _EXPORTS = {
     "make_recsys_train_step": "repro_torch.launch.steps",
     "make_recsys_serve_step": "repro_torch.launch.steps",
     "make_recsys_retrieval_step": "repro_torch.launch.steps",
+    "moe_ep": "repro_torch.models.moe",
+    "ReplicatedIndex": "repro_torch.core.replicated",
+    "process_group": "repro_torch.launch.mesh",
+    "fake_process_group": "repro_torch.launch.mesh",
+    "make_mesh": "repro_torch.launch.mesh",
+    "make_production_mesh": "repro_torch.launch.mesh",
+    "make_host_mesh": "repro_torch.launch.mesh",
+    "make_serve_mesh": "repro_torch.launch.mesh",
+    "serve_device_table": "repro_torch.launch.mesh",
+    "P": "repro_torch.sharding",
+    "mesh_context": "repro_torch.sharding",
+    "constrain": "repro_torch.sharding",
+    "build_cell": "repro_torch.launch.input_specs",
+    "all_cells": "repro_torch.launch.input_specs",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -4,9 +4,11 @@ MoE), ColBERT, DimeNet, the recsys models, and the shape cells.
 Copies of ``src/repro/configs/base.py``. Each dataclass keeps the
 fields the ported paths read, each with the reference's default, so a
 config copied here equals the reference's on every field it has. The
-reference's sharding and analysis hints (``scan_layers``,
-``attn_shard``, ``fsdp_params``, ``unroll_scans``) are left out until
-sharding is ported and reads them. Frozen, so ``dataclasses.replace``
+sharding hints ``attn_shard`` and ``fsdp_params`` are read by
+``launch/input_specs.py``, as is ``unroll_scans`` (a prefill cell's
+attention chunk); the reference's ``scan_layers`` (layers under one
+``lax.scan``) has no PyTorch meaning (the port loops over its layers)
+and is left out, as is DimeNet's ``unroll_scans``. Frozen, so ``dataclasses.replace``
 makes variants (the tests run in ``dtype="float32"``; the flash kernel
 is switched on with ``use_flash_kernel=True``).
 
@@ -66,10 +68,17 @@ class TransformerConfig:
     remat: bool = True                 # recompute each block in backward
     logits_chunk: int = 1024           # seq-chunking of the xent loss
 
+    # --- sharding hints (launch/input_specs.py) ---
+    attn_shard: str = "heads"          # "heads" | "sequence" (when H % tp != 0)
+    fsdp_params: bool = True           # ZeRO-3: shard weights on data axis too
+
     # --- training ---
     optimizer: str = "adamw"           # "adamw" | "adafactor"
     train_microbatches: int = 1        # grad accumulation in the LM step
     grad_accum_dtype: str = "float32"  # the accumulator's dtype
+    # the reference's analysis mode (its scans unrolled); here it sets a
+    # prefill cell's attention chunk as the reference's does
+    unroll_scans: bool = False
 
     def __post_init__(self):
         if self.d_head == 0:

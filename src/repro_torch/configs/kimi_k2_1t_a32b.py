@@ -2,7 +2,8 @@
 
 61L d_model=7168 64H (GQA kv=8) d_ff=2048 vocab=163840, MoE 384e top-8.
 Copy of ``src/repro/configs/kimi_k2_1t_a32b.py``
-(``CONFIG`` and the test-size ``SMOKE``), without the sharding hints.
+(``CONFIG`` and the test-size ``SMOKE``), without ``scan_layers``, which
+has no PyTorch meaning.
 """
 from repro_torch.configs.base import TransformerConfig
 

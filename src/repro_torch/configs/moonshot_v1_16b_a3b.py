@@ -2,7 +2,7 @@
 
 48L d_model=2048 16H (GQA kv=16) d_ff=1408 vocab=163840, MoE 64e top-6.
 Copy of ``src/repro/configs/moonshot_v1_16b_a3b.py``
-(``CONFIG`` and the test-size ``SMOKE``), without the sharding hints.
+(``CONFIG`` and the test-size ``SMOKE``).
 """
 from repro_torch.configs.base import TransformerConfig
 

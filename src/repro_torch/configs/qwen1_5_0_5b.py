@@ -2,7 +2,7 @@
 
 24L d_model=1024 16H (kv=16 -> MHA) d_ff=2816 vocab=151936.
 Copy of ``src/repro/configs/qwen1_5_0_5b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the sharding hints.
+``SMOKE``).
 """
 from repro_torch.configs.base import TransformerConfig
 

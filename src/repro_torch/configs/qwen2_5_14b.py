@@ -1,8 +1,9 @@
 """Qwen2.5-14B dense, GQA, QKV bias [hf:Qwen/Qwen2.5 family; hf].
 
 48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064.
+H=40 does not divide tp=16 -> sequence-parallel attention sharding.
 Copy of ``src/repro/configs/qwen2_5_14b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the sharding hints.
+``SMOKE``).
 """
 from repro_torch.configs.base import TransformerConfig
 
@@ -16,6 +17,7 @@ CONFIG = TransformerConfig(
     vocab_size=152064,
     qkv_bias=True,
     rope_theta=1_000_000.0,
+    attn_shard="sequence",        # 40 % 16 != 0
     train_microbatches=4,
 )
 

@@ -2,7 +2,7 @@
 
 28L d_model=1024 16H (GQA kv=8) d_ff=3072 vocab=151936.
 Copy of ``src/repro/configs/qwen3_0_6b.py`` (``CONFIG`` and the test-size
-``SMOKE``), without the sharding hints.
+``SMOKE``).
 """
 from repro_torch.configs.base import TransformerConfig
 

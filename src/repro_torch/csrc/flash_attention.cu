@@ -13,7 +13,11 @@
 // are f32 (the recurrence of kernel.py:57-75); p is rounded to v's dtype
 // before the PV product, which accumulates in f32; a row with no visible
 // column has l = 0, taken as 1, and outputs 0. The output is in q's dtype.
-// dh 64 or 128, any Sq and Skv (tails masked).
+// dh 64, 112 (Kimi K2's 7,168 / 64 heads; bf16 only) or 128, any Sq and Skv
+// (tails masked). The softmax scale is the caller's: f32(1/sqrt(dh)) of the
+// true dh, which the wrapper also passes when it zero-pads an f32 dh of 112
+// to the f32 body's 128 (the padded columns add 0 to q k^T and their output
+// columns are cut off).
 //
 // What bounds it on this card: two products of 2 * dh operations for each
 // visible (q, kv) pair. At the causal LM's per-layer shape (q [128, 2048, 64],
@@ -43,12 +47,15 @@
 //   heaviest first. Scaling: q and k are bf16, so each product is exact in
 //   f32 and S is scaled by f32(1/sqrt(dh)) right after QK^T. At dh = 64 the
 //   scale is 0.125, a power of two, so this equals `_flash_kernel`'s scaling
-//   of q before the product; at dh = 128 the two differ by one f32 rounding
-//   of each score.
+//   of q before the product; at dh = 112 and 128 the two differ by one f32
+//   rounding of each score.
 //   The block height follows dh (`bf16_warps`): 128 q rows (8 warps) at
-//   dh 64, 64 rows (4 warps) at dh 128, the faster of the two at each dh on
-//   an H100.
-// * f32 (tests and `chip_smoke.py` only): `flash_f32_kernel`, f32 FMAs,
+//   dh 64, 64 rows (4 warps) at dh 112 and 128, the faster of the two at
+//   dh 64 and 128 on an H100. At dh 112 a row is 7 k-steps and 14 output
+//   tiles, 14 16-byte chunks (a 240-byte padded shared row, so the eight rows
+//   of an `ldmatrix` still fall in distinct bank groups).
+// * f32 (tests and `chip_smoke.py` only, dh 64 or 128): `flash_f32_kernel`,
+//   f32 FMAs,
 //   because the tensor cores cannot hold the f32 contract: one block of 256
 //   threads per (64-row q tile, bh), q scaled in f32 before the product,
 //   4 x 4 f32 FMA register tiles from shared memory, P through shared
@@ -535,13 +542,12 @@ __global__ void __launch_bounds__(NWARPS * 32) flash_bf16_kernel(
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const AllStrides& st, int B, int H, int KV, int Sq, int Skv,
-               int causal, void* stream) {
+               int causal, float scale, void* stream) {
   const int BH = B * H;
   const size_t smem = Layout<DH>::bytes;
   cudaFuncSetAttribute(flash_f32_kernel<DH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const float scale = (float)(1.0 / sqrt((double)DH));
   dim3 grid((Sq + BQ - 1) / BQ, BH < MAX_GRID_Y ? BH : MAX_GRID_Y);
   if (BH > 0 && Sq > 0)
     flash_f32_kernel<DH><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
@@ -554,13 +560,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 template <int DH, int NWARPS>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const AllStrides& st, int B, int H, int KV, int Sq, int Skv,
-                int causal, void* stream) {
+                int causal, float scale, void* stream) {
   constexpr int BQb = Bf16Layout<DH, NWARPS>::BQ;
   const size_t smem = Bf16Layout<DH, NWARPS>::bytes;
   cudaFuncSetAttribute(flash_bf16_kernel<DH, NWARPS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const float scale = (float)(1.0 / sqrt((double)DH));
   const int n_q = (Sq + BQb - 1) / BQb;
   if (n_q > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
   dim3 grid(B * H, n_q);
@@ -582,11 +587,12 @@ constexpr int bf16_warps() {
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o,
            const AllStrides& st, int B, int H, int KV, int Sq, int Skv,
-           int causal, int is_bf16, void* stream) {
+           int causal, int is_bf16, float scale, void* stream) {
   if (!is_bf16)
-    return launch_f32<DH>(q, k, v, o, st, B, H, KV, Sq, Skv, causal, stream);
+    return launch_f32<DH>(q, k, v, o, st, B, H, KV, Sq, Skv, causal, scale,
+                          stream);
   return launch_bf16<DH, bf16_warps<DH>()>(q, k, v, o, st, B, H, KV, Sq, Skv,
-                                           causal, stream);
+                                           causal, scale, stream);
 }
 
 }  // namespace
@@ -595,13 +601,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // dtype (f32, or bf16 when is_bf16), each addressed through its (batch, head,
 // row) strides in elements, strides[12] = q, k, v, o in turn, with unit
 // stride along dh; base pointers and strides 16-byte aligned; H % KV == 0,
-// dh 64 or 128. Returns cudaGetLastError() (cudaErrorInvalidValue for a
-// shape it does not take).
+// dh 64 or 128, or 112 in bf16; `scale` multiplies q k^T (f32(1/sqrt(dh)) of
+// the true dh). Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int KV, int Sq, int Skv, int dh,
                                       const long long* strides, int causal,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, float scale, void* stream) {
   if (B < 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
   AllStrides st;
   Strides* each[4] = {&st.q, &st.k, &st.v, &st.o};
@@ -609,9 +616,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     *each[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   if (dh == 64)
     return launch<64>(q, k, v, o, st, B, H, KV, Sq, Skv, causal, is_bf16,
-                      stream);
+                      scale, stream);
+  if (dh == 112 && is_bf16)
+    return launch_bf16<112, bf16_warps<112>()>(q, k, v, o, st, B, H, KV, Sq,
+                                               Skv, causal, scale, stream);
   if (dh == 128)
     return launch<128>(q, k, v, o, st, B, H, KV, Sq, Skv, causal, is_bf16,
-                       stream);
+                       scale, stream);
   return (int)cudaErrorInvalidValue;
 }

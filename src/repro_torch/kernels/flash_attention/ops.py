@@ -13,17 +13,23 @@ projections go in as transposed views without a copy, and
 ``flash_attention`` writes its output in [B, S, H, dh] memory (returned
 as the [B, H, S, dh] view), the layout the output projection reads.
 
-bf16 or f32 in (q, k and v of one dtype), output in q's dtype, dh 64 or
-128. bf16 runs on the tensor cores (``mma.sync``); f32 runs the f32 FMA
-body, which keeps the f32 contract. CPU tensors (or ``impl="ref"``) run
-the plain version; CUDA tensors launch the kernel on the current stream
-or raise.
+bf16 or f32 in (q, k and v of one dtype), output in q's dtype, dh 64,
+112 (Kimi K2's width) or 128. bf16 runs on the tensor cores
+(``mma.sync``), with an instance at each of the three widths; f32 runs
+the f32 FMA body, which keeps the f32 contract, at 64 or 128: an f32 dh
+of 112 is zero-padded to 128 here (the padded columns add 0 to q k^T;
+their output columns are cut off). The softmax scale passed to the
+kernel is f32(1/sqrt(dh)) of the true dh either way. CPU tensors (or
+``impl="ref"``) run the plain version; CUDA tensors launch the kernel on
+the current stream or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import (LaunchCounter, build, check_impl,
                                  check_no_grad)
@@ -31,7 +37,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
+# f32 dh the f32 body does not take -> the width it is zero-padded to
+_F32_PADDED = {112: 128}
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 
@@ -42,7 +50,8 @@ def _load():
         lib = build.load(_NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = ([P] * 4 + [I] * 6 + [P]
-                                               + [I] * 2 + [P])
+                                               + [I] * 2
+                                               + [ctypes.c_float, P])
         lib.flash_attention_launch.restype = I
         _lib = lib
     return _lib
@@ -85,6 +94,20 @@ def _launch(q, k, v, o, causal):
     KV, Skv = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"{_NAME}: head dim {dh} not in {HEAD_DIMS}")
+    scale = 1.0 / math.sqrt(dh)             # the true dh's, padded or not
+    if q.dtype == torch.float32 and dh in _F32_PADDED:
+        pad = _F32_PADDED[dh] - dh
+        o_pad = torch.empty((B, H, Sq, dh + pad), dtype=q.dtype,
+                            device=q.device)
+        _run(*(F.pad(t, (0, pad)) for t in (q, k, v)), o_pad, causal, scale)
+        o.copy_(o_pad[..., :dh])
+        return
+    _run(q, k, v, o, causal, scale)
+
+
+def _run(q, k, v, o, causal, scale):
+    B, H, Sq, dh = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*(
         s for name, t in (("q", q), ("k", k), ("v", v), ("o", o))
         for s in _strides(name, t)))
@@ -92,7 +115,7 @@ def _launch(q, k, v, o, causal):
     code = _load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KV, Sq,
         Skv, dh, strides, int(causal), int(q.dtype == torch.bfloat16),
-        stream)
+        scale, stream)
     build.check(code, _NAME)
     LAUNCHES.bump()
 

@@ -74,6 +74,8 @@ def init_colbert(cfg, generator: Optional[torch.Generator] = None, *,
     normal(1/sqrt(d_in)), zero biases, unit norms. ``generator`` (on the
     model's device) defaults to one seeded with ``seed``."""
     model = ColBERT(cfg, device)
+    if model.device.type == "meta":     # shapes only: nothing to draw
+        return model
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(seed)
     for m in model.modules():

@@ -269,6 +269,8 @@ def init_dimenet(cfg, generator: Optional[torch.Generator] = None, *,
     normal(1/sqrt(d_in)), zero biases, the atom table truncated-normal
     (0.02), the bilinear tensors normal(1/sqrt(h))."""
     model = DimeNet(cfg, device)
+    if model.device.type == "meta":     # shapes only: nothing to draw
+        return model
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(seed)
     for m in model.modules():

@@ -104,6 +104,8 @@ def init_recsys(cfg, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, device: DeviceLike = None) -> Recsys:
     """Random weights with the reference initializers' laws."""
     model = Recsys(cfg, device)
+    if model.device.type == "meta":     # shapes only: nothing to draw
+        return model
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(seed)
     for m in model.modules():

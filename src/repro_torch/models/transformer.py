@@ -272,6 +272,8 @@ def init_transformer(cfg, generator: Optional[torch.Generator] = None, *,
     biases, unit norms. ``generator`` (on the model's device) defaults
     to one seeded with ``seed``."""
     model = TransformerLM(cfg, device)
+    if model.device.type == "meta":     # shapes only: nothing to draw
+        return model
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(seed)
     for m in model.modules():

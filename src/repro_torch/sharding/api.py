@@ -1,0 +1,269 @@
+"""Logical-axis sharding constraints (``src/repro/sharding/api.py``).
+
+Model code names a tensor's axes logically (``constrain(x, "batch",
+"seq", "heads", None)``); a ``MeshContext`` maps logical names to mesh
+axes by a rule table. With no context every annotation is a no-op, so
+one piece of code runs on one device and on a mesh unchanged.
+
+``PartitionSpec`` (``P``) is the port's spec: a tuple, one entry a
+tensor dim, each ``None`` (replicated), a mesh axis name, or a tuple of
+axis names (the dim split over several mesh axes, the first the major
+one), as JAX's ``PartitionSpec``. ``placements`` turns a spec into the
+DTensor placements of a ``DeviceMesh`` (one ``Shard(dim)`` on each mesh
+dim a tensor dim names, ``Replicate()`` elsewhere); ``constrain``
+redistributes a ``DTensor`` (or a plain tensor, taken as the same value
+on every rank) to them.
+
+The rule tables are the reference's: ``lm_rules`` (heads-TP, or
+``attn_shard="sequence"`` for head counts the TP axis does not divide),
+``lm_decode_rules``, ``lm_long_decode_rules``, ``gnn_rules``,
+``recsys_rules``, ``serve_rules`` and ``retrieval_rules``.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple, Union
+
+Axis = Union[str, Tuple[str, ...], None]
+
+_STATE = threading.local()
+
+
+class PartitionSpec(tuple):
+    """``P(None, "model", ("pod", "data"))``: one entry a tensor dim."""
+
+    def __new__(cls, *entries):
+        for e in entries:
+            ok = e is None or isinstance(e, str) or (
+                isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+            if not ok:
+                raise TypeError(f"spec entry {e!r} is not None, an axis name "
+                                f"or a tuple of axis names")
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P({', '.join(repr(e) for e in self)})"
+
+
+P = PartitionSpec
+
+
+@dataclass
+class MeshContext:
+    mesh: object                       # a DeviceMesh or a DeviceGrid
+    rules: Dict[str, Axis] = field(default_factory=dict)
+
+    def resolve(self, name: Optional[str]) -> Axis:
+        if name is None:
+            return None
+        return self.rules.get(name, None)
+
+
+def current_ctx() -> Optional[MeshContext]:
+    return getattr(_STATE, "ctx", None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, rules: Dict[str, Axis]):
+    """``rules`` over ``mesh`` for the block (this thread only)."""
+    prev = getattr(_STATE, "ctx", None)
+    _STATE.ctx = MeshContext(mesh, dict(rules))
+    try:
+        yield _STATE.ctx
+    finally:
+        _STATE.ctx = prev
+
+
+def logical_spec(*names: Optional[str]) -> P:
+    ctx = current_ctx()
+    if ctx is None:
+        return P()
+    return P(*[ctx.resolve(n) for n in names])
+
+
+def placements(spec, mesh) -> tuple:
+    """A spec -> the DTensor placements of ``mesh`` (one a mesh dim).
+    A tuple entry must name its axes in the mesh's order (a major axis
+    first, as DTensor splits a dim over mesh dims in their order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec}: no mesh axis {a!r} in "
+                                 f"{names}")
+            i = names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: mesh axis {a!r} used twice")
+            out[i] = Shard(dim)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: {axes} not in the mesh's axis "
+                             f"order {names}")
+    return tuple(out)
+
+
+def constrain(x, *names: Optional[str]):
+    """``x`` unchanged with no context; under one, a ``DTensor`` of the
+    names' placements on the context's ``DeviceMesh``: a ``DTensor``
+    redistributed, a plain tensor taken as the same value on every rank
+    (replicated) and then laid out."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+    if len(names) != x.ndim:
+        raise ValueError(f"{len(names)} axis names for a tensor of "
+                         f"{x.ndim} dims")
+    if not isinstance(ctx.mesh, DeviceMesh):
+        raise TypeError(f"constrain needs a DeviceMesh context, got "
+                        f"{type(ctx.mesh).__name__}")
+    target = placements(P(*[ctx.resolve(n) for n in names]), ctx.mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, ctx.mesh, [Replicate()] * ctx.mesh.ndim,
+                               run_check=False)
+    return x.redistribute(ctx.mesh, target)
+
+
+# ---------------------------------------------------------------------------
+# Standard rule sets
+# ---------------------------------------------------------------------------
+def _with_model(batch_axes: Axis, model_axis: str) -> Tuple[str, ...]:
+    return ((batch_axes,) if isinstance(batch_axes, str)
+            else tuple(batch_axes)) + (model_axis,)
+
+
+def lm_rules(batch_axes: Axis = "data", model_axis: str = "model",
+             attn_shard: str = "heads") -> Dict[str, Axis]:
+    """Megatron-style TP + DP rules for LM transformers.
+
+    ``attn_shard="sequence"`` is the fallback for head counts that do not
+    divide the TP degree (e.g. qwen2.5-14b H=40 on tp=16): the query
+    sequence axis is model-sharded instead and KV is replicated across TP.
+    """
+    rules: Dict[str, Axis] = {
+        "batch": batch_axes,
+        "seq": None,
+        "dmodel": None,
+        "ff": model_axis,
+        "vocab": model_axis,
+        "experts": model_axis,
+        "kv": None,            # kv heads replicated across TP (kv < tp)
+        "dh": None,
+        "kvseq": None,
+        "qseq": None,
+        "heads": model_axis,
+        # prefill cache emission: the cache's seq axis CAN shard over TP
+        # (unlike attention's in-flight kv, which is head-sharded)
+        "cacheseq": model_axis,
+    }
+    if attn_shard == "sequence":
+        rules["heads"] = None
+        rules["qseq"] = model_axis
+    return rules
+
+
+def lm_decode_rules(batch_axes: Axis = "data",
+                    model_axis: str = "model") -> Dict[str, Axis]:
+    """Decode: flash-decoding style — KV cache sequence-sharded over TP,
+    queries (1 token) replicated; exact softmax combine via all-reduce."""
+    return {
+        "batch": batch_axes,
+        "seq": None,
+        "dmodel": None,
+        "ff": model_axis,
+        "vocab": model_axis,
+        "experts": model_axis,
+        "heads": None,
+        "kv": None,
+        "dh": None,
+        "kvseq": model_axis,
+        "qseq": None,
+    }
+
+
+def lm_long_decode_rules(batch_axes: Axis = "data",
+                         model_axis: str = "model") -> Dict[str, Axis]:
+    """long_500k (batch=1): the KV cache sequence axis is the ONLY big axis
+    — shard it over every mesh axis (data+model combined)."""
+    r = lm_decode_rules(batch_axes, model_axis)
+    r["kvseq"] = _with_model(batch_axes, model_axis)
+    r["batch"] = None
+    return r
+
+
+def gnn_rules(batch_axes: Axis = "data",
+              model_axis: str = "model") -> Dict[str, Axis]:
+    """Node tables shard on data; edge/triplet tables (the big ones) shard
+    over data+model combined — DimeNet's triplet tensors dwarf everything."""
+    axes = _with_model(batch_axes, model_axis)
+    return {
+        "nodes": batch_axes,
+        "edges": axes,
+        "triplets": axes,
+        "batch": batch_axes,
+        "feat": None,
+        "hidden": None,
+    }
+
+
+def recsys_rules(batch_axes: Axis = "data",
+                 model_axis: str = "model") -> Dict[str, Axis]:
+    return {
+        "batch": batch_axes,
+        "vocab_rows": model_axis,   # embedding tables row-sharded over TP
+        "embed": None,
+        "feat": None,
+        "candidates": batch_axes,   # retrieval_cand: 1M candidates, data
+    }
+
+
+def serve_rules(shard_axis: str = "shard",
+                replica_axis: str = "replica") -> Dict[str, Axis]:
+    """Scale-out serving (``launch/mesh.make_serve_mesh``): the doc axis
+    partitions over the shard axis inside a replica group; queries are
+    replicated (every shard scores the whole microbatch, the top-k merge
+    is the only exchange). The batch axis maps to the replica axis only
+    for router-level accounting — the engine routes whole microbatches
+    to replica groups rather than splitting rows."""
+    return {
+        "docs": shard_axis,
+        "queries": None,
+        "tokens": None,
+        "dim": None,
+        "centroids": None,
+        "batch": replica_axis,
+    }
+
+
+def retrieval_rules(batch_axes: Axis = "data",
+                    model_axis: str = "model") -> Dict[str, Axis]:
+    return {
+        "docs": _with_model(batch_axes, model_axis),  # docs over EVERY axis
+        "queries": None,            # queries replicated
+        "tokens": None,
+        "dim": None,
+        "batch": batch_axes,
+        "seq": None,
+        "heads": model_axis,
+        "ff": model_axis,
+        "vocab": model_axis,
+        "dmodel": None,
+        "kv": None,
+        "dh": None,
+        "experts": model_axis,
+        "qseq": None,
+        "kvseq": None,
+        "centroids": None,
+    }

@@ -55,6 +55,7 @@ def _both(b, h, kv, sq, skv, dh, causal, dtype, seed):
     (2, 4, 1, 128, 512, 64, False),     # group 4, non-causal
     (1, 4, 2, 128, 512, 64, True),      # Sq < Skv: bottom-right anchor
     (1, 2, 2, 64, 64, 128, True),
+    (1, 16, 2, 128, 192, 112, True),    # Kimi K2's dh 112, group 8
 ])
 def test_matches_reference_kernel(b, h, kv, sq, skv, dh, causal, dtype):
     jo, to = _both(b, h, kv, sq, skv, dh, causal, dtype, sq + skv)

@@ -612,6 +612,9 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
     (1, 5, 1, 1, 77, 64, True),           # one query row (decode shape)
     (2, 8, 2, 333, 517, 128, True),       # ragged Sq < Skv at dh 128
     (1, 8, 4, 517, 333, 128, True),       # ragged Sq > Skv at dh 128
+    (1, 16, 2, 300, 300, 112, True),      # Kimi K2's dh 112, group 8
+    (2, 8, 8, 129, 200, 112, True),       # ragged Sq < Skv at dh 112
+    (1, 8, 1, 200, 129, 112, False),      # group 8, non-causal, dh 112
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, H, KV, Sq, Skv,
                                              dh, causal):

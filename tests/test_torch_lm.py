@@ -71,10 +71,10 @@ def _tokens(cfg, shape, seed):
 
 
 # ------------------------------------------------------------------ configs
-# The reference's sharding hints, which no ported module reads yet; a
-# new reference field fails the test until it is ported or listed here.
-JAX_ONLY_FIELDS = {"scan_layers", "attn_shard", "fsdp_params",
-                   "unroll_scans"}
+# The reference's ``scan_layers`` (its layers under one lax.scan) has no
+# PyTorch meaning: the port loops over its layers. A new reference field
+# fails the test until it is ported or listed here.
+JAX_ONLY_FIELDS = {"scan_layers"}
 # The reference ColbertConfig's doc block of its blocked MaxSim; the port's
 # maxsim kernel blocks docs itself (``maxsim_impl`` is read by
 # ``make_colbert_search_step``).

@@ -8,9 +8,7 @@
 * every kernel wrapper refuses a call autograd would record (no kernel
   has a backward), on the CPU as on the card;
 * where the reference takes the host probe path and the dense
-  fallback, so does the port, with the reference's results; what is not
-  ported yet (the replicated index's SPMD flat plan) raises
-  ``NotImplementedError`` naming ROADMAP;
+  fallback, so does the port, with the reference's results;
 * every architecture of the reference has its configs, field-equal.
 """
 import os
@@ -56,7 +54,9 @@ def test_port_imports_neither_jax_nor_reference():
               "models.recsys.embedding", "models.recsys.models",
               "configs.kimi_k2_1t_a32b", "configs.moonshot_v1_16b_a3b",
               "configs.dimenet", "configs.wide_deep", "configs.deepfm",
-              "configs.fm", "configs.dlrm_rm2"):
+              "configs.fm", "configs.dlrm_rm2", "launch.mesh",
+              "sharding", "sharding.api", "sharding.params",
+              "launch.input_specs"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -208,19 +208,6 @@ def test_refused_device_plan_raises_not_implemented():
     np.testing.assert_allclose(S, np.asarray(jS), rtol=1e-5, atol=1e-4)
 
 
-def test_replicated_shard_map_raises_naming_roadmap():
-    """The reference's SPMD flat plan (a shard_map program over a JAX
-    mesh) is not ported: forcing it raises; auto and off serve through
-    the per-lane dispatch."""
-    from repro_torch.core.replicated import ReplicatedIndex
-    idx, _ = _index(12, nprobe=2, ndocs=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplicatedIndex.replicate(idx, 2, use_shard_map=True)
-    for flag in (None, False):
-        assert ReplicatedIndex.replicate(idx, 2,
-                                         use_shard_map=flag).n_replicas == 2
-
-
 def test_unported_options_raise():
     with pytest.raises(ValueError):
         IndexSpec(quant_bits=3)
@@ -276,10 +263,11 @@ def test_family_entry_points_without_device_need_cuda(monkeypatch, arch):
         assert build(device="cpu") is not None
 
 
-# The reference's sharding and analysis hints, which no ported module
-# reads yet (ROADMAP queue 1); ColBERT's blocked-MaxSim doc block.
-JAX_ONLY = {"TransformerConfig": {"scan_layers", "attn_shard",
-                                  "fsdp_params", "unroll_scans"},
+# The reference's fields the port leaves out; ColBERT's blocked-MaxSim
+# doc block. ``scan_layers`` (layers under one lax.scan) has no PyTorch meaning: the
+# port loops over its layers. DimeNet's ``unroll_scans`` is read by no
+# ported module.
+JAX_ONLY = {"TransformerConfig": {"scan_layers"},
             "DimeNetConfig": {"unroll_scans"}, "RecsysConfig": set(),
             "ColbertConfig": {"maxsim_block"}}
 
