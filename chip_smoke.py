@@ -212,7 +212,19 @@
      falls, two runs bitwise equal), serve_p99 (batch 512, median of 20
      calls; held against the port on the CPU within 0.05), serve_bulk
      (262,144) and retrieval_cand (1 x 1,000,000 candidates, top 100,
-     ids equal to a full stable sort's, tie-aware).
+     ids equal to a full stable sort's, tie-aware);
+   * roofline: ``roofline/hw.py``'s ``HBM_BYTES`` must be the card's
+     ``total_memory``; dlrm-rm2's four cells through the dry run
+     (``launch/dryrun.py``, on ``meta``) on a one-rank (1, 1) view of
+     the production axes, each held to the same step on the card: the
+     predicted argument bytes equal the real arguments' exactly, the
+     trace's FLOPs equal ``FlopCounterMode``'s count of the card's step,
+     and the predicted activation peak and roofline step time print
+     beside ``max_memory_allocated`` and the measured step; the packed
+     and probe models (``roofline/packed.py``, ``probe.py``) at the main
+     path's shapes beside the kernels' times there; and
+     ``run_cell("dimenet", "ogb_products")`` over the fake (16, 16)
+     group, opened and closed around it.
    The dense, flat, kmeans and cascade paths are re-run with the plain
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
@@ -292,10 +304,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-F32_OPS_PER_S = 67e12              # H100 SXM f32, outside the tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
-TF32_OPS_PER_S = 494.7e12          # H100 SXM TF32 tensor cores, dense
 TF32_PASSES = 3                    # 3xTF32: hi*hi + hi*lo + lo*hi
 N_DOCS = 16384
 N_QUERIES = 64
@@ -511,6 +519,7 @@ PATH_KERNELS = {
     "sharding": ("maxsim",),           # the one-cell flat plan
     "gnn": (),                         # DimeNet: no kernel in either package
     "recsys": (),                      # none in either package
+    "roofline": (),                    # dlrm-rm2 again; the traces on meta
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
@@ -547,13 +556,23 @@ def _time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float,
-              ops_per_s: float = F32_OPS_PER_S, more=()):
+def _hw():
+    """The card's rates, ``src/repro_torch/roofline/hw.py``: the one
+    table every bound here and the port's roofline read."""
+    from repro_torch.roofline import hw
+    return hw
+
+
+def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = None,
+              more=()):
     """The larger of the bytes over the HBM rate and the operations over
-    their peak rate; ``more``: further (operations, rate) pairs of other
-    types, whose times add to the first."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_ops / ops_per_s + sum(o / r for o, r in more)) * 1e3
+    their peak rate (default the f32 peak); ``more``: further
+    (operations, rate) pairs of other types, whose times add to the
+    first."""
+    hw = _hw()
+    t_bytes = n_bytes / hw.HBM_BW * 1e3
+    t_ops = (n_ops / (ops_per_s or hw.PEAK_FLOPS_F32)
+             + sum(o / r for o, r in more)) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1020,8 +1039,9 @@ def _packed_bound(q, qm, w, a, dm, cen, vals):
     pairs = int((qm.sum(1) * dm.flatten(1).sum(1)).sum())
     n_bytes = (_nbytes(q, qm, dm, cen, vals) + n_tok * (4 * W + 4)
                + dm.shape[0] * dm.shape[1] * 4)
-    return _bound_ms(n_bytes, n_tok * dim * 4, F32_OPS_PER_S,
-                     more=[(pairs * dim * 2 * TF32_PASSES, TF32_OPS_PER_S)])
+    return _bound_ms(n_bytes, n_tok * dim * 4, _hw().PEAK_FLOPS_F32,
+                     more=[(pairs * dim * 2 * TF32_PASSES,
+                            _hw().PEAK_FLOPS_TF32)])
 
 
 def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
@@ -1111,7 +1131,7 @@ def check_maxsim_packed(torch, dev, index, qv, path_args, parent):
                       f"12,000 / 20,000 (dim 128), b=2 and 4; timed at "
                       f"b={bits}; bound: valid tokens' "
                       f"bytes, products at 3 passes of the TF32 rate "
-                      f"{TF32_OPS_PER_S:.4g}/s, reconstruction at f32")
+                      f"{_hw().PEAK_FLOPS_TF32:.4g}/s, reconstruction at f32")
 
 
 def _long_queries(torch, dev, Nq, dim, seed):
@@ -2582,7 +2602,7 @@ def _allpairs_bound(q, qm, d, dm):
     dim = q.shape[2]
     n_bytes = _nbytes(q, qm, d, dm) + q.shape[0] * d.shape[0] * 4
     ops = 2 * dim * int(qm.sum()) * int(dm.sum())
-    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, _hw().PEAK_FLOPS_TF32)
     return bound, by, _bound_ms(n_bytes, ops)[0]
 
 
@@ -2694,7 +2714,7 @@ def _rerank_bound(q, qm, pair_dm, read_dm, n_slots):
     n_bytes = (_nbytes(q, qm, read_dm) + int(read_dm.sum()) * dim * 4
                + n_slots * 9 + pair_dm.shape[0] * pair_dm.shape[1] * 4)
     ops = 2 * dim * int((qm.sum(1)[:, None] * pair_dm.sum(2)).sum())
-    return _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+    return _bound_ms(n_bytes, ops * TF32_PASSES, _hw().PEAK_FLOPS_TF32)
 
 
 def check_maxsim_rerank(torch, dev, index, qv, recon_args, cascade_args,
@@ -2865,7 +2885,7 @@ def check_kmeans_assign(torch, dev, model, docs, parent):
     # once; operations: valid clusters only, three TF32 passes
     n_bytes = _nbytes(x, c, km) + B * N * 8
     ops = 2 * d * N * int(km.sum())
-    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, TF32_OPS_PER_S)
+    bound, by = _bound_ms(n_bytes, ops * TF32_PASSES, _hw().PEAK_FLOPS_TF32)
     f32_bound = _bound_ms(n_bytes, ops)[0]
     print("kmeans_assign times (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()) + f"; torch.matmul of the "
@@ -2941,7 +2961,7 @@ def check_dequant_score(torch, dev, index, qv, parent):
                                                                    bits))
     # operations: the products at 3 passes of the TF32 rate, the
     # reconstruction's ~4 dim a row at f32
-    ops = [(M * 2 * Lq * dim * TF32_PASSES, TF32_OPS_PER_S)]
+    ops = [(M * 2 * Lq * dim * TF32_PASSES, _hw().PEAK_FLOPS_TF32)]
     out_bytes = M * Lq * 4
     bound, by = _bound_ms(_nbytes(*args) + out_bytes, M * 4 * dim,
                           more=ops)
@@ -3806,7 +3826,7 @@ def _flash_at(torch, q, k, v, what="moe"):
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q, kl, vl, is_causal=True), reps=20)
     bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
-                          flop, BF16_OPS_PER_S)
+                          flop, _hw().PEAK_FLOPS_BF16)
     print(f"flash_attention at the {what} shape (q {tuple(q.shape)}, k/v "
           f"{tuple(k.shape)}, bf16, causal): {ms:.4f} ms "
           f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -4513,6 +4533,199 @@ def recsys_path(rt, torch, dev, card):
     return out
 
 
+ROOFLINE_ARCH = "dlrm-rm2"
+ROOFLINE_REPS = 3                  # timed steps a cell, after a warm one
+ROOFLINE_DRY = ("dimenet", "ogb_products")
+
+
+def _report_shapes(index, probe_args, packed_args):
+    """The main path's shapes as ``roofline/packed.py`` and
+    ``roofline/probe.py`` take them, read from one search batch's two
+    captured calls."""
+    q, _, cen, codes = probe_args[:4]
+    pq, _, words = packed_args[:3]
+    plaid = index._plaid
+    return dict(
+        bits=plaid.codec.bits,
+        packed=dict(nq=pq.shape[0], lq=pq.shape[1], s=words.shape[1],
+                    ld=words.shape[2], dim=pq.shape[2],
+                    k_centroids=packed_args[5].shape[0]),
+        probe=dict(nq=q.shape[0], lq=q.shape[1], k_centroids=cen.shape[0],
+                   nprobe=index.nprobe, lmax=plaid.device_ivf().list_cap,
+                   c=codes.shape[1], ld=codes.shape[2], dim=q.shape[2]))
+
+
+def _recsys_cell_inputs(rt, torch, dev, cfg, model, cell, rng):
+    """The step and its arguments after the model for one recsys cell,
+    built on the card at the shapes the dry run predicts."""
+    shapes = _cells(rt, "RECSYS_SHAPES")
+    n = shapes[cell].dim("batch")
+    if cell == "train_batch":
+        step, opt = rt.make_recsys_train_step(cfg)
+        return step, [opt.init(model), {
+            k: torch.as_tensor(v, device=dev)
+            for k, v in _recsys_batch(cfg, rng, n).items()}]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in _recsys_batch(cfg, rng, n, label=False).items()}
+    if cell == "retrieval_cand":
+        g = torch.Generator(device=dev).manual_seed(SEED + 21)
+        batch["candidates"] = torch.randn(
+            (shapes[cell].dim("n_candidates"), cfg.embed_dim), generator=g,
+            device=dev)
+        return rt.make_recsys_retrieval_step(cfg), [batch]
+    return rt.make_recsys_serve_step(cfg), [batch]
+
+
+def _roofline_cell(rt, torch, dev, cfg, model, cell, rng, card, fails):
+    """One dlrm-rm2 cell: the dry run on a one-rank (1, 1) view of the
+    production axes against the same step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline.analysis import RooflineTerms, nbytes
+    pred = run_cell(ROOFLINE_ARCH, cell, mesh_shape=(1, 1), verbose=False)
+    step, rest = _recsys_cell_inputs(rt, torch, dev, cfg, model, cell, rng)
+    real = nbytes([list(model.parameters()), rest])
+    with FlopCounterMode(display=False) as counter:
+        step(model, *rest)
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(model, *rest)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    secs = []
+    for _ in range(ROOFLINE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, *rest)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_s = float(np.median(secs))
+    terms = RooflineTerms(arch=ROOFLINE_ARCH, cell=cell, mesh="1x1",
+                          flops=pred["flops"],
+                          hlo_bytes=pred["bytes_accessed"],
+                          collective_bytes=0.0)
+    ratio = peak / max(pred["temp_size_in_bytes"], 1)
+    print(f"roofline {ROOFLINE_ARCH} {cell}: argument bytes predicted "
+          f"{pred['argument_size_in_bytes']} {pred['arg_bytes']}, on the "
+          f"card {real}; FLOPs predicted {pred['flops']:.0f}, "
+          f"FlopCounterMode on the card {flops}; activation peak predicted "
+          f"{pred['temp_size_in_bytes']:.0f} B, max_memory_allocated above "
+          f"the arguments {peak} B (ratio {ratio:.4f});"
+          f" step s predicted (roofline, {terms.bottleneck}) "
+          f"{terms.step_time_s:.6f}, measured median of {ROOFLINE_REPS} "
+          f"{step_s:.6f} (ratio {step_s / max(terms.step_time_s, 1e-12):.2f})"
+          f"; bytes accessed {pred['bytes_accessed']:.0f} (unfused) "
+          f"[{card}]")
+    _check(fails, real == pred["argument_size_in_bytes"],
+           f"roofline {cell}: predicted argument bytes equal the card's")
+    _check(fails, flops == pred["flops"],
+           f"roofline {cell}: the meta trace's FLOPs equal "
+           f"FlopCounterMode's on the card")
+    return dict(arg_bytes=real, flops=flops, peak_pred=pred[
+        "temp_size_in_bytes"], peak_card=peak, step_s=step_s,
+        step_pred_s=terms.step_time_s, bottleneck=terms.bottleneck,
+        bytes_accessed=pred["bytes_accessed"])
+
+
+def _kernel_reports(torch, card, kernels, shapes):
+    """``packed_rerank_report`` and ``plaid_probe_report`` at the main
+    path's shapes beside the times the kernel checks measured there."""
+    from repro_torch.roofline.packed import packed_rerank_report
+    from repro_torch.roofline.probe import plaid_probe_report
+    by = {k["name"]: k for k in kernels}
+    out = {}
+    rows = packed_rerank_report(shapes["packed"], bits_list=(shapes["bits"],),
+                                cross_check=False)["rows"]
+    mp = by["maxsim_packed"]
+    for row in rows:
+        t = row.pop("terms")
+        print(f"roofline packed_rerank at the main path's shape "
+              f"{shapes['packed']}: {row['kernel']} bits={row['bits']}: "
+              f"flops {row['flops']:.4g}, stream bytes {row['stream_bytes']}"
+              f", roofline {t.step_time_s * 1e3:.4f} ms ({t.bottleneck})")
+    out["packed"] = dict(rows[-1], path_ms=mp["path_ms"],
+                         path_bound_ms=mp["path_bound_ms"])
+    print(f"roofline packed_rerank: the kernel at the main path "
+          f"{mp['path_ms']:.4f} ms, its own bound {mp['path_bound_ms']:.4f}"
+          f" ms (the model prices the TPU kernel's one-hot decode "
+          f"{rows[-1]['flop_terms']['decode']:.4g} FLOPs; the CUDA kernel "
+          f"gathers) [{card}]")
+    rep = plaid_probe_report(shapes["probe"])
+    for row in rep["rows"]:
+        row.pop("terms")
+    host, dev_row = rep["rows"]
+    pp = by["plaid_probe"]
+    print(f"roofline plaid_probe at the main path's shape {shapes['probe']}"
+          f": device fused {dev_row['total_s'] * 1e3:.4f} ms "
+          f"({dev_row['bottleneck']}), host path "
+          f"{host['total_s'] * 1e3:.4f} ms; the kernel at the main path "
+          f"{pp['path_ms']:.4f} ms, its own bound {pp['path_bound_ms']:.4f}"
+          f" ms [{card}]")
+    out["probe"] = dict(device_s=dev_row["total_s"], host_s=host["total_s"],
+                        path_ms=pp["path_ms"],
+                        path_bound_ms=pp["path_bound_ms"])
+    return out
+
+
+def roofline_path(rt, torch, dev, card, kernels, shapes):
+    """The H100 table against the card; the dry run of dlrm-rm2's four
+    cells (the recsys path's shapes) on a one-rank view of the
+    production axes, held to the same steps on the card; the packed and
+    probe models at the main path's shapes; ``ogb_products`` over the
+    fake (16, 16) group, opened and closed around it."""
+    from repro_torch.launch.dryrun import run_cell
+    t_path = time.perf_counter()
+    fails = _checks()
+    hw = _hw()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"roofline: total_memory {total} B, hw.HBM_BYTES {hw.HBM_BYTES} B "
+          f"[{card}]")
+    _check(fails, total == hw.HBM_BYTES,
+           "roofline: hw.HBM_BYTES is the card's total_memory")
+    cfg = rt.get_config(ROOFLINE_ARCH)
+    rng = np.random.default_rng(SEED + 20)
+
+    def run():
+        model = rt.init_recsys(cfg, seed=SEED)
+        cells = {c: _roofline_cell(rt, torch, dev, cfg, model, c, rng, card,
+                                   fails)
+                 for c in ("train_batch", "serve_p99", "serve_bulk",
+                           "retrieval_cand")}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cells
+
+    out = {"cells": run_path("roofline", torch, run)}
+    out.update(_kernel_reports(torch, card, kernels, shapes))
+    t0 = time.perf_counter()
+    r = run_cell(*ROOFLINE_DRY, verbose=True)
+    stop = r["stage3_stopped"]
+    fit = r["argument_size_in_bytes"] + r["temp_size_in_bytes"]
+    print(f"roofline dry run {'/'.join(ROOFLINE_DRY)} @ {r['mesh']}: "
+          f"{r['note']}; per rank args {r['argument_size_in_bytes']} B, "
+          f"activations ({r['per_rank_from']}) {r['temp_size_in_bytes']:.0f}"
+          f" B: fits 80 GB ({hw.HBM_BYTES} B) {fit <= hw.HBM_BYTES}; "
+          f"global activation peak {r['global']['activation_peak_bytes']} "
+          f"B; stage 3 "
+          f"{'counted' if stop is None else 'stopped at ' + stop['where']}"
+          f"; {time.perf_counter() - t0:.2f}s")
+    _check(fails, r["global"] is not None,
+           f"roofline: {'/'.join(ROOFLINE_DRY)} stages 1-2 ran")
+    out["ogb_products"] = {k: r[k] for k in (
+        "argument_size_in_bytes", "temp_size_in_bytes", "per_rank_from",
+        "global", "stage3_stopped", "note")}
+    out["path_s"] = time.perf_counter() - t_path
+    print(f"roofline path: {out['path_s']:.2f}s [{card}]")
+    _raise_failed("roofline", fails)
+    return out
+
+
 def check_flash_attention(torch, dev):
     """The kernel against its plain version on seeded random inputs, then
     timed at the lm path's per-layer shape with the plain version and
@@ -4578,7 +4791,7 @@ def check_flash_attention(torch, dev):
         raise AssertionError("flash_attention: disagrees at the lm shape")
     del got, want
     bound, by = _bound_ms(_nbytes(q, k, v) + q.numel() * q.element_size(),
-                          flop, BF16_OPS_PER_S)
+                          flop, _hw().PEAK_FLOPS_BF16)
     print(f"flash_attention at the lm shape: {ms:.4f} ms, "
           f"{flop / ms / 1e9:.1f} TFLOP/s ({flop / 1e9:.2f} GFLOP of visible "
           f"pairs); scaled_dot_product_attention {library_ms:.4f} ms "
@@ -4703,6 +4916,7 @@ def main(argv=None) -> int:
     parent = parent_kernels(args.parent)
     path_probe, path_packed, path_qv = capture_path_args(torch, searcher,
                                                          queries)
+    report_shapes = _report_shapes(index, path_probe, path_packed)
     split = search_split(torch, searcher, path_qv)
     index.packed_rerank = False
     recon_split = search_split(torch, searcher, path_qv, RECON_STAGES,
@@ -4744,6 +4958,8 @@ def main(argv=None) -> int:
     moe_numbers = moe_path(rt, torch, dev, card)
     gnn_numbers = gnn_path(rt, torch, dev, card)
     recsys_numbers = recsys_path(rt, torch, dev, card)
+    roofline_numbers = roofline_path(rt, torch, dev, card, kernels,
+                                     report_shapes)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash.update(_launches("flash_attention"))
 
@@ -4753,7 +4969,7 @@ def main(argv=None) -> int:
                       "lm_train": lm_train, "moe": moe_numbers,
                       "sharding": sharding_numbers,
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
-                      "card": card}))
+                      "roofline": roofline_numbers, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ fault-tolerant ``Trainer`` and checkpoints in the JAX package's format;
 the meshes (``DeviceMesh`` with the reference's axis names), the
 sharding rules and parameter specs, ``moe_ep``'s expert-parallel
 all-to-all, the replicated index's flat plan over a row of devices, and
-the (arch x shape) cells' shape-only inputs (``build_cell``).
+the (arch x shape) cells' shape-only inputs (``build_cell``), their
+dry run on ``meta`` over the production mesh (``run_cell``) and the
+roofline on the H100's table (``RooflineTerms``, ``analyse_cell``).
 The Pallas kernels on those paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use.
 
@@ -141,6 +143,11 @@ _EXPORTS = {
     "constrain": "repro_torch.sharding",
     "build_cell": "repro_torch.launch.input_specs",
     "all_cells": "repro_torch.launch.input_specs",
+    "run_cell": "repro_torch.launch.dryrun",
+    "to_placements": "repro_torch.sharding.params",
+    "RooflineTerms": "repro_torch.roofline.analysis",
+    "TraceCounter": "repro_torch.roofline.analysis",
+    "analyse_cell": "repro_torch.roofline.run",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -8,9 +8,10 @@ sharding hints ``attn_shard`` and ``fsdp_params`` are read by
 ``launch/input_specs.py``, as is ``unroll_scans`` (a prefill cell's
 attention chunk); the reference's ``scan_layers`` (layers under one
 ``lax.scan``) has no PyTorch meaning (the port loops over its layers)
-and is left out, as is DimeNet's ``unroll_scans``. Frozen, so ``dataclasses.replace``
-makes variants (the tests run in ``dtype="float32"``; the flash kernel
-is switched on with ``use_flash_kernel=True``).
+and is left out, as is DimeNet's ``unroll_scans``. Frozen, so
+``dataclasses.replace`` makes variants (the tests run in
+``dtype="float32"``; the flash kernel is switched on with
+``use_flash_kernel=True``).
 
 ``ShapeCell`` and the ``*_SHAPES`` tuples are the reference's
 (input-shape x step-kind) cells, framework-free data; ``shapes_for``
@@ -142,8 +143,11 @@ class ColbertConfig:
     t_cs: float = 0.3
     ndocs: int = 8192
     # serving-step scoring (launch/steps.py make_colbert_search_step):
-    # "einsum" | "blocked"; both run the maxsim kernel here
+    # "einsum" | "blocked"; both run the maxsim kernel on the card; a
+    # trace on ``meta`` (the dry run) scores in one pass or in blocks of
+    # ``maxsim_block`` docs, as the reference's step does
     maxsim_impl: str = "einsum"
+    maxsim_block: int = 512
 
 
 @dataclass(frozen=True)

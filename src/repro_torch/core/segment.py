@@ -77,7 +77,12 @@ def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
     """x [M, f] rows summed by segment id seg [M] in [0, n) -> [n, f] in
     x's dtype: each segment's rows gathered through a padded CSR table
     ([n, max count] row ids in ascending order, the pad a zero row) and
-    summed along it, the same order on every run and device."""
+    summed along it, the same order on every run and device. On
+    ``meta`` tensors (the dry run: no data, so no table to size) the sum
+    is an ``index_add_`` into [n, f], the same output and the reference's
+    ``segment_sum``."""
+    if x.device.type == "meta":
+        return x.new_zeros((n, x.shape[1])).index_add_(0, seg, x)
     M = x.shape[0]
     order = torch.argsort(seg, stable=True)
     counts = torch.bincount(seg, minlength=n)

@@ -4,7 +4,9 @@ Each ``kernels/<name>/`` holds ``ops.py`` (the wrapper: checks, output
 allocation, launch on the current stream, launch counter) and ``ref.py``
 (the plain PyTorch version of the same function). A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. ``impl="ref"`` forces the plain version — only the
+kernel or raises; given ``meta`` tensors (shapes only, as the dry run
+traces a step) it traces the plain version, since no kernel runs on
+``meta``. ``impl="ref"`` forces the plain version — only the
 tests and ``chip_smoke.py`` pass it. No kernel has a backward, so every
 wrapper raises when autograd would record its call (``check_no_grad``).
 """
@@ -61,6 +63,13 @@ class LaunchCounter:
 def check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def plain_version(impl: str, t) -> bool:
+    """True where a wrapper runs its plain version: ``impl="ref"``, or
+    ``t`` on the CPU or on ``meta`` (a trace). Anything else takes the
+    kernel's route, which launches on CUDA or raises."""
+    return impl == "ref" or t.device.type in ("cpu", "meta")
 
 
 def check_no_grad(name: str, *tensors) -> None:

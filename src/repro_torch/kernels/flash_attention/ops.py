@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import (LaunchCounter, build, check_impl,
-                                 check_no_grad)
+                                 check_no_grad, plain_version)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES = LaunchCounter()
@@ -122,7 +122,7 @@ def _run(q, k, v, o, causal, scale):
 
 def _on_card(q, impl):
     check_impl(impl)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return False
     if q.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {q.device}")

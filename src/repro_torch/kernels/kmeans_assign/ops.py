@@ -17,8 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad)
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version)
 from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 
 LAUNCHES = LaunchCounter()
@@ -61,7 +61,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"{_NAME}: inconsistent shapes x {tuple(x.shape)} "
                          f"centroids {tuple(centroids.shape)} "
                          f"k_mask {tuple(k_mask.shape)}")
-    if impl == "ref" or x.device.type == "cpu":
+    if plain_version(impl, x):
         a, s = kmeans_assign_ref(x, centroids, k_mask)
     else:
         a, s = _launch(x, centroids, k_mask)

@@ -20,8 +20,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad,
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.maxsim.ref import (maxsim_ref,
                                            maxsim_rerank_indexed_ref,
@@ -85,7 +85,7 @@ def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
     d [Nd, Ld, dim] f32; d_mask [Nd, Ld] bool -> [Nq, Nd] f32."""
     check_impl(impl)
     check_no_grad(_NAME, q, q_mask, d, d_mask)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return maxsim_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {q.device}")
@@ -113,7 +113,7 @@ def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):
     scores only d[i]."""
     check_impl(impl)
     check_no_grad("maxsim_rerank", q, q_mask, d, d_mask)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return maxsim_rerank_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_rerank: unsupported device {q.device}")
@@ -148,7 +148,7 @@ def maxsim_rerank_indexed(q, q_mask, d, d_mask, cand, cand_mask, *,
     check_impl(impl)
     check_no_grad("maxsim_rerank_indexed", q, q_mask, d, d_mask, cand,
                   cand_mask)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return maxsim_rerank_indexed_ref(q, q_mask, d, d_mask, cand,
                                          cand_mask)
     name = "maxsim_rerank_indexed"

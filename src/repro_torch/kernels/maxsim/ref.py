@@ -15,6 +15,8 @@ twins, held against the JAX package by the tests and called on no path.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _DOC_BLOCK = 256       # docs per all-pairs pass
@@ -29,14 +31,17 @@ def _reduce(sim, d_mask, q_mask):
     return best.sum(dim=-1)
 
 
-def maxsim_ref(q, q_mask, d, d_mask):
+def maxsim_ref(q, q_mask, d, d_mask, block: Optional[int] = _DOC_BLOCK):
     """q [Nq, Lq, dim]; d [Nd, Ld, dim]; masks True = valid -> scores
-    [Nq, Nd] f32 (0 for a doc with no valid token)."""
+    [Nq, Nd] f32 (0 for a doc with no valid token). ``block`` docs a
+    pass; None scores every doc in one pass (the [Nq, Nd, Lq, Ld]
+    similarities materialised, as the reference's ``maxsim_scores``)."""
     q = q.float()
+    block = block or max(d.shape[0], 1)
     out = []
-    for lo in range(0, d.shape[0], _DOC_BLOCK):
-        db = d[lo:lo + _DOC_BLOCK].float()
-        mb = d_mask[lo:lo + _DOC_BLOCK]
+    for lo in range(0, d.shape[0], block):
+        db = d[lo:lo + block].float()
+        mb = d_mask[lo:lo + block]
         sim = torch.einsum("qld,nkd->qnlk", q, db)
         out.append(_reduce(sim, mb[None, :, None, :], q_mask[:, None, :]))
     if not out:

@@ -15,8 +15,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad,
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref
 
@@ -45,7 +45,7 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
     f32 (0 where a candidate has no valid token)."""
     check_impl(impl)
     check_no_grad(_NAME, q, q_mask, words, ids, d_mask, centroids, values)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return maxsim_packed_rerank_ref(q, q_mask, words, ids, d_mask,
                                         centroids, values, bits=bits)
     if q.device.type != "cuda":

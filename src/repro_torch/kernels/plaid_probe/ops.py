@@ -19,8 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad,
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.plaid_probe.ref import plaid_probe_ref
 
@@ -69,7 +69,7 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
     tokens a launch (at most ``MAX_LQ``), to time one against another."""
     check_impl(impl)
     check_no_grad(_NAME, q, q_mask, centroids, codes, code_mask, cand_mask)
-    if impl == "ref" or q.device.type == "cpu":
+    if plain_version(impl, q):
         return plaid_probe_ref(q, q_mask, centroids, codes, code_mask,
                                cand_mask, t_cs=t_cs)
     if q.device.type != "cuda":

@@ -14,8 +14,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad)
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version)
 from repro_torch.kernels.quant.ref import dequant_score_ref
 
 LAUNCHES = LaunchCounter()
@@ -43,7 +43,7 @@ def dequant_score(words, centroid_ids, centroids, values, q, *,
     values [dim, 2^bits] f32; q [Lq, dim] f32 -> sims [M, Lq] f32."""
     check_impl(impl)
     check_no_grad(_NAME, words, centroid_ids, centroids, values, q)
-    if impl == "ref" or words.device.type == "cpu":
+    if plain_version(impl, words):
         return dequant_score_ref(words, centroid_ids, centroids, values, q,
                                  bits)
     if words.device.type != "cuda":

@@ -17,8 +17,8 @@ import ctypes
 import torch
 
 from repro_torch.core.ward import normalize_masked
-from repro_torch.kernels import (LaunchCounter, build, check_cuda,
-                                 check_dtype, check_impl, check_no_grad)
+from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
+                                 check_impl, check_no_grad, plain_version)
 from repro_torch.kernels.ward_pool.ref import ward_assign_ref
 
 LAUNCHES = LaunchCounter()
@@ -44,7 +44,7 @@ def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
     valid token's cluster representative (lowest token index)."""
     check_impl(impl)
     check_no_grad(_NAME, x, mask)
-    if impl == "ref" or x.device.type == "cpu":
+    if plain_version(impl, x):
         return ward_assign_ref(x, mask, factor)
     if x.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x.device}")

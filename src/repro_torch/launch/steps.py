@@ -25,7 +25,10 @@ The ColBERT steps: the index step encodes a doc batch and pools it
 queries, scores every doc with the ``maxsim`` kernel
 (``maxsim_all_docs``, for both ``maxsim_impl`` values: the kernel
 streams doc blocks through shared memory either way) and takes the
-top-k with ties to the lowest doc id (``stable_topk``).
+top-k with ties to the lowest doc id (``stable_topk``). On ``meta``
+tensors (the dry run's trace; no kernel runs there) it scores with the
+plain version as the reference's step does: ``"einsum"`` in one pass
+over all docs, ``"blocked"`` in blocks of ``cfg.maxsim_block``.
 """
 from __future__ import annotations
 
@@ -230,18 +233,24 @@ def make_colbert_search_step(cfg, k: int = 10, *,
     [Nd, Ld, dim], "doc_mask" [Nd, Ld]}) -> (scores [Nq, k], ids
     [Nq, k]) on the device."""
     from repro_torch.core.maxsim import maxsim_all_docs, stable_topk
+    from repro_torch.kernels.maxsim.ref import maxsim_ref
     from repro_torch.models.colbert import encode_queries
     if cfg.maxsim_impl not in ("einsum", "blocked"):
         raise ValueError(f"maxsim_impl must be einsum|blocked, got "
                          f"{cfg.maxsim_impl!r}")
     dev = resolve_device(device)
+    block = cfg.maxsim_block if cfg.maxsim_impl == "blocked" else None
 
     def search_step(model, batch):
         qv, qm = encode_queries(model, torch.as_tensor(batch["q_tokens"],
                                                        device=dev))
         d = torch.as_tensor(batch["doc_vecs"], device=dev).float()
         dm = torch.as_tensor(batch["doc_mask"], device=dev).bool()
-        scores = maxsim_all_docs(qv, qm, d.contiguous(), dm.contiguous())
+        if d.device.type == "meta":
+            scores = maxsim_ref(qv, qm, d, dm, block=block)
+        else:
+            scores = maxsim_all_docs(qv, qm, d.contiguous(),
+                                     dm.contiguous())
         return stable_topk(scores, k)
 
     return search_step

@@ -91,8 +91,13 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def _load_means(probs: torch.Tensor, ids: torch.Tensor, E: int):
-    """(mean router probability, mean assignment count) per expert."""
-    ce = torch.bincount(ids.reshape(-1), minlength=E).float() / probs.shape[0]
+    """(mean router probability, mean assignment count) per expert. The
+    counts are an integer ``scatter_add_`` (``bincount``'s counts on every
+    device, and it has a ``meta`` kernel for the dry run)."""
+    flat = ids.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.long, device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ce = counts.float() / probs.shape[0]
     return probs.mean(dim=0), ce
 
 

@@ -21,6 +21,12 @@ reference's with the stacked leading ``None`` dropped: ``param_specs``
 gives a stack's group one spec a layer. Adafactor's slots are stacked
 in the port as in the reference (one factored slot over all layers), so
 their specs are the reference's, the layer axis included.
+
+``to_placements`` is the reference's ``to_shardings``: a tree of specs
+to the same tree of DTensor placements over a mesh; ``distribute_meta``
+lays a tree of ``meta`` tensors out as ``meta`` DTensors by those
+placements, each holding one rank's shard (the dry run's arguments:
+nothing allocates).
 """
 from __future__ import annotations
 
@@ -158,3 +164,42 @@ def distribute_params(module: nn.Module, mesh, rules,
             distribute_tensor(p.detach(), mesh, placements(spec, mesh)),
             requires_grad=p.requires_grad))
     return module
+
+
+def to_placements(mesh, specs):
+    """A tree of specs (dicts, lists; a ``P`` at each leaf, or None) ->
+    the same tree of DTensor placements over ``mesh`` (``placements`` of
+    each spec): the reference's ``to_shardings``."""
+    if specs is None or isinstance(specs, P):
+        return None if specs is None else placements(specs, mesh)
+    if isinstance(specs, dict):
+        return {k: to_placements(mesh, v) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(to_placements(mesh, v) for v in specs)
+    raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def distribute_meta(tree, mesh, place):
+    """A tree of ``meta`` tensors (global shapes) and its placements (the
+    matching tree ``to_placements`` gives) -> the same tree of ``meta``
+    DTensors over ``mesh``, each holding this rank's shard (``Shard``
+    splits as ``torch.chunk`` does: rank 0 holds the largest, an uneven
+    split's padding included). Host values (an optimizer's step) pass
+    through."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    if isinstance(tree, dict):
+        return {k: distribute_meta(v, mesh, place[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_meta(v, mesh, p)
+                          for v, p in zip(tree, place))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if not tree.is_meta:
+        raise ValueError("distribute_meta lays out meta tensors only")
+    local, _ = compute_local_shape_and_global_offset(tree.shape, mesh, place)
+    return DTensor.from_local(
+        torch.empty(local, dtype=tree.dtype, device="meta"), mesh, place,
+        run_check=False, shape=tree.shape, stride=tree.stride())

@@ -56,7 +56,10 @@ def test_port_imports_neither_jax_nor_reference():
               "configs.dimenet", "configs.wide_deep", "configs.deepfm",
               "configs.fm", "configs.dlrm_rm2", "launch.mesh",
               "sharding", "sharding.api", "sharding.params",
-              "launch.input_specs"):
+              "launch.input_specs", "launch.dryrun", "roofline",
+              "roofline.hw", "roofline.analysis", "roofline.packed",
+              "roofline.probe", "roofline.run", "roofline.hillclimb",
+              "roofline.report"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -263,13 +266,14 @@ def test_family_entry_points_without_device_need_cuda(monkeypatch, arch):
         assert build(device="cpu") is not None
 
 
-# The reference's fields the port leaves out; ColBERT's blocked-MaxSim
-# doc block. ``scan_layers`` (layers under one lax.scan) has no PyTorch meaning: the
-# port loops over its layers. DimeNet's ``unroll_scans`` is read by no
-# ported module.
+# The reference's fields the port leaves out. ``scan_layers`` (layers
+# under one lax.scan) has no PyTorch meaning: the port loops over its
+# layers. DimeNet's ``unroll_scans`` is read by no ported module.
+# ColBERT's ``maxsim_block`` is the port's too (the search step's trace
+# on ``meta`` scores in blocks of it).
 JAX_ONLY = {"TransformerConfig": {"scan_layers"},
             "DimeNetConfig": {"unroll_scans"}, "RecsysConfig": set(),
-            "ColbertConfig": {"maxsim_block"}}
+            "ColbertConfig": set()}
 
 
 def _fields_equal(t, j):
