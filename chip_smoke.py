@@ -224,7 +224,19 @@
      and probe models (``roofline/packed.py``, ``probe.py``) at the main
      path's shapes beside the kernels' times there; and
      ``run_cell("dimenet", "ogb_products")`` over the fake (16, 16)
-     group, opened and closed around it.
+     group, opened and closed around it, its stage 3 run to its end;
+   * sharded: the models' sharding annotations on a one-rank ("data",
+     "model") mesh over NCCL, the reference's rules active and the
+     parameters laid out by its parameter rules, as the dry run's stage
+     3 runs a step: Qwen3-0.6B's prefill (2 x 1,024 tokens, all 28
+     layers, the cells' plain attention) and dlrm-rm2's serve step
+     (512, the row-sharded gather) each bit for bit the same call with
+     no context; ``flash_attention`` handed a DTensor raises with its
+     name; then stage 3 at one layer over the fake (16, 16) group for
+     one cell of each place it used to stop (the head views and
+     residual adds without annotations) and dlrm-rm2 serve_p99
+     (``SHARDED_STAGE3``), on this machine's torch: each must run to
+     its end, its collective bytes printed.
    The dense, flat, kmeans and cascade paths are re-run with the plain
    versions (``impl="ref"``) and must agree.
 3. Holds each kernel against its plain PyTorch version at its path's
@@ -520,6 +532,7 @@ PATH_KERNELS = {
     "gnn": (),                         # DimeNet: no kernel in either package
     "recsys": (),                      # none in either package
     "roofline": (),                    # dlrm-rm2 again; the traces on meta
+    "sharded": (),                     # the plain paths under a mesh
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
@@ -4533,6 +4546,22 @@ def recsys_path(rt, torch, dev, card):
     return out
 
 
+SHARDED_BATCH = 2                  # Qwen3-0.6B prefill on the one-rank mesh
+SHARDED_PROMPT = 1024
+SHARDED_SERVE = 512                # dlrm-rm2's serve_p99 batch
+# one cell of each place stage 3 stopped before the models carried the
+# reference's annotations, and dlrm-rm2 serve_p99; stage 3 at one layer
+# over the fake (16, 16) group
+SHARDED_STAGE3 = (
+    ("qwen1.5-0.5b", "train_4k"),      # transformer.py:91, residual add
+    ("qwen1.5-0.5b", "decode_32k"),    # transformer.py:99, decode's
+    ("qwen2.5-14b", "long_500k"),      # attention.py:97, 8 kv heads / 16
+    ("colbertv2", "search"),           # attention.py:97, 12 heads / 16
+    ("qwen3-0.6b", "decode_32k"),      # attention.py:98, the kv view
+    ("qwen2.5-14b", "prefill_32k"),    # attention.py:217, 40 heads, qseq
+    ("dimenet", "molecule"),           # layers.py:67, DimeNet's products
+    ("dlrm-rm2", "serve_p99"),         # embedding.py:48 on torch 2.11
+)
 ROOFLINE_ARCH = "dlrm-rm2"
 ROOFLINE_REPS = 3                  # timed steps a cell, after a warm one
 ROOFLINE_DRY = ("dimenet", "ogb_products")
@@ -4717,12 +4746,136 @@ def roofline_path(rt, torch, dev, card, kernels, shapes):
           f"; {time.perf_counter() - t0:.2f}s")
     _check(fails, r["global"] is not None,
            f"roofline: {'/'.join(ROOFLINE_DRY)} stages 1-2 ran")
+    _check(fails, stop is None,
+           f"roofline: {'/'.join(ROOFLINE_DRY)} stage 3 ran to its end")
+    if stop is None:
+        print(f"roofline dry run {'/'.join(ROOFLINE_DRY)}: collectives a "
+              f"rank {r['collective_bytes']} B: " + ", ".join(
+                  f"{op} {e['bytes']} B x{e['count']}"
+                  for op, e in r["collectives"].items()))
     out["ogb_products"] = {k: r[k] for k in (
         "argument_size_in_bytes", "temp_size_in_bytes", "per_rank_from",
-        "global", "stage3_stopped", "note")}
+        "global", "stage3_stopped", "note", "collective_bytes")}
     out["path_s"] = time.perf_counter() - t_path
     print(f"roofline path: {out['path_s']:.2f}s [{card}]")
     _raise_failed("roofline", fails)
+    return out
+
+
+def _one_rank(what, torch, got, want, fails):
+    """``got`` (a tree of DTensors from the one-rank mesh) against
+    ``want`` (the same call with no context): equal bit for bit, else
+    the first leaf that differs and its error are printed."""
+    from repro_torch.roofline.analysis import tensors
+    pairs = list(zip(tensors(got), tensors(want)))
+    bad = [(i, g.to_local(), w) for i, (g, w) in enumerate(pairs)
+           if not torch.equal(g.to_local(), w)]
+    for i, g, w in bad[:1]:
+        err, rel = _errors(g.float(), w.float())
+        print(f"sharded: {what}: leaf {i} of {len(pairs)} differs, max abs "
+              f"{err:.4g}, relative {rel:.4g}")
+    print(f"sharded: {what}: {len(pairs) - len(bad)} of {len(pairs)} "
+          f"outputs bit for bit equal to the call without a context")
+    _check(fails, not bad, f"sharded: {what} equal without a context")
+
+
+def sharded_path(rt, torch, dev, card):
+    """The models' sharding annotations on the card: a one-rank
+    ("data", "model") mesh over NCCL with the reference's rules active
+    and the parameters laid out by its parameter rules (DTensors), as
+    the dry run's stage 3 runs a step; Qwen3-0.6B's prefill at full
+    width and depth and dlrm-rm2's serve step (the row-sharded gather),
+    each bit for bit the same call without a context; a kernel wrapper
+    handed a DTensor raises with its own name. Then stage 3 at one layer
+    over the fake (16, 16) group for each of ``SHARDED_STAGE3``, on this
+    machine's torch: each must run to its end; its collectives print."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.dryrun import rank_context, run_cell
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.sharding.api import (P, lm_rules, placements,
+                                          recsys_rules)
+    from repro_torch.sharding.params import (distribute_params,
+                                             lm_param_rules,
+                                             recsys_param_rules)
+    t_path = time.perf_counter()
+    fails = _checks()
+    rng = np.random.default_rng(SEED + 30)
+    lm_cfg = rt.get_config(LM_ARCH)             # the cells' plain path
+    tokens = torch.as_tensor(rng.integers(0, lm_cfg.vocab_size, (
+        SHARDED_BATCH, SHARDED_PROMPT)), dtype=torch.int32, device=dev)
+    rs_cfg = rt.get_config(ROOFLINE_ARCH)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _recsys_batch(
+        rs_cfg, rng, SHARDED_SERVE, label=False).items()}
+    specs = {"sparse_ids": P("data", None, None), "dense": P("data", None)}
+    out = {}
+
+    def run():
+        prefill = rt.make_lm_prefill_step(lm_cfg)
+        serve = rt.make_recsys_serve_step(rs_cfg)
+        lm = rt.init_transformer(lm_cfg, seed=SEED)
+        rs = rt.init_recsys(rs_cfg, seed=SEED)
+        with torch.no_grad():
+            want_lm = prefill(lm, {"tokens": tokens})
+            want_rs = serve(rs, batch)
+        with process_group(dev):
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            distribute_params(lm, mesh, lm_param_rules("data"))
+            distribute_params(rs, mesh, recsys_param_rules(None))
+            with torch.no_grad():
+                with rank_context(mesh, lm_rules("data")):
+                    t0 = time.perf_counter()
+                    got_lm = prefill(lm, {"tokens": distribute_tensor(
+                        tokens, mesh, placements(P("data", None), mesh))})
+                    torch.cuda.synchronize()
+                    out["lm_s"] = time.perf_counter() - t0
+                with rank_context(mesh, recsys_rules("data")):
+                    got_rs = serve(rs, {k: distribute_tensor(
+                        v, mesh, placements(specs[k], mesh))
+                        for k, v in batch.items()})
+                q = distribute_tensor(torch.zeros(
+                    1, 2, 64, 64, dtype=torch.bfloat16, device=dev), mesh,
+                    placements(P(), mesh))
+                try:
+                    flash_attention(q, q, q, causal=True)
+                    refused = ""
+                except TypeError as e:
+                    refused = str(e)
+            torch.cuda.synchronize()
+        _one_rank(f"{LM_ARCH} prefill ({SHARDED_BATCH} x {SHARDED_PROMPT}, "
+                  f"{lm_cfg.n_layers} layers, {lm_cfg.dtype}; logits and "
+                  f"the cache)", torch, got_lm, want_lm, fails)
+        _one_rank(f"{ROOFLINE_ARCH} serve ({SHARDED_SERVE})", torch,
+                  got_rs, want_rs, fails)
+        _check(fails, isinstance(got_lm[0], DTensor)
+               and isinstance(got_rs, DTensor),
+               "sharded: the steps ran over DTensors")
+        print(f"sharded: flash_attention handed a DTensor: "
+              f"{refused or 'no error'}")
+        _check(fails, refused.startswith("flash_attention:"),
+               "sharded: a kernel wrapper refuses a DTensor by its name")
+        del lm, rs, got_lm, got_rs, want_lm, want_rs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run_path("sharded", torch, run)
+    cells = {}
+    for arch, cell in SHARDED_STAGE3:
+        r = run_cell(arch, cell, layers_override=1, verbose=False)
+        stop = r["stage3_stopped"]
+        coll = ("stopped at " + stop["where"] + f" ({stop['op']}: "
+                f"{stop['error']})" if stop else
+                f"{r['collective_bytes']} B: " + ", ".join(
+                    f"{op} {e['bytes']} B x{e['count']}"
+                    for op, e in r["collectives"].items()))
+        print(f"sharded: stage 3 {arch} {cell} @ {r['mesh']}, 1 layer, "
+              f"torch {torch.__version__}: {coll}; {sum(r['stage_s']):.1f}s")
+        _check(fails, r["ok"], f"sharded: stage 3 of {arch} {cell} ran to "
+                               f"its end")
+        cells[f"{arch}/{cell}"] = r["collective_bytes"]
+    out.update(cells=cells, path_s=time.perf_counter() - t_path)
+    print(f"sharded path: {out['path_s']:.2f}s [{card}]")
+    _raise_failed("sharded", fails)
     return out
 
 
@@ -4960,6 +5113,7 @@ def main(argv=None) -> int:
     recsys_numbers = recsys_path(rt, torch, dev, card)
     roofline_numbers = roofline_path(rt, torch, dev, card, kernels,
                                      report_shapes)
+    sharded_numbers = sharded_path(rt, torch, dev, card)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash.update(_launches("flash_attention"))
 
@@ -4969,7 +5123,8 @@ def main(argv=None) -> int:
                       "lm_train": lm_train, "moe": moe_numbers,
                       "sharding": sharding_numbers,
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
-                      "roofline": roofline_numbers, "card": card}))
+                      "roofline": roofline_numbers,
+                      "sharded": sharded_numbers, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

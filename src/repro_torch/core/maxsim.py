@@ -1,7 +1,9 @@
 """MaxSim scoring entry points and the top-k epilogue of every search.
 
-Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_all_docs`` (flat
-search and the dense corpus-wide fallback) and ``maxsim_rerank_store``
+Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_scores`` (the
+ColBERT search step's scoring, its queries and docs annotated as the
+reference's), ``maxsim_all_docs`` (flat search and the dense corpus-wide
+fallback) and ``maxsim_rerank_store``
 (candidates read from a ``DocStore``), both through the ``maxsim``
 kernels (``kernels/maxsim``), ``topk_with_pads``, and ``topk_shard``
 (a shard's top-k kept on the device for the sharded merge).
@@ -19,6 +21,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels.maxsim import ops as maxsim_ops
+from repro_torch.sharding.api import constrain
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,6 +88,20 @@ def maxsim_all_docs(q, q_mask, d, d_mask, impl: str = "auto"):
     plain version (blocked over docs) on CPU tensors."""
     return maxsim_ops.maxsim(q.float().contiguous(), q_mask.contiguous(),
                              d, d_mask, impl=impl)
+
+
+def maxsim_scores(q, q_mask, d, d_mask, block: Optional[int] = None):
+    """All-pairs scores [Nq, Nd] of the ColBERT search step (the
+    reference's ``maxsim_scores`` / ``maxsim_scores_blocked``): q and d
+    annotated ``queries`` and ``docs``; the ``maxsim`` kernel on the
+    card; on ``meta`` (the dry run's trace) the plain version, in one
+    pass over all docs (``block`` None) or ``block`` docs a pass."""
+    from repro_torch.kernels.maxsim.ref import maxsim_ref
+    q = constrain(q.float(), "queries", None, None)
+    d = constrain(d.float(), "docs", None, None)
+    if d.device.type == "meta":
+        return maxsim_ref(q, q_mask, d, d_mask, block=block)
+    return maxsim_all_docs(q, q_mask, d.contiguous(), d_mask.contiguous())
 
 
 def maxsim_rerank_store(store, q, q_mask, cand, cand_mask, *,

@@ -81,6 +81,9 @@ def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
     ``meta`` tensors (the dry run: no data, so no table to size) the sum
     is an ``index_add_`` into [n, f], the same output and the reference's
     ``segment_sum``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _sharded_segment_sum(x, seg, n)
     if x.device.type == "meta":
         return x.new_zeros((n, x.shape[1])).index_add_(0, seg, x)
     M = x.shape[0]
@@ -95,3 +98,22 @@ def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
     table[sorted_seg, col] = order
     rows = torch.cat([x, x.new_zeros(1, x.shape[1])])
     return F.embedding(table, rows, padding_idx=M).sum(dim=1)
+
+
+def _sharded_segment_sum(x, seg: torch.Tensor, n: int):
+    """``sorted_segment_sum`` of rows laid out over a mesh: each rank sums
+    its own rows into all n segments (the plain route on its shard), a
+    partial sum over the mesh dims that split the rows, which the
+    caller's layout reduces (a reduce-scatter onto a node shard)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch.sharding.api import from_local, lay_out
+    mesh, place = x.device_mesh, x.placements
+    if any(p.is_shard() and p.dim != 0 for p in place):
+        raise ValueError(f"segment rows laid out {place}: only the row "
+                         f"axis may be split")
+    rows = [p if p.is_shard(0) else Replicate() for p in place]
+    local = sorted_segment_sum(x.to_local(),
+                               lay_out(seg, mesh, rows).to_local(), n)
+    part = [Partial() if p.is_shard(0) else Replicate() for p in place]
+    return from_local(local, mesh, part, (n, x.shape[1]),
+                      grad_placements=[Replicate()] * mesh.ndim)

@@ -8,7 +8,8 @@ kernel or raises; given ``meta`` tensors (shapes only, as the dry run
 traces a step) it traces the plain version, since no kernel runs on
 ``meta``. ``impl="ref"`` forces the plain version — only the
 tests and ``chip_smoke.py`` pass it. No kernel has a backward, so every
-wrapper raises when autograd would record its call (``check_no_grad``).
+wrapper raises when autograd would record its call, and on a
+``DTensor`` off ``meta`` (``check_inputs``).
 """
 from __future__ import annotations
 
@@ -72,20 +73,30 @@ def plain_version(impl: str, t) -> bool:
     return impl == "ref" or t.device.type in ("cpu", "meta")
 
 
-def check_no_grad(name: str, *tensors) -> None:
+def check_inputs(name: str, *tensors) -> None:
     """Raise when autograd would record the call: grad mode on and an
     input that requires grad. No kernel has a backward (nor has its
     Pallas counterpart: no ``custom_vjp``), so a launch would hand back a
     tensor autograd cannot see through and drop the gradient silently on
     the card; the CPU's plain version raises too, so a CPU test shows
-    what the card would do."""
+    what the card would do. Raise too on an input laid out over a mesh
+    (a ``DTensor``) anywhere but on ``meta`` (a trace): a kernel reads
+    one device's memory, so it neither gathers a sharded input nor falls
+    back to its plain version; the caller hands it local shards."""
     import torch
+    from torch.distributed.tensor import DTensor
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and neither package has a "
             f"backward for this kernel; call it under torch.no_grad() or "
             f"on tensors that do not require grad")
+    if any(isinstance(t, DTensor) and t.device.type != "meta"
+           for t in tensors):
+        raise TypeError(
+            f"{name}: an input is a DTensor laid out over a mesh; the "
+            f"kernel reads one device's tensors, so call it on the local "
+            f"shards (to_local())")
 
 
 def check_cuda(name: str, **tensors) -> None:

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import (LaunchCounter, build, check_impl,
-                                 check_no_grad, plain_version)
+                                 check_inputs, plain_version)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES = LaunchCounter()
@@ -134,7 +134,7 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        impl: str = "auto") -> torch.Tensor:
     """q [BH, Sq, dh]; k, v [BKV, Skv, dh] -> o [BH, Sq, dh] (contiguous)
     in q's dtype."""
-    check_no_grad(_NAME, q, k, v)
+    check_inputs(_NAME, q, k, v)
     _check_shapes(q, k, v, 3)
     if not _on_card(q, impl):
         return flash_attention_ref(q, k, v, causal=causal)
@@ -148,7 +148,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, H, Sq, dh]; k, v [B, KV, Skv, dh] (H % KV == 0), any strides
     with unit stride along dh -> o [B, H, Sq, dh], a view of [B, Sq, H, dh]
     memory on the card."""
-    check_no_grad(_NAME, q, k, v)
+    check_inputs(_NAME, q, k, v)
     _check_shapes(q, k, v, 4)
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version)
+                                 check_impl, check_inputs, plain_version)
 from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 
 LAUNCHES = LaunchCounter()
@@ -47,7 +47,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor,
     k_mask [K] or [B, K] bool (None: all valid) -> (assign int32,
     best f32), each [N] or [B, N]."""
     check_impl(impl)
-    check_no_grad(_NAME, x, centroids, k_mask)
+    check_inputs(_NAME, x, centroids, k_mask)
     single = x.dim() == 2
     if single:
         x, centroids = x[None], centroids[None]

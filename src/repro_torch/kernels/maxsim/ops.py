@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version,
+                                 check_impl, check_inputs, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.maxsim.ref import (maxsim_ref,
                                            maxsim_rerank_indexed_ref,
@@ -84,7 +84,7 @@ def maxsim(q, q_mask, d, d_mask, *, impl: str = "auto"):
     """All-pairs scores: q [Nq, Lq, dim] f32; q_mask [Nq, Lq] bool;
     d [Nd, Ld, dim] f32; d_mask [Nd, Ld] bool -> [Nq, Nd] f32."""
     check_impl(impl)
-    check_no_grad(_NAME, q, q_mask, d, d_mask)
+    check_inputs(_NAME, q, q_mask, d, d_mask)
     if plain_version(impl, q):
         return maxsim_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
@@ -112,7 +112,7 @@ def maxsim_rerank(q, q_mask, d, d_mask, *, impl: str = "auto"):
     d [Nq, S, Ld, dim] f32; d_mask [Nq, S, Ld] -> [Nq, S] f32; query i
     scores only d[i]."""
     check_impl(impl)
-    check_no_grad("maxsim_rerank", q, q_mask, d, d_mask)
+    check_inputs("maxsim_rerank", q, q_mask, d, d_mask)
     if plain_version(impl, q):
         return maxsim_rerank_ref(q, q_mask, d, d_mask)
     if q.device.type != "cuda":
@@ -146,7 +146,7 @@ def maxsim_rerank_indexed(q, q_mask, d, d_mask, cand, cand_mask, *,
     cand[i, s]. An invalid candidate scores 0, and no row of it is read,
     whatever id it holds; a valid one's id must lie in [0, Nd)."""
     check_impl(impl)
-    check_no_grad("maxsim_rerank_indexed", q, q_mask, d, d_mask, cand,
+    check_inputs("maxsim_rerank_indexed", q, q_mask, d, d_mask, cand,
                   cand_mask)
     if plain_version(impl, q):
         return maxsim_rerank_indexed_ref(q, q_mask, d, d_mask, cand,

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version,
+                                 check_impl, check_inputs, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.maxsim_packed.ref import maxsim_packed_rerank_ref
 
@@ -44,7 +44,7 @@ def maxsim_packed_rerank(q, q_mask, words, ids, d_mask, centroids, values,
     centroids [K, dim] f32; values [dim, 2^bits] f32 -> scores [Nq, S]
     f32 (0 where a candidate has no valid token)."""
     check_impl(impl)
-    check_no_grad(_NAME, q, q_mask, words, ids, d_mask, centroids, values)
+    check_inputs(_NAME, q, q_mask, words, ids, d_mask, centroids, values)
     if plain_version(impl, q):
         return maxsim_packed_rerank_ref(q, q_mask, words, ids, d_mask,
                                         centroids, values, bits=bits)

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version,
+                                 check_impl, check_inputs, plain_version,
                                  sum_over_query_chunks)
 from repro_torch.kernels.plaid_probe.ref import plaid_probe_ref
 
@@ -68,7 +68,7 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
     ``route`` overrides ``probe_route``'s choice and ``chunk`` the query
     tokens a launch (at most ``MAX_LQ``), to time one against another."""
     check_impl(impl)
-    check_no_grad(_NAME, q, q_mask, centroids, codes, code_mask, cand_mask)
+    check_inputs(_NAME, q, q_mask, centroids, codes, code_mask, cand_mask)
     if plain_version(impl, q):
         return plaid_probe_ref(q, q_mask, centroids, codes, code_mask,
                                cand_mask, t_cs=t_cs)

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version)
+                                 check_impl, check_inputs, plain_version)
 from repro_torch.kernels.quant.ref import dequant_score_ref
 
 LAUNCHES = LaunchCounter()
@@ -42,7 +42,7 @@ def dequant_score(words, centroid_ids, centroids, values, q, *,
     """words [M, W] int32; centroid_ids [M] int32; centroids [K, dim] f32;
     values [dim, 2^bits] f32; q [Lq, dim] f32 -> sims [M, Lq] f32."""
     check_impl(impl)
-    check_no_grad(_NAME, words, centroid_ids, centroids, values, q)
+    check_inputs(_NAME, words, centroid_ids, centroids, values, q)
     if plain_version(impl, words):
         return dequant_score_ref(words, centroid_ids, centroids, values, q,
                                  bits)

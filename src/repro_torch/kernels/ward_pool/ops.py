@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.ward import normalize_masked
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
-                                 check_impl, check_no_grad, plain_version)
+                                 check_impl, check_inputs, plain_version)
 from repro_torch.kernels.ward_pool.ref import ward_assign_ref
 
 LAUNCHES = LaunchCounter()
@@ -43,7 +43,7 @@ def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
     """x [B, N, d] float; mask [B, N] bool -> assign [B, N] int32, each
     valid token's cluster representative (lowest token index)."""
     check_impl(impl)
-    check_no_grad(_NAME, x, mask)
+    check_inputs(_NAME, x, mask)
     if plain_version(impl, x):
         return ward_assign_ref(x, mask, factor)
     if x.device.type != "cuda":

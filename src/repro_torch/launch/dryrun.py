@@ -22,14 +22,19 @@ counts what the ops it dispatches would do (``roofline/analysis.py``
    ranks, labelled so;
 3. one rank's program: the step with its parameters, optimizer state and
    batch as those DTensors, under ``mesh_context(mesh, rules)`` and
-   ``implicit_replication()``: collective bytes by op, per-rank FLOPs,
-   bytes and activation peak. Where DTensor stops, the result holds
-   ``collectives: None`` and the op, file and line where it stopped.
+   ``implicit_replication()`` (``rank_context``), the models' sharding
+   annotations (the reference's ``constrain`` sites) laying out their
+   activations as the reference's rules say: collective bytes by op,
+   per-rank FLOPs, bytes and activation peak, and the largest single
+   collective's bytes.
 
-Stages 1-2 decide ``ok``; a stage 3 that stops is reported, not hidden.
-The per-rank ``flops`` / ``bytes_accessed`` / ``temp_size_in_bytes``
-(the activation peak) a roofline reads are stage 3's where it ran to
-its end, else stage 2's even split (``per_rank_from`` says which).
+A cell is ``ok`` when every stage it runs runs to its end, as the
+reference's ``ok`` says the partitioner accepted every sharding: a
+stage 3 that stops fails the cell (``ok`` False), its op, file and line
+kept in ``stage3_stopped`` and printed. The per-rank ``flops`` /
+``bytes_accessed`` / ``temp_size_in_bytes`` (the activation peak) a
+roofline reads are stage 3's where it ran, else stage 2's even split
+(``per_rank_from`` says which; a stage-2-only run).
 A decode cell runs at its worst case, the cache full (``pos`` =
 seq_len - 1, a host int): decode attends over the whole cache, masked,
 so the work counted is the same at every ``pos``.
@@ -41,6 +46,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -162,15 +168,25 @@ def _where(exc: BaseException) -> str:
     return f"{os.path.relpath(os.path.abspath(f.filename), _SRC)}:{f.lineno}"
 
 
+@contextlib.contextmanager
+def rank_context(mesh, rules):
+    """One rank's program over ``mesh``: the rules' annotations active
+    (``mesh_context``) and a plain tensor a step makes (a mask, an
+    ``arange``) taken as the same value on every rank
+    (``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with mesh_context(mesh, rules), implicit_replication():
+        yield
+
+
 def stage_rank(build, mesh, dargs) -> dict:
     """Stage 3: one rank's program over DTensors -> its collectives,
     FLOPs, bytes and activation peak, or where DTensor stopped."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor.experimental import implicit_replication
     _distribute_model(build.model, build.args[0], dargs[0])
     counter = TraceCounter(_keep(build, dargs))
     try:
-        with counter, mesh_context(mesh, build.rules), implicit_replication():
+        with counter, rank_context(mesh, build.rules):
             out = build.fn(build.model, *_step_args(build, dargs))
     except Exception as e:                       # noqa: BLE001 - reported
         return {"collectives": None, "stopped": {
@@ -181,6 +197,7 @@ def stage_rank(build, mesh, dargs) -> dict:
              for t in tensors(out)]
     coll = collective_bytes_from_trace(counter)
     return {"collectives": coll["by_op"], "collective_bytes": coll["total"],
+            "largest_collective_bytes": counter.largest_collective,
             "flops": counter.flops, "bytes_accessed": counter.bytes_accessed,
             "output_bytes": nbytes(local),
             "activation_peak_bytes": counter.peak_bytes, "stopped": None}
@@ -223,8 +240,9 @@ def run_cell(arch: str, cell: str, *, multi_pod: bool = False,
     if build.kind == "decode":
         note = "; ".join(x for x in (note, "pos = seq_len - 1 (the cache "
                                      "full)") if x)
+    stopped = rank is not None and rank["stopped"] is not None
     result = {
-        "arch": arch, "cell": cell, "kind": build.kind,
+        "arch": arch, "cell": cell, "kind": build.kind, "ok": not stopped,
         "mesh": "x".join(str(s) for s in shape), "n_devices": n_dev,
         "stage_s": [round(t, 2) for t in secs], "note": note,
         "arg_bytes": specs["arg_bytes"],
@@ -233,7 +251,8 @@ def run_cell(arch: str, cell: str, *, multi_pod: bool = False,
         "padding_bytes": sum(u["pad_bytes"] for u in specs["uneven"]),
         "global": glob, "even_split": None, "per_rank": None,
         "per_rank_from": None, "collectives": None,
-        "collective_bytes": None, "stage3_stopped": None,
+        "collective_bytes": None, "largest_collective_bytes": None,
+        "stage3_stopped": None,
     }
     for key in ("flops", "bytes_accessed", "output_size_in_bytes",
                 "temp_size_in_bytes"):
@@ -253,6 +272,8 @@ def run_cell(arch: str, cell: str, *, multi_pod: bool = False,
     if rank is not None:
         result.update(collectives=rank["collectives"],
                       collective_bytes=rank.get("collective_bytes"),
+                      largest_collective_bytes=rank.get(
+                          "largest_collective_bytes"),
                       stage3_stopped=rank["stopped"])
     if verbose:
         _print_cell(result)
@@ -275,7 +296,8 @@ def _print_cell(r: dict) -> None:
         elif r["collective_bytes"] is None:
             coll = "stage 3 not run"
         else:
-            coll = f"collective_bytes={r['collective_bytes']:.3e}"
+            coll = (f"collective_bytes={r['collective_bytes']:.3e} (largest "
+                    f"{r['largest_collective_bytes']:.3e})")
         print(f"  global flops={g['flops']:.3e} "
               f"bytes={g['bytes_accessed']:.3e}; per rank "
               f"({r['per_rank_from']}) flops={r['flops']:.3e} "
@@ -321,13 +343,14 @@ def main(argv=None):
                     failures.append({"arch": arch, "cell": cell,
                                      "multi_pod": mp, "error": repr(e)})
     counted = sum(r["collectives"] is not None for r in results)
-    print(f"\n=== dry-run: {len(results)} ok, {len(failures)} failed, "
-          f"collectives counted for {counted} ===")
-    for r in results:
-        if r["stage3_stopped"] is not None:
-            s = r["stage3_stopped"]
-            print(f"stage 3 stopped: {r['arch']} {r['cell']} at {s['where']}"
-                  f" ({s['op']}): {s['error']}")
+    stops = [r for r in results if not r["ok"]]
+    print(f"\n=== dry-run: {len(results) - len(stops)} ok, "
+          f"{len(failures) + len(stops)} failed, collectives counted for "
+          f"{counted} ===")
+    for r in stops:
+        s = r["stage3_stopped"]
+        print(f"FAILED: {r['arch']} {r['cell']}: stage 3 stopped at "
+              f"{s['where']} ({s['op']}): {s['error']}")
     for f in failures:
         print("FAILED:", f["arch"], f["cell"],
               "multi_pod" if f["multi_pod"] else "single_pod", f["error"])
@@ -335,7 +358,7 @@ def main(argv=None):
         with open(args.json, "w") as fh:
             json.dump({"results": results, "failures": failures}, fh,
                       indent=1)
-    return 1 if failures else 0
+    return 1 if failures or stops else 0
 
 
 if __name__ == "__main__":

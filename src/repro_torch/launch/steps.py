@@ -232,8 +232,7 @@ def make_colbert_search_step(cfg, k: int = 10, *,
     """search_step(model, batch{"q_tokens" [Nq, L], "doc_vecs"
     [Nd, Ld, dim], "doc_mask" [Nd, Ld]}) -> (scores [Nq, k], ids
     [Nq, k]) on the device."""
-    from repro_torch.core.maxsim import maxsim_all_docs, stable_topk
-    from repro_torch.kernels.maxsim.ref import maxsim_ref
+    from repro_torch.core.maxsim import maxsim_scores, stable_topk
     from repro_torch.models.colbert import encode_queries
     if cfg.maxsim_impl not in ("einsum", "blocked"):
         raise ValueError(f"maxsim_impl must be einsum|blocked, got "
@@ -244,13 +243,8 @@ def make_colbert_search_step(cfg, k: int = 10, *,
     def search_step(model, batch):
         qv, qm = encode_queries(model, torch.as_tensor(batch["q_tokens"],
                                                        device=dev))
-        d = torch.as_tensor(batch["doc_vecs"], device=dev).float()
+        d = torch.as_tensor(batch["doc_vecs"], device=dev)
         dm = torch.as_tensor(batch["doc_mask"], device=dev).bool()
-        if d.device.type == "meta":
-            scores = maxsim_ref(qv, qm, d, dm, block=block)
-        else:
-            scores = maxsim_all_docs(qv, qm, d.contiguous(),
-                                     dm.contiguous())
-        return stable_topk(scores, k)
+        return stable_topk(maxsim_scores(qv, qm, d, dm, block), k)
 
     return search_step

@@ -30,6 +30,7 @@ from repro_torch.models.layers import Dense, Embed, dt
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.transformer import params_from_jax as trunk_params
 from repro_torch.models.transformer import params_to_jax as trunk_to_jax
+from repro_torch.sharding.api import constrain
 from repro_torch.train.params import host, param_groups, value_and_grad
 
 # Special token ids (data/tokenizer.py — shared vocabulary layout)
@@ -57,9 +58,9 @@ class ColBERT(nn.Module):
                 pad_mask: torch.Tensor) -> torch.Tensor:
         """tokens [B, L] -> unit vectors [B, L, proj_dim] f32."""
         v = self.proj(self.trunk(tokens, pad_mask)).float()
-        return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1,
-                                                        keepdim=True),
-                               min=1e-9)
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1,
+                                                     keepdim=True), min=1e-9)
+        return constrain(v, "batch", "seq", None)
 
     def load_params(self, state: Dict[str, np.ndarray]) -> "ColBERT":
         """Load a ``params_from_jax`` state (numpy arrays) in place."""

@@ -31,6 +31,14 @@ sampled cell's 170k nodes). The blocks run under
 ``torch.utils.checkpoint`` when grad is on, as the reference's
 ``jax.checkpoint``. Parameters stay in their param dtype and are cast
 to the compute dtype per call.
+
+The reference's nine sharding annotations sit at their places (bases
+on ``edges`` / ``triplets``, node and message tensors, the triplet
+products, the block's aggregate, the edge and node outputs). Over a
+mesh the row gathers take each rank's own ids' rows from the table
+gathered whole (``_take``), the bases are computed on each rank's rows
+(``_rowwise``) and the segment sums are partial sums reduced by the
+node annotation.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.segment import sorted_segment_sum
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense, Embed, act_fn, dt
+from repro_torch.sharding.api import constrain
 from repro_torch.train.params import from_tree, group, to_tree
 
 
@@ -211,16 +220,19 @@ class DimeNetBlock(nn.Module):
         cap = t_in.shape[0] // E
         pre = act(self.msg_pre(m))                             # [E, h]
         sb = self.sbf_proj(sbf)                                # [T, nb]
-        gathered = F.embedding(t_in, pre) * t_mask[:, None].to(m.dtype)
+        gathered = _take(pre, t_in) * t_mask[:, None].to(m.dtype)
+        gathered = constrain(gathered, "triplets", "hidden")
         # sum_b sb[:, b] * (gathered @ W[b]), looped over the bilinear dim
         # so no [T, nb * h] tensor is built
         W = self.bilinear.to(m.dtype)
         tprod = torch.zeros_like(gathered)
         for b in range(W.shape[0]):
             tprod = tprod + sb[:, b:b + 1] * (gathered @ W[b])
+        tprod = constrain(tprod, "triplets", "hidden")
         # t_out = repeat(arange(E), cap): the triplet -> edge sum is a
         # reshape and a sum over cap
-        agg = tprod.reshape(E, cap, -1).sum(dim=1)
+        agg = constrain(tprod.reshape(E, cap, -1).sum(dim=1),
+                        "edges", "hidden")
         m2 = act(self.msg_post(m * self.rbf_gate(rbf) + agg))
         m2 = m + m2                                            # residual
         m2 = m2 + act(self.res2(act(self.res1(m2))))
@@ -293,13 +305,59 @@ def params_to_jax(state) -> Dict:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+def _index(idx, table):
+    return table[idx]
+
+
+def _take(table, idx, gather=F.embedding):
+    """``gather(idx, table)``: the rows of ``table`` at ``idx``. Over a
+    mesh (a ``DTensor`` either) the table is gathered whole onto every
+    rank (an arbitrary index reaches any row) and each rank takes the
+    rows of its own indices: the result laid out as ``idx``, the table's
+    gradient a partial sum over the ranks that split ``idx``,
+    reduce-scattered back to the table's layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(table, DTensor) and not isinstance(idx, DTensor):
+        return gather(idx, table)
+    from repro_torch.sharding.api import from_local, lay_out, reshard
+    mesh = (idx if isinstance(idx, DTensor) else table).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    idx = lay_out(idx, mesh, idx.placements if isinstance(idx, DTensor)
+                  else whole)
+    if any(p.is_shard() and p.dim != 0 for p in idx.placements):
+        raise ValueError(f"row ids laid out {idx.placements}")
+    grads = [Partial() if p.is_shard() else Replicate()
+             for p in idx.placements]
+    rows = gather(idx.to_local(), reshard(table, mesh, whole).to_local(
+        grad_placements=grads))
+    return from_local(rows, mesh, idx.placements,
+                      (*idx.shape, *table.shape[1:]))
+
+
+def _rowwise(fn, *xs):
+    """``fn(*xs)`` of a function computed row by row (the bases of each
+    edge or triplet); over a mesh each rank's own rows, from its local
+    shards of ``xs`` (laid out alike, split by rows only)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    from repro_torch.sharding.api import from_local
+    mesh, place = xs[0].device_mesh, xs[0].placements
+    if any(x.placements != place for x in xs) or any(
+            p.is_shard() and p.dim != 0 for p in place):
+        raise ValueError(f"row-wise inputs laid out "
+                         f"{[x.placements for x in xs]}")
+    out = fn(*(x.to_local() for x in xs))
+    return from_local(out, mesh, place, (xs[0].shape[0], *out.shape[1:]))
+
+
 def _geometry(pos, src, dst, t_in, t_out):
     """Distances per edge and angles per triplet from positions."""
-    rel = pos[dst] - pos[src]                        # [E, 3] j -> i
+    rel = _take(pos, dst, _index) - _take(pos, src, _index)  # [E, 3] j -> i
     d = torch.linalg.norm(rel, dim=-1)               # [E]
     # angle at j between (k->j) and (j->i): vectors -rel[in] and rel[out]
-    v1 = -rel[t_in]                                  # j -> k
-    v2 = rel[t_out]                                  # j -> i
+    v1 = -_take(rel, t_in, _index)                   # j -> k
+    v2 = _take(rel, t_out, _index)                   # j -> i
     cos = torch.sum(v1 * v2, -1) / torch.clamp(
         torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1),
         min=1e-9)
@@ -325,23 +383,27 @@ def dimenet_forward(model: DimeNet, inputs, cfg=None, *, task: str = "graph",
 
     with torch.no_grad():
         d, angle = _geometry(pos, src, dst, t_in, t_out)
-        rbf = radial_basis(d, cfg.n_radial, cfg.cutoff,
-                           cfg.envelope_exponent).to(cdt)      # [E, nr]
+        rbf = _rowwise(lambda d_: radial_basis(
+            d_, cfg.n_radial, cfg.cutoff, cfg.envelope_exponent).to(cdt),
+            d)                                                 # [E, nr]
         roots = _roots(cfg.n_spherical, cfg.n_radial)
-        sbf = spherical_basis(d[t_in], angle, roots, cfg.cutoff,
-                              cfg.envelope_exponent).to(cdt)   # [T, ns*nr]
+        sbf = _rowwise(lambda d_, a_: spherical_basis(
+            d_, a_, roots, cfg.cutoff, cfg.envelope_exponent).to(cdt),
+            _take(d, t_in, _index), angle)                     # [T, ns*nr]
+    rbf = constrain(rbf, "edges", None)
+    sbf = constrain(sbf, "triplets", None)
 
     # node embeddings
     if "feat" in inp:
         hN = act(model.feat_proj(inp["feat"].to(cdt)))
     else:
         hN = model.atom_embed(inp["z"].long(), cdt)
+    hN = constrain(hN, "nodes", "hidden")
 
     # initial edge messages
     m = act(model.edge_mlp(torch.cat(
-        [F.embedding(src, hN), F.embedding(dst, hN), model.rbf_proj(rbf)],
-        -1)))
-    m = m * e_mask[:, None].to(cdt)
+        [_take(hN, src), _take(hN, dst), model.rbf_proj(rbf)], -1)))
+    m = constrain(m * e_mask[:, None].to(cdt), "edges", "hidden")
 
     outs = []
     remat = torch.is_grad_enabled()
@@ -350,11 +412,13 @@ def dimenet_forward(model: DimeNet, inputs, cfg=None, *, task: str = "graph",
         m, out_e = (checkpoint(block, *args, use_reentrant=False) if remat
                     else block(*args))
         outs.append(out_e)
-    edge_out = model.out_init(m) + torch.stack(outs).sum(dim=0)
+    edge_out = constrain(model.out_init(m) + torch.stack(outs).sum(dim=0),
+                         "edges", "hidden")
 
     # per-edge -> per-node sum (message direction: into dst)
     N = hN.shape[0]
     node_out = sorted_segment_sum(edge_out * e_mask[:, None].to(cdt), dst, N)
+    node_out = constrain(node_out, "nodes", "hidden")
     node_out = model.head2(act(model.head1(node_out)))
     node_out = node_out * inp["node_mask"][:, None].to(cdt)
 

@@ -7,6 +7,8 @@ package's layout (a dense weight ``w`` is ``[d_in, d_out]``) so
 activations are cast on entry, as in the reference:
 
   * ``dense`` casts weight (and bias) to the input's dtype, then ``@``;
+    over a mesh a weight's FSDP shards are gathered first
+    (``gather_fsdp``);
   * ``RMSNorm`` and ``LayerNorm`` compute in f32 and cast back to the
     input's dtype; ``norm`` picks one by the config's name;
   * ``embed`` casts the table first, then gathers (``F.embedding``,
@@ -64,7 +66,8 @@ class Dense(nn.Module):
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w.to(x.dtype)
+        w = gather_fsdp(self.w.to(x.dtype))
+        y = _batched(x, w) if _folds_shards(x) else x @ w
         if self.b is not None:
             y = y + self.b.to(y.dtype)
         return y
@@ -114,7 +117,42 @@ class Embed(nn.Module):
         trunc_normal_(self.table, 0.02, generator)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.embedding(ids, self.table.to(dtype))
+        return F.embedding(ids, gather_fsdp(self.table.to(dtype)))
+
+
+def _folds_shards(x: torch.Tensor) -> bool:
+    """Whether ``x @ w`` would fold a sharded dim of ``x`` other than its
+    first into the product's rows (a ``DTensor`` split on a middle dim:
+    sequence parallelism's [batch, seq] activations), which not every
+    torch's sharding rules can do."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor) and any(
+        p.is_shard() and 0 < p.dim < x.ndim - 1 for p in x.placements)
+
+
+def _batched(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, ..., d_in] @ w [d_in, d_out] as one batched product over B
+    (the weight broadcast), the other leading dims kept apart."""
+    lead = x.shape[1:-1]
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1]) if len(lead) != 1 else x
+    y = torch.bmm(x3, w.expand(x.shape[0], *w.shape))
+    return y if len(lead) == 1 else y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A weight laid out over a mesh gathered over its FSDP shards (every
+    mesh axis but ``model``, ``sharding/params.py``) before use, its
+    tensor-parallel shards kept; its gradient comes back reduce-scattered
+    to the FSDP shard. A plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    place = [Replicate() if p.is_shard() and names[i] != "model" else p
+             for i, p in enumerate(w.placements)]
+    if place == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, place)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ Three execution paths, the reference's:
                      gather back weighted by the router. Assignments past
                      an expert's capacity C are dropped (their expert
                      output is zero; the residual stream still carries
-                     the token).
+                     the token). Over a mesh every rank dispatches every
+                     token (the reference's global buffer) and runs the
+                     experts its ``experts`` annotation gives it.
 * ``moe_ep``       — expert parallel: under a mesh context whose mesh has
                      a ``model`` axis, each rank runs its E / n_shards
                      experts and tokens go to their expert's owner and
@@ -42,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, act_fn
+from repro_torch.models.layers import Dense, act_fn, gather_fsdp
+from repro_torch.sharding.api import constrain, from_local, lay_out
 
 
 class MoE(nn.Module):
@@ -95,7 +98,7 @@ def _load_means(probs: torch.Tensor, ids: torch.Tensor, E: int):
     counts are an integer ``scatter_add_`` (``bincount``'s counts on every
     device, and it has a ``meta`` kernel for the dry run)."""
     flat = ids.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.long, device=ids.device).scatter_add_(
+    counts = flat.new_zeros(E, dtype=torch.long).scatter_add_(
         0, flat, torch.ones_like(flat))
     ce = counts.float() / probs.shape[0]
     return probs.mean(dim=0), ce
@@ -115,12 +118,15 @@ def _router(p: MoE, x2d: torch.Tensor, cfg):
 
 
 def _expert_ffn(p: MoE, h: torch.Tensor, cfg) -> torch.Tensor:
-    """h [E, C, d] -> [E, C, d], each expert's FFN as one batched bmm."""
+    """h [E, C, d] -> [E, C, d], each expert's FFN as one batched bmm;
+    the products annotated ``experts`` (the reference's sites)."""
     act = act_fn(cfg.act)
-    a = act(torch.bmm(h, p.w1.to(h.dtype)))
-    if p.w3 is not None:
-        a = a * torch.bmm(h, p.w3.to(h.dtype))
-    return torch.bmm(a, p.w2.to(h.dtype))
+    w1, w2, w3 = (None if w is None else gather_fsdp(w.to(h.dtype))
+                  for w in (p.w1, p.w2, p.w3))
+    a = act(constrain(torch.bmm(h, w1), "experts", None, None))
+    if w3 is not None:
+        a = a * constrain(torch.bmm(h, w3), "experts", None, None)
+    return constrain(torch.bmm(a, w2), "experts", None, None)
 
 
 def _shared_ffn(p: MoE, x2d: torch.Tensor, cfg) -> torch.Tensor:
@@ -190,16 +196,17 @@ def moe_capacity(p: MoE, x: torch.Tensor, cfg, capacity: int = None):
     ``capacity_for(B * S, cfg)``; assignments over it are dropped."""
     B, S, d = x.shape
     T, E, k = B * S, cfg.n_experts, cfg.top_k
-    x2d = x.reshape(T, d)
+    x_in = x2d = x.reshape(T, d)
+    x2d = _global_tokens(x2d)
     weights, ids, aux = _router(p, x2d, cfg)
     C = capacity_for(T, cfg) if capacity is None else int(capacity)
-    keep, slot = dispatch(ids, E, C)
+    keep, slot = _dispatch(ids, E, C)
 
     # each live slot written once; the dropped go to the sink row E * C
     x_assign = x2d[:, None].expand(T, k, d).reshape(T * k, d)
-    buf = torch.zeros(E * C + 1, d, dtype=x2d.dtype, device=x2d.device)
-    buf = buf.index_put((slot,), x_assign)
-    out = _expert_ffn(p, buf[:E * C].view(E, C, d), cfg).reshape(E * C, d)
+    buf = x2d.new_zeros(E * C + 1, d).index_put((slot,), x_assign)
+    buf = constrain(buf[:E * C].view(E, C, d), "experts", None, None)
+    out = _expert_ffn(p, buf, cfg).reshape(E * C, d)
 
     # gather back per assignment (the sink row reads zeros), weight,
     # combine over the k slots
@@ -207,8 +214,32 @@ def moe_capacity(p: MoE, x: torch.Tensor, cfg, capacity: int = None):
     w = (weights.reshape(-1) * keep).to(out.dtype)
     y = (F.embedding(slot, out) * w[:, None]).reshape(T, k, d).sum(dim=1)
     if p.shared_w1 is not None:
-        y = y + _shared_ffn(p, x2d, cfg)
+        y = y + _shared_ffn(p, x_in, cfg)
     return y.reshape(B, S, d), aux
+
+
+def _global_tokens(x2d: torch.Tensor) -> torch.Tensor:
+    """The capacity dispatch sees every token: laid out over a mesh, the
+    [T, d] tokens are gathered onto every rank (the reference's global
+    [E, C, d] buffer, whose slot positions count over the whole batch);
+    a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x2d, DTensor):
+        return x2d
+    mesh = x2d.device_mesh
+    return lay_out(x2d, mesh, [Replicate()] * mesh.ndim)
+
+
+def _dispatch(ids: torch.Tensor, n_experts: int, capacity: int):
+    """``dispatch``; on replicated ``DTensor`` ids (``_global_tokens``)
+    the same index arithmetic on the local copy, every rank's the same,
+    returned replicated."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ids, DTensor):
+        return dispatch(ids, n_experts, capacity)
+    mesh, place = ids.device_mesh, ids.placements
+    return tuple(from_local(t, mesh, place, t.shape)
+                 for t in dispatch(ids.to_local(), n_experts, capacity))
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro_torch.core.maxsim import stable_topk
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense, act_fn, dt
 from repro_torch.models.recsys.embedding import embedding_bag, init_tables
+from repro_torch.sharding.api import constrain
 from repro_torch.train.params import from_tree, group, to_tree
 
 
@@ -133,7 +134,17 @@ def _fm_second_order(emb: torch.Tensor) -> torch.Tensor:
 
 
 def _dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
-    """vecs: [B, n, D] -> lower-triangle pairwise dots [B, n(n-1)/2]."""
+    """vecs: [B, n, D] -> lower-triangle pairwise dots [B, n(n-1)/2];
+    over a mesh (a ``DTensor`` split by batch rows) each rank's own rows,
+    a sample's dots being its own."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(vecs, DTensor):
+        from repro_torch.sharding.api import from_local
+        if any(p.is_shard() and p.dim != 0 for p in vecs.placements):
+            raise ValueError(f"interaction over {vecs.placements}")
+        out = _dot_interaction(vecs.to_local())
+        return from_local(out, vecs.device_mesh, vecs.placements,
+                          (vecs.shape[0], out.shape[1]))
     n = vecs.shape[1]
     g = torch.einsum("bnd,bmd->bnm", vecs, vecs)      # [B, n, n]
     iu = torch.triu_indices(n, n, 1, device=vecs.device)
@@ -153,7 +164,8 @@ def recsys_forward(model: Recsys, batch, cfg=None) -> torch.Tensor:
     b = _batch(model, batch)
     ids = b["sparse_ids"]
     B = ids.shape[0]
-    emb = embedding_bag(model.tables, ids, dtype=cdt)  # [B, F, D]
+    emb = constrain(embedding_bag(model.tables, ids, dtype=cdt),
+                    "batch", None, "embed")           # [B, F, D]
     # first-order term (all models)
     wide = embedding_bag(model.wide, ids, dtype=cdt)
     logit = wide.sum(dim=(1, 2)) + model.bias.to(cdt)
@@ -182,7 +194,7 @@ def recsys_forward(model: Recsys, batch, cfg=None) -> torch.Tensor:
         vecs = torch.cat([bot[:, None, :], emb], dim=1)
         top_in = torch.cat([bot, _dot_interaction(vecs)], -1)
         logit = logit + _run_mlp(model.top_mlp, top_in)[:, 0]
-    return logit.float()
+    return constrain(logit.float(), "batch")
 
 
 def recsys_loss(model: Recsys, batch, cfg=None):
@@ -205,5 +217,7 @@ def score_candidates(model: Recsys, batch, candidates, cfg=None,
     cdt = dt(cfg.dtype)
     ids = torch.as_tensor(batch["sparse_ids"], device=model.device)
     user = embedding_bag(model.tables, ids, dtype=cdt).mean(dim=1)  # [B, D]
-    cand = torch.as_tensor(candidates, device=model.device).to(cdt)
-    return stable_topk((user @ cand.T).float(), k)
+    cand = constrain(torch.as_tensor(candidates, device=model.device).to(cdt),
+                     "candidates", None)
+    scores = constrain(user @ cand.T, "batch", "candidates")
+    return stable_topk(scores.float(), k)

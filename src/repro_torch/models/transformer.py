@@ -2,8 +2,12 @@
 bidirectional encoder of ColBERT and the causal LM.
 
 Pre-norm blocks (RMSNorm or LayerNorm), a plain Python loop over the
-layers in place of the reference's ``scan``; no sharding constraints.
-Embeddings and the residual stream are in the compute dtype.
+layers in place of the reference's ``scan``. Embeddings and the
+residual stream are in the compute dtype. The reference's sharding
+annotations sit at their places (``constrain``, a no-op without a mesh
+context): the embedded input and each layer boundary of ``forward`` as
+``batch, seq, dmodel``, the logits as ``vocab``, the prefill cache's
+sequence axis as ``cacheseq``.
 
 ``TransformerLM`` adds the LM head and the serving steps:
 
@@ -39,15 +43,17 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_forward)
-from repro_torch.models.layers import Dense, Embed, dt, norm
+from repro_torch.models.layers import Dense, Embed, dt, gather_fsdp, norm
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.sharding.api import constrain, current_ctx
 from repro_torch.train.params import from_tree, group, to_tree
 
 
@@ -131,7 +137,7 @@ class Transformer(nn.Module):
         x = self.embed(tokens, cdt)
         if self.pos_embed is not None:
             x = x + self.pos_embed(positions, cdt)
-        return x
+        return constrain(x, "batch", "seq", "dmodel")
 
     def forward(self, tokens: torch.Tensor, pad_mask: torch.Tensor = None,
                 cfg=None, moe_impl: str = "capacity",
@@ -153,6 +159,8 @@ class Transformer(nn.Module):
                                   moe_impl, use_reentrant=False)
             else:
                 x, a = layer(x, pad_mask, positions, cfg, moe_impl=moe_impl)
+            # the layer boundary (the reference's ``x + h`` in ``_block``)
+            x = constrain(x, "batch", "seq", "dmodel")
             if a is not None:
                 aux = aux + a
         x = self.final_norm(x)
@@ -174,10 +182,21 @@ class TransformerLM(Transformer):
                         Dense(cfg.d_model, cfg.vocab_size, False,
                               self.device, dt(cfg.param_dtype)))
 
-    def logits_head(self, hidden: torch.Tensor) -> torch.Tensor:
+    def head_weight(self) -> torch.Tensor:
+        """The LM head's weight [d_model, V] in the param dtype (the
+        embedding table's transpose when tied); over a mesh its FSDP
+        shards gathered (``gather_fsdp``), so a loss over sequence
+        chunks gathers it once."""
         if self.lm_head is None:
-            return hidden @ self.embed.table.to(hidden.dtype).T
-        return self.lm_head(hidden)
+            return gather_fsdp(self.embed.table).T
+        return gather_fsdp(self.lm_head.w)
+
+    def logits_head(self, hidden: torch.Tensor,
+                    w: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """hidden [..., d_model] -> logits [..., V] in hidden's dtype;
+        ``w`` the ``head_weight`` if the caller holds it."""
+        w = self.head_weight() if w is None else w
+        return constrain(hidden @ w.to(hidden.dtype), "batch", "seq", "vocab")
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    cfg=None) -> Dict[str, torch.Tensor]:
@@ -199,12 +218,27 @@ class TransformerLM(Transformer):
             raise ValueError(f"max_len {max_len} < prompt length {S}")
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions, cfg)
-        cache = self.init_cache(B, max_len, cfg=cfg)
+        # under a mesh the cache is each layer's annotated k and v,
+        # stacked (the reference's scan outputs); else written in place
+        stacked = current_ctx() is not None
+        cache = ({"k": [], "v": []} if stacked
+                 else self.init_cache(B, max_len, cfg=cfg))
         for i, layer in enumerate(self.blocks):
             x, _, (k, v) = layer(x, None, positions, cfg, return_kv=True,
                                  moe_impl=moe_impl)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            if stacked and max_len > S:
+                pad = (0, 0, 0, 0, 0, max_len - S)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+            k = constrain(k, "batch", "cacheseq", "kv", None)
+            v = constrain(v, "batch", "cacheseq", "kv", None)
+            if stacked:
+                cache["k"].append(k.to(dt(cfg.dtype)))
+                cache["v"].append(v.to(dt(cfg.dtype)))
+            else:
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+        if stacked:
+            cache = {n: torch.stack(t) for n, t in cache.items()}
         return self.final_norm(x), cache
 
     @torch.no_grad()
@@ -246,14 +280,13 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     mask = (torch.ones(labels.shape, device=hidden.device)
             if loss_mask is None else loss_mask.float())
 
-    def chunk_nll(h, lab, msk):
-        lg = model.logits_head(h).float()
-        gold = torch.gather(lg, -1, lab[..., None])[..., 0]
-        return ((torch.logsumexp(lg, dim=-1) - gold) * msk).sum()
+    def chunk_nll(h, w, lab, msk):
+        return (_nll(model.logits_head(h, w).float(), lab) * msk).sum()
 
+    w = model.head_weight()
     tot = torch.zeros((), device=hidden.device)
     for lo in range(0, S, chunk):
-        args = (hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk],
+        args = (hidden[:, lo:lo + chunk], w, labels[:, lo:lo + chunk],
                 mask[:, lo:lo + chunk])
         if torch.is_grad_enabled():
             tot = tot + checkpoint(chunk_nll, *args, use_reentrant=False)
@@ -262,6 +295,50 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     cnt = mask.sum()
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
+
+
+def _nll(lg: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """-log softmax(lg)[lab] over the last axis: lg [..., V] f32, lab
+    [...]. Logits laid out over the mesh with the vocab sharded (the
+    ``vocab`` annotation) take the vocab-parallel form (``_sharded_nll``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(lg, DTensor) and any(p.is_shard(lg.ndim - 1)
+                                       for p in lg.placements):
+        return _sharded_nll(lg, lab)
+    gold = torch.gather(lg, -1, lab[..., None])[..., 0]
+    return torch.logsumexp(lg, dim=-1) - gold
+
+
+def _sharded_nll(lg, lab):
+    """Megatron's vocab-parallel cross entropy on one rank: the max, the
+    sum of exponentials and the gold logit of its own vocab shard, each
+    reduced over the mesh dims that shard the vocab (one all-reduce of
+    [..] rows each); the logits are never gathered. -> the nll, laid out
+    as ``lg`` without its vocab axis (sharded over the batch's mesh
+    dims, replicated over the vocab's)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.sharding.api import from_local, lay_out
+    mesh, place, v = lg.device_mesh, lg.placements, lg.ndim - 1
+    out = [Replicate() if p.is_shard(v) else p for p in place]
+    shape = lg.shape[:-1]
+
+    def reduce(t, op):
+        part = [Partial(op) if p.is_shard(v) else p for p in place]
+        return from_local(t, mesh, part, shape, grad_placements=out
+                          ).redistribute(mesh, out).to_local()
+
+    local = lg.to_local()
+    _, off = compute_local_shape_and_global_offset(lg.shape, mesh, place)
+    z = local - reduce(local.detach().amax(dim=-1), "max")[..., None]
+    sumexp = reduce(torch.exp(z).sum(dim=-1), "sum")
+    idx = lay_out(lab, mesh, out).to_local().long() - off[v]
+    ok = (idx >= 0) & (idx < local.shape[-1])
+    gold = torch.gather(z, -1, idx.clamp(0, local.shape[-1] - 1)[..., None]
+                        )[..., 0] * ok
+    return from_local(torch.log(sumexp) - reduce(gold, "sum"), mesh, out,
+                      shape)
 
 
 def init_transformer(cfg, generator: Optional[torch.Generator] = None, *,

@@ -27,7 +27,8 @@ the aten ops a step dispatches, on ``meta`` tensors or real ones:
   ``torch.distributed``'s in-place ones), under the reference's names
   (all-gather, all-reduce, reduce-scatter, all-to-all) and
   ``broadcast``; ``collective_bytes_from_trace`` sums them into the
-  reference's ``{"total", "by_op"}`` form.
+  reference's ``{"total", "by_op"}`` form; ``largest_collective`` is
+  the largest one's bytes.
 * The peak of live activation bytes: every storage an op allocates is
   live from that op until the last tensor on it is freed (a weak
   reference on each tensor the ops return; a tensor autograd saves for
@@ -128,6 +129,7 @@ class TraceCounter(TorchDispatchMode):
         self.by_op: Dict[str, Dict[str, int]] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.largest_collective = 0
         self.last_op: Optional[str] = None
         self._keep = {_storage_key(_local(t)) for t in tensors(keep)}
         self._live: Dict[int, list] = {}      # storage -> [bytes, refs]
@@ -182,6 +184,7 @@ class TraceCounter(TorchDispatchMode):
                 entry = self.by_op.setdefault(coll, {"count": 0, "bytes": 0})
                 entry["count"] += 1
                 entry["bytes"] += moved
+                self.largest_collective = max(self.largest_collective, moved)
         else:
             count = flop_registry.get(packet)
             if count is not None:
@@ -207,12 +210,15 @@ def collective_bytes_from_trace(counter: TraceCounter) -> Dict:
 
 @dataclass
 class RooflineTerms:
+    """The terms of one cell. ``collective_bytes`` None: not counted (a
+    stage 3 that stopped), and the collective term is missing, never 0;
+    the bottleneck and step time are then over the other two terms."""
     arch: str
     cell: str
     mesh: str
     flops: float                  # per-rank FLOPs
     hlo_bytes: float              # per-rank bytes accessed (HBM traffic)
-    collective_bytes: float       # per-rank collective traffic
+    collective_bytes: Optional[float]   # per-rank collective traffic
     model_flops: float = 0.0      # 6*N*D useful flops (whole step, per rank)
 
     @property
@@ -224,20 +230,26 @@ class RooflineTerms:
         return self.hlo_bytes / hw.HBM_BW
 
     @property
-    def collective_s(self) -> float:
+    def collective_s(self) -> Optional[float]:
+        if self.collective_bytes is None:
+            return None
         return self.collective_bytes / hw.LINK_BW
+
+    def _terms(self) -> Dict[str, float]:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return {k: v for k, v in terms.items() if v is not None}
 
     @property
     def bottleneck(self) -> str:
-        terms = {"compute": self.compute_s, "memory": self.memory_s,
-                 "collective": self.collective_s}
+        terms = self._terms()
         return max(terms, key=terms.get)
 
     @property
     def step_time_s(self) -> float:
         """Roofline-optimistic step time: max of the three terms (perfect
         overlap of compute, HBM and links)."""
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        return max(self._terms().values())
 
     @property
     def useful_flops_frac(self) -> float:
@@ -251,9 +263,11 @@ class RooflineTerms:
         return (self.model_flops / hw.PEAK_FLOPS_BF16) / self.step_time_s
 
     def row(self) -> str:
+        coll = ("  missing" if self.collective_s is None
+                else f"{self.collective_s:9.4f}")
         return (f"{self.arch:22s} {self.cell:14s} {self.mesh:9s} "
                 f"{self.compute_s:9.4f} {self.memory_s:9.4f} "
-                f"{self.collective_s:9.4f} {self.bottleneck:10s} "
+                f"{coll} {self.bottleneck:10s} "
                 f"{self.useful_flops_frac:6.1%} {self.mfu:6.1%}")
 
 
@@ -286,10 +300,10 @@ def model_flops_decode(cfg, batch: int, seq_len: int, n_chips: int) -> float:
 
 
 def from_dryrun(result: Dict, model_flops: float = 0.0) -> RooflineTerms:
-    """A ``launch/dryrun.run_cell`` result's per-rank figures (a stopped
-    stage 3's collectives count 0) -> the terms."""
+    """A ``launch/dryrun.run_cell`` result's per-rank figures -> the
+    terms (a stopped stage 3's collective term missing: None)."""
     return RooflineTerms(
         arch=result["arch"], cell=result["cell"], mesh=result["mesh"],
         flops=result["flops"], hlo_bytes=result["bytes_accessed"],
-        collective_bytes=result["collective_bytes"] or 0.0,
+        collective_bytes=result["collective_bytes"],
         model_flops=model_flops)

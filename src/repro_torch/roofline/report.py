@@ -77,9 +77,11 @@ def roofline_table(results: list) -> str:
             "|---|---|---|---|---|---|---|---|"]
     for r in results:
         t = r["terms"]
+        coll = ("missing (stage 3 stopped)" if t["collective_s"] is None
+                else f"{t['collective_s']:.2e}")
         rows.append(
             f"| {r['arch']} | {r['cell']} | {t['compute_s']:.2e} | "
-            f"{t['memory_s']:.2e} | {t['collective_s']:.2e} | "
+            f"{t['memory_s']:.2e} | {coll} | "
             f"**{t['bottleneck']}** | {t['useful_flops_frac']:.1%} | "
             f"{t['mfu']:.1%} |")
     return "\n".join(rows)
@@ -93,7 +95,7 @@ def collective_summary(results: list) -> str:
 
         def fmt(op):
             if c is None:
-                return "not counted"
+                return "stage 3 stopped"
             e = c.get(op)
             return f"{e['bytes']/2**20:.0f}M x{e['count']}" if e else "-"
         rows.append(

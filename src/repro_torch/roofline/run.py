@@ -13,8 +13,8 @@ Per cell:
      of a 48-layer trunk at 32k takes minutes: its time grows with the op
      count). The traces run in the reference's analysis mode (``unroll``:
      a prefill cell's attention in 8 chunks). Where stage 3 stopped,
-     the per-rank figures are the even split and the collective bytes 0
-     (``collectives_counted`` False);
+     the per-rank figures are the even split and the collective bytes
+     and term missing (None; ``collectives_counted`` False);
   3. three roofline terms + MODEL_FLOPS (analytic 6ND/2ND, the
      reference's ``_model_flops``) + bottleneck.
 
@@ -182,7 +182,7 @@ def analyse_cell(arch: str, cell: str, *, skip_multipod: bool = False,
     terms = RooflineTerms(
         arch=arch, cell=cell, mesh=r1["mesh"], flops=ex["flops"],
         hlo_bytes=ex["bytes_accessed"],
-        collective_bytes=ex["collective_bytes"] or 0.0,
+        collective_bytes=ex["collective_bytes"],
         model_flops=_model_flops(arch, cell, n_chips))
     out["terms"] = {
         "compute_s": terms.compute_s, "memory_s": terms.memory_s,

@@ -12,7 +12,13 @@ one), as JAX's ``PartitionSpec``. ``placements`` turns a spec into the
 DTensor placements of a ``DeviceMesh`` (one ``Shard(dim)`` on each mesh
 dim a tensor dim names, ``Replicate()`` elsewhere); ``constrain``
 redistributes a ``DTensor`` (or a plain tensor, taken as the same value
-on every rank) to them.
+on every rank) to them, and its gradient likewise (``lay_out``: the
+transpose of ``with_sharding_constraint``). ``split_last`` and
+``merge_last`` take a head view the mesh may not divide (12 heads over
+16 ranks): laid out before the view so DTensor can take it.
+``reshard`` is DTensor's own ``redistribute`` (the gradient back to
+the input's layout) and ``from_local`` a ``DTensor`` from a rank's
+local result, for the models' code that runs on local shards.
 
 The rule tables are the reference's: ``lm_rules`` (heads-TP, or
 ``attn_shard="sequence"`` for head counts the TP axis does not divide),
@@ -25,6 +31,8 @@ import contextlib
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple, Union
+
+import torch
 
 Axis = Union[str, Tuple[str, ...], None]
 
@@ -113,27 +121,168 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
-def constrain(x, *names: Optional[str]):
-    """``x`` unchanged with no context; under one, a ``DTensor`` of the
-    names' placements on the context's ``DeviceMesh``: a ``DTensor``
-    redistributed, a plain tensor taken as the same value on every rank
-    (replicated) and then laid out."""
-    ctx = current_ctx()
-    if ctx is None:
-        return x
+def _layout(ctx: MeshContext, ndim: int, names) -> tuple:
+    """The placements ``names`` give a tensor of ``ndim`` dims; a rule's
+    mesh axis that this mesh lacks (``experts`` -> ``model`` on a
+    ``("data",)`` mesh) leaves its dim replicated."""
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate
-    if len(names) != x.ndim:
+    if len(names) != ndim:
         raise ValueError(f"{len(names)} axis names for a tensor of "
-                         f"{x.ndim} dims")
+                         f"{ndim} dims")
     if not isinstance(ctx.mesh, DeviceMesh):
         raise TypeError(f"constrain needs a DeviceMesh context, got "
                         f"{type(ctx.mesh).__name__}")
-    target = placements(P(*[ctx.resolve(n) for n in names]), ctx.mesh)
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, ctx.mesh, [Replicate()] * ctx.mesh.ndim,
-                               run_check=False)
-    return x.redistribute(ctx.mesh, target)
+    have = set(ctx.mesh.mesh_dim_names)
+    spec = []
+    for n in names:
+        axis = ctx.resolve(n)
+        axes = [a for a in ((axis,) if isinstance(axis, str) else axis or ())
+                if a in have]
+        spec.append(tuple(axes) if len(axes) > 1 else
+                    axes[0] if axes else None)
+    return placements(P(*spec), ctx.mesh)
+
+
+def lay_out(x, mesh, target):
+    """``x`` (a ``DTensor``, or a plain tensor taken as the same value on
+    every rank) laid out as ``target``; its gradient is laid out as
+    ``target`` too, as the transpose of JAX's ``with_sharding_constraint``
+    is the same constraint on the cotangent (a partial-sum gradient is
+    reduced there: Megatron's backward all-reduce at the layer edge)."""
+    return _LayOut.apply(_dtensor(x, mesh), mesh, tuple(target))
+
+
+def _dtensor(x, mesh):
+    """``x``, a plain tensor taken as the same value on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _LayOut(torch.autograd.Function):
+    """``redistribute`` whose backward lays the gradient out as the
+    forward's target (``lay_out``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, target):
+        ctx.mesh, ctx.target = mesh, target
+        if tuple(t.placements) == target:
+            return t.view_as(t)
+        return t.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.target:
+            g = g.redistribute(ctx.mesh, ctx.target)
+        return g, None, None
+
+
+def reshard(x, mesh, target):
+    """``x`` laid out as ``target`` by DTensor's own ``redistribute``,
+    whose gradient goes back to ``x``'s layout (a view's backward needs
+    the layout its forward had); a plain tensor taken as replicated."""
+    x = _dtensor(x, mesh)
+    if tuple(x.placements) == tuple(target):
+        return x
+    return x.redistribute(mesh, target)
+
+
+def from_local(local, mesh, place, shape, grad_placements=None):
+    """A ``DTensor`` of global ``shape`` (contiguous strides, so ``local``
+    is made contiguous) from this rank's ``local`` tensor laid out as
+    ``place``; ``grad_placements`` the layout its gradient is brought to
+    before it goes back to ``local`` (by default ``place``, a partial
+    sum's replicated: the same on every rank)."""
+    strides, acc = [], 1
+    for n in reversed(tuple(shape)):
+        strides.append(acc)
+        acc *= int(n)
+    spec = (mesh, tuple(place), tuple(shape), tuple(reversed(strides)))
+    return _FromLocal.apply(local.contiguous(), spec,
+                            None if grad_placements is None
+                            else tuple(grad_placements))
+
+
+class _FromLocal(torch.autograd.Function):
+    """``DTensor.from_local`` whose backward lays the gradient out as
+    asked before taking its local part (the same on every torch)."""
+
+    @staticmethod
+    def forward(ctx, local, spec, grad_placements):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh, place, shape, stride = spec
+        ctx.mesh = mesh
+        ctx.grad = grad_placements or tuple(
+            Replicate() if p.is_partial() else p for p in place)
+        return DTensor.from_local(local, mesh, place, run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.grad):
+            g = g.redistribute(ctx.mesh, ctx.grad)
+        return g.to_local(), None, None
+
+
+def constrain(x, *names: Optional[str]):
+    """``x`` unchanged with no context; under one, a ``DTensor`` of the
+    names' placements on the context's ``DeviceMesh``: a ``DTensor``
+    redistributed (a partial sum reduced: all-reduce or reduce-scatter),
+    a plain tensor taken as the same value on every rank (replicated)
+    and then laid out; a plain tensor the names replicate is that
+    already, and comes back unchanged."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    target = _layout(ctx, x.ndim, names)
+    if not isinstance(x, DTensor) and not any(p.is_shard() for p in target):
+        return x
+    return lay_out(x, ctx.mesh, target)
+
+
+def split_last(x, n: int, *names: Optional[str]):
+    """``x`` [..., n * m] viewed as [..., n, m]; under a context laid out
+    as ``names`` (the view's logical names) after the view. DTensor
+    views a sharded last dim only where its mesh dims divide ``n``; where
+    one does not (12 heads over 16 ranks, 8 kv heads over 16), ``x`` is
+    first laid out as the view's target with that mesh dim replicated,
+    then sliced after the view (XLA's partitioner does the same). A dim
+    the target shards elsewhere (``qseq``) is resharded before the view,
+    so the view itself moves nothing."""
+    shape = (*x.shape[:-1], n, x.shape[-1] // n)
+    ctx = current_ctx()
+    if ctx is None:
+        return x.view(shape)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ctx.mesh
+    target = _layout(ctx, len(shape), names)
+    d = x.ndim - 1
+    pre = [(p if not p.is_shard() or p.dim < d
+            else Shard(d) if p.dim == d and n % mesh.size(i) == 0
+            else Replicate()) for i, p in enumerate(target)]
+    return reshard(reshard(x, mesh, pre).view(shape), mesh, target)
+
+
+def merge_last(x, *names: Optional[str]):
+    """``x`` [..., n, m] viewed as [..., n * m] (``reshape``); under a
+    context laid out as ``names`` after it: where a mesh dim shards the
+    n axis unevenly it is gathered before the merge and sliced after."""
+    shape = (*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    ctx = current_ctx()
+    if ctx is None:
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ctx.mesh
+    target = _layout(ctx, len(shape), names)
+    d, n = x.ndim - 2, x.shape[-2]
+    pre = [(Shard(d) if p.is_shard() and p.dim == d
+            and n % mesh.size(i) == 0
+            else Replicate() if p.is_shard() and p.dim >= d else p)
+           for i, p in enumerate(target)]
+    return reshard(reshard(x, mesh, pre).reshape(shape), mesh, target)
 
 
 # ---------------------------------------------------------------------------

@@ -99,17 +99,30 @@ def _unflatten_like(tree, flat: List):
     return tree_map(lambda _: next(it), tree)
 
 
+def _as_param(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A gradient laid out as its parameter: over a mesh the reduction
+    over the data axes (a partial sum reduce-scattered to an FSDP shard,
+    all-reduced to a replica), as the reference's out shardings give it;
+    a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if (isinstance(p, DTensor) and isinstance(g, DTensor)
+            and tuple(g.placements) != tuple(p.placements)):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def value_and_grad(loss_fn: Callable, model, *args):
     """``loss_fn(model, *args) -> (loss, metrics)`` and the gradient of
     the loss in ``model``'s groups (a parameter the loss does not reach
     gets zeros, as the reference's ``jax.grad`` gives) -> (loss, metrics,
-    grads), loss and metrics detached."""
+    grads), loss and metrics detached; a parameter laid out over a mesh
+    gets its gradient in its own layout (``_as_param``)."""
     groups = param_groups(model)
     params = leaves(groups)
     with torch.enable_grad():
         loss, metrics = loss_fn(model, *args)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_param(p, g)
              for p, g in zip(params, grads)]
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}

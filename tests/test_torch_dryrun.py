@@ -18,7 +18,11 @@ repairs it needs, held to the JAX package.
   honours ``maxsim_impl`` there and is unchanged on the CPU.
 * An uneven split (a (3, 5) mesh) keeps rank 0's padding and lists it.
 * ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --cell
-  decode_32k`` in a subprocess: ``1 ok, 0 failed``.
+  decode_32k`` in a subprocess: ``1 ok, 0 failed``, its stage 3 run to
+  its end with the collectives counted.
+* A stage 3 that stops (the head views without their layout, put back:
+  a plain ``view`` of 8 kv heads over 16 ranks) fails the cell and
+  keeps the op, file and line.
 """
 import os
 import subprocess
@@ -55,8 +59,10 @@ def test_dryrun_subprocess_one_cell():
          "qwen3-0.6b", "--cell", "decode_32k"], env=env,
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
-    assert "=== dry-run: 1 ok, 0 failed" in out.stdout
-    assert "stage 3 stopped: qwen3-0.6b decode_32k at " in out.stdout
+    assert ("=== dry-run: 1 ok, 0 failed, collectives counted for 1 ==="
+            in out.stdout)
+    assert "collective_bytes=" in out.stdout
+    assert "stage 3 stopped" not in out.stdout
 
 
 def test_uneven_split_keeps_its_padding():
@@ -72,9 +78,16 @@ def test_uneven_split_keeps_its_padding():
     assert r["global"] is None and r["flops"] is None
 
 
-def test_stage3_stop_is_reported_with_op_and_line():
+def test_stage3_stop_is_reported_with_op_and_line(monkeypatch):
+    from repro_torch.models import attention
+
+    def plain_view(x, n, *names):         # a head view with no layout
+        return x.view(*x.shape[:-1], n, x.shape[-1] // n)
+
+    monkeypatch.setattr(attention, "split_last", plain_view)
     r = dryrun.run_cell("qwen3-0.6b", "decode_32k", layers_override=1,
                         verbose=False)
+    assert r["ok"] is False
     assert r["collectives"] is None and r["collective_bytes"] is None
     stop = r["stage3_stopped"]
     assert stop["op"].startswith("aten.")
