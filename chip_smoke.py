@@ -144,13 +144,22 @@
      search on the same index), and, as readings, at the step-0 weights
      and after the same run at lr 3e-4; the median step ms, pairs/s,
      peak memory and one profiled step printed;
-   * lm_train: Qwen3-0.6B at full width (remat, AdamW):
-     ``launch.train.main`` for 4 steps of 8 x 2,048 tokens in 2
-     microbatches, checkpointed, then to 6 steps, which must resume at
-     4; ``make_lm_train_step`` 4 times on one batch (the loss falls);
-     every gradient finite; remat on against off at 2 x 2,048; 2
-     microbatches of 4 against one batch of 8; ``use_flash_kernel``
-     refused; no kernel launches on either train path.
+   * lm_train: Qwen3-0.6B at full width (remat, AdamW): the driver
+     (``launch.train.run``, what ``main`` runs without ``WORLD_SIZE``)
+     for 4 steps of 8 x 2,048 tokens in 2 microbatches, checkpointed,
+     then to 6 steps, which must resume at 4; ``make_lm_train_step`` 4
+     times on one batch (the loss falls); every gradient finite; remat
+     on against off at 2 x 2,048; 2 microbatches of 4 against one batch
+     of 8; ``use_flash_kernel`` refused; no kernel launches on either
+     train path.
+   * train_mesh: the same driver runs over the host mesh of one rank
+     (NCCL from an in-process store; the parameters, AdamW's moments
+     and each microbatch laid out as DTensors by the reference's
+     rules): 4 steps and a checkpoint, then resumed to 6; every loss
+     and the final parameters equal lm_train's (bit for bit, else
+     within 1e-6 relative); the mesh's step-4 checkpoint restored by
+     the driver without a mesh trains the same 2 steps as lm_train's
+     resume; step seconds, tokens/s and peak memory beside lm_train's.
    * moe: Moonshot (moonshot-v1-16b-a3b) at full width (d_model 2,048,
      16 heads of 128, 64 experts top 6, moe_d_ff 1,408, vocab 163,840;
      random weights, f32 parameters, bf16 compute), its depth cut to 8
@@ -430,6 +439,7 @@ LMT_REMAT_REL = 0.0
 # relative at worst)
 LMT_MICRO_LOSS = 1e-3              # loss, max abs
 LMT_MICRO_REL = 1e-2               # gradients, relative Frobenius
+TMESH_REL = 1e-6                   # train_mesh vs lm_train, if not bitwise
 # moe: Moonshot at full width, depth cut to 8 of 48 layers (28.06B
 # parameters at 48, 112 GB in its f32 param dtype; 5.24B, 21 GB at 8);
 # training at 2 layers (1.81B, ~29 GB with f32 AdamW); one Kimi K2 MoE
@@ -501,6 +511,7 @@ PARITY_DIR = os.path.join(ROOT, "build", "chip_smoke_parity")
 SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serve")
 CT_DIR = os.path.join(ROOT, "build", "chip_smoke_colbert_train")
 LMT_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+TMESH_DIR = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -533,9 +544,11 @@ PATH_KERNELS = {
     "recsys": (),                      # none in either package
     "roofline": (),                    # dlrm-rm2 again; the traces on meta
     "sharded": (),                     # the plain paths under a mesh
+    "train_mesh": (),                  # lm_train's driver over the mesh
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
+LMT_RUNS = {}                      # lm_train's driver runs: losses, params
 FLASH_ERRS = []                    # flash_attention vs plain, every check
 NO_LIBRARY = ("null: no single PyTorch call does the masked max over doc "
               "tokens and the masked sum over query tokens")
@@ -3434,15 +3447,19 @@ def _mean_token_cos(torch, model, ds):
     return float(torch.cat(cos).mean())
 
 
-def _profile_step(torch, what, step):
+def _profile_step(torch, what, step, host_ops=True):
     """One ``step()`` under ``torch.profiler``: wall ms, device busy ms
     (the device activities' time, as ``search_split`` sums it; one
-    stream), the idle share and the kernels with the most device time."""
+    stream), the idle share and the kernels with the most device time.
+    ``host_ops=False``: the device's activities alone (the host ops of
+    DTensor's dispatch in a step over a mesh take the profiler tens of
+    seconds to gather)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    host_ops = host_ops or not torch.cuda.is_available()  # a CPU rehearsal
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -3626,24 +3643,19 @@ def _rel_errors(torch, got, want):
 
 def lm_train_path(rt, torch, dev, card):
     """Qwen3-0.6B training at full width (random weights from seed 0,
-    bf16 compute, f32 AdamW, remat): ``launch.train.main`` for 4 steps
-    of 8 x 2,048 tokens in 2 microbatches, checkpointed, then again to 6
-    steps, which must resume at 4; ``make_lm_train_step`` 4 times on one
+    bf16 compute, f32 AdamW, remat): the driver (``_driver_run``) for 4
+    steps of 8 x 2,048 tokens in 2 microbatches, checkpointed, then
+    again to 6 steps, which must resume at 4 (both runs kept in
+    ``LMT_RUNS`` for train_mesh); ``make_lm_train_step`` 4 times on one
     fixed batch (the loss must fall); every parameter's gradient finite;
     remat on against off at 2 x 2,048; 2 microbatches of 4 against one
     batch of 8; ``use_flash_kernel`` refused."""
-    import contextlib
-    import io
-    from repro_torch.launch import train as launch_train
     from repro_torch.launch.steps import lm_grads
     from repro_torch.train.params import leaves
     cfg = rt.get_config(LM_ARCH)
     if not cfg.remat or cfg.use_flash_kernel or cfg.optimizer != "adamw":
         raise AssertionError(f"{LM_ARCH}: expected remat, adamw, no flash")
     shutil.rmtree(LMT_DIR, ignore_errors=True)
-    args = ["--arch", LM_ARCH, "--batch", str(LMT_BATCH), "--seq",
-            str(LMT_SEQ), "--microbatches", str(LMT_MICRO),
-            "--checkpoint-dir", LMT_DIR, "--max-retries", "0"]
     rng = np.random.default_rng(SEED + 2)
     toks = rng.integers(0, cfg.vocab_size, (LMT_BATCH, LMT_SEQ + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32,
@@ -3651,28 +3663,18 @@ def lm_train_path(rt, torch, dev, card):
              "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
                                        device=dev)}
 
-    def run_main(steps):
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            code = launch_train.main(args + ["--steps", str(steps)])
-        torch.cuda.synchronize()
-        s = time.perf_counter() - t0
-        text = out.getvalue()
-        print("\n".join(f"lm_train main: {line}"
-                        for line in text.strip().splitlines()))
-        gc.collect()
-        torch.cuda.empty_cache()
-        return code, text, s
-
     def drive():
-        code, text, a_s = run_main(LMT_STEPS)
-        if code or f"finished at step {LMT_STEPS}" not in text:
+        run_a = _driver_run(torch, LMT_DIR, LMT_STEPS, None, "lm_train",
+                            profile=True)
+        if f"finished at step {LMT_STEPS}" not in run_a["text"]:
             raise AssertionError("lm_train: run A did not finish")
-        code, text, r_s = run_main(LMT_RESUME)
-        if (code or f"resumed from step {LMT_STEPS}" not in text
-                or f"finished at step {LMT_RESUME}" not in text):
+        resume = _driver_run(torch, LMT_DIR, LMT_RESUME, None, "lm_train",
+                             final=True)
+        if (f"resumed from step {LMT_STEPS}" not in resume["text"]
+                or f"finished at step {LMT_RESUME}" not in resume["text"]):
             raise AssertionError("lm_train: run A did not resume")
+        LMT_RUNS.update(a=run_a, resume=resume)
+        a_s, r_s = run_a["seconds"], resume["seconds"]
         model = rt.init_transformer(cfg, seed=SEED, device=dev)
         step, opt = rt.make_lm_train_step(cfg, device=dev)
         state = opt.init(model)
@@ -3761,7 +3763,221 @@ def lm_train_path(rt, torch, dev, card):
     torch.cuda.empty_cache()
     return dict(step_s=step_s, tokens_s=n_tok / step_s, peak_bytes=peak,
                 losses=losses, run_a_s=a_s, resume_s=r_s,
+                driver_step_s=LMT_RUNS["a"]["step_s"],
+                driver_peak_bytes=LMT_RUNS["a"]["peak"],
                 remat_max_abs=diff, micro_rel=rel, profile=prof)
+
+
+def _driver_run(torch, ckpt_dir, steps, mesh, what, final=False,
+                profile=False):
+    """``launch.train.run`` of Qwen3-0.6B (``LMT_*``; every step's loss
+    and end time recorded from the trainer's ``_train_step``) to
+    ``steps``, over ``mesh`` or on one device, its output
+    printed under ``what`` -> its text, seconds, losses, step seconds
+    (the median after the first), peak device memory and, with
+    ``final``, the final parameters on the host (path -> array); with
+    ``profile``, then one more step of its trainer on a random batch
+    under ``torch.profiler`` (``_profile_step``, device activities
+    only). The seconds of the
+    checkpoint's phases print beside: the trainer's ``save`` (every
+    leaf gathered and copied to the host), the writer's files (on its
+    thread) and ``restore`` (the files read back)."""
+    import io
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.params import to_tree, tree_paths
+    from repro_torch.train.trainer import Trainer
+    spent, stepped = {}, []
+
+    def each_step(orig):
+        def wrapper(*a, **k):
+            loss, metrics = orig(*a, **k)
+            stepped.append((float(loss), time.perf_counter()))
+            return loss, metrics
+        return orig, wrapper
+
+    def timed(cls, name):
+        orig = getattr(cls, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+        return orig, wrapper
+
+    patched = [(cls, name) + timed(cls, name) for cls, name in (
+        (Trainer, "save"), (CheckpointManager, "_write"),
+        (CheckpointManager, "restore"))]
+    patched.append((Trainer, "_train_step") + each_step(Trainer._train_step))
+    args = launch_train.parse_args([
+        "--arch", LM_ARCH, "--batch", str(LMT_BATCH), "--seq",
+        str(LMT_SEQ), "--microbatches", str(LMT_MICRO), "--checkpoint-dir",
+        ckpt_dir, "--max-retries", "0", "--steps", str(steps)])
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for cls, name, _, wrapper in patched:
+        setattr(cls, name, wrapper)
+    try:
+        with contextlib.redirect_stdout(out):
+            trainer, res = launch_train.run(args, mesh)
+    finally:
+        for cls, name, orig, _ in patched:
+            setattr(cls, name, orig)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    text = out.getvalue()
+    print("\n".join(f"{what} driver: {line}"
+                    for line in text.strip().splitlines()))
+    print(f"{what} driver: {seconds:.3f} s; checkpoint gather and host "
+          f"copies {spent.get('save', 0.0):.3f} s, files written "
+          f"{spent.get('_write', 0.0):.3f} s, read "
+          f"{spent.get('restore', 0.0):.3f} s")
+    ends = [t for _, t in stepped]
+    steps_s = [b - a for a, b in zip(ends[:-1], ends[1:])]
+    run = dict(text=text, seconds=seconds, peak=peak, checkpoint_s=spent,
+               losses=[x for x, _ in stepped],
+               step_s=float(np.median(steps_s or [ends[0] - t0])))
+    if final:
+        run["final"] = dict(tree_paths(to_tree(trainer.params)))
+    if profile:
+        toks = np.random.default_rng(SEED + 3).integers(
+            0, trainer.model.cfg.vocab_size, (LMT_BATCH, LMT_SEQ + 1))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+        if mesh is None:
+            batch = {k: v.to(trainer.device) for k, v in batch.items()}
+        run["profile"] = _profile_step(
+            torch, what, lambda: trainer._train_step(batch), host_ops=False)
+    del trainer, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _tree_agree(torch, got, want):
+    """(bit for bit equal, the largest relative (Frobenius) difference
+    and its path) of two host trees (path -> array)."""
+    worst, at, equal = 0.0, None, sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got.get(path)
+        if g is None or g.shape != w.shape:
+            return False, float("inf"), path
+        if not np.array_equal(g, w):
+            equal = False
+            rel, _ = _rel_errors(torch, [torch.from_numpy(g)],
+                                 [torch.from_numpy(w)])
+            if rel >= worst:
+                worst, at = rel, path
+    return equal, worst, at
+
+
+def train_mesh_path(rt, torch, dev, card):
+    """lm_train's driver (``launch.train.run``) over the host mesh of one
+    rank: the default group from an in-process store (NCCL on the card),
+    the reference's rules, the parameters and AdamW's moments laid out
+    as DTensors and each microbatch laid out over ``data``. 4 steps and
+    a checkpoint, then resumed to 6: the losses and final parameters
+    against lm_train's (``LMT_RUNS``), bit for bit, else within
+    ``TMESH_REL`` relative with the largest difference printed. Then the
+    mesh's step-4 checkpoint (hard links into another directory) is
+    restored by the driver without a mesh: its 2 steps and final
+    parameters against lm_train's resume the same way."""
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    t_path = time.perf_counter()
+    fails = _checks()
+    want_a, want_r = LMT_RUNS["a"], LMT_RUNS["resume"]
+    cross_dir = TMESH_DIR + "_cross"
+    for d in (TMESH_DIR, cross_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    phases = {}
+
+    def lap(name, t):
+        phases[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    def drive():
+        t = time.perf_counter()
+        with process_group(dev):
+            mesh = make_host_mesh(dev)
+            t = lap("group", t)
+            run_a = _driver_run(torch, TMESH_DIR, LMT_STEPS, mesh,
+                                "train_mesh", profile=True)
+            t = lap("run A and its profiled step", t)
+            resume = _driver_run(torch, TMESH_DIR, LMT_RESUME, mesh,
+                                 "train_mesh", final=True)
+            t = lap("resume", t)
+        step = f"step_{LMT_STEPS}"
+        files = [os.path.join(TMESH_DIR, step, f)
+                 for f in os.listdir(os.path.join(TMESH_DIR, step))]
+        print(f"train_mesh: the step-{LMT_STEPS} checkpoint holds "
+              f"{sum(map(os.path.getsize, files))} bytes in {len(files)} "
+              f"files")
+        os.makedirs(cross_dir)
+        shutil.copytree(os.path.join(TMESH_DIR, step),
+                        os.path.join(cross_dir, step), copy_function=os.link)
+        with open(os.path.join(cross_dir, "latest"), "w") as f:
+            f.write(str(LMT_STEPS))
+        cross = _driver_run(torch, cross_dir, LMT_RESUME, None,
+                            "train_mesh no mesh", final=True)
+        lap("cross", t)
+        return run_a, resume, cross
+
+    run_a, resume, cross = run_path("train_mesh", torch, drive)
+    t_checks = time.perf_counter()
+    _check(fails, f"mesh {{'data': 1}} over 1 ranks ({dev.type})"
+           in run_a["text"],
+           "train_mesh: the host mesh of one rank")
+    _check(fails, f"resumed from step {LMT_STEPS}" in resume["text"]
+           and f"resumed from step {LMT_STEPS}" in cross["text"],
+           "train_mesh: both resumes start at step 4")
+    for what, got, want in (("run A", run_a, want_a),
+                            ("resumed", resume, want_r),
+                            ("no mesh from the mesh's checkpoint", cross,
+                             want_r)):
+        g, w = np.array(got["losses"]), np.array(want["losses"])
+        rel = float(np.max(np.abs(g - w) / np.abs(w))) if len(g) == len(
+            w) else float("inf")
+        print(f"train_mesh {what}: losses {got['losses']} against "
+              f"lm_train's {want['losses']}: bit for bit "
+              f"{got['losses'] == want['losses']}, largest relative {rel:.3g}")
+        _check(fails, len(g) == len(w) and rel <= TMESH_REL,
+               f"train_mesh {what}: losses within {TMESH_REL}")
+        if "final" in got:
+            equal, worst, at = _tree_agree(torch, got["final"],
+                                           want["final"])
+            print(f"train_mesh {what}: final parameters bit for bit "
+                  f"{equal}; largest relative (Frobenius) {worst:.3g} at "
+                  f"{at}")
+            _check(fails, worst <= TMESH_REL,
+                   f"train_mesh {what}: final parameters within {TMESH_REL}")
+    n_tok = LMT_BATCH * LMT_SEQ
+    print(f"train_mesh: driver step (median after the first) on the mesh "
+          f"{run_a['step_s']:.4f} s ({n_tok / run_a['step_s']:.1f} tokens/s),"
+          f" peak {run_a['peak']} bytes; without a mesh (lm_train's run A) "
+          f"{want_a['step_s']:.4f} s ({n_tok / want_a['step_s']:.1f} "
+          f"tokens/s), peak {want_a['peak']} bytes; runs "
+          f"{run_a['seconds']:.3f}, {resume['seconds']:.3f}, "
+          f"{cross['seconds']:.3f} s; path "
+          f"{time.perf_counter() - t_path:.3f} s [{card}]")
+    t = lap("checks", t_checks)
+    for d in (TMESH_DIR, cross_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    lap("files removed", t)
+    print("train_mesh phases (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()))
+    LMT_RUNS.clear()
+    _raise_failed("train_mesh", fails)
+    return dict(step_s=run_a["step_s"], tokens_s=n_tok / run_a["step_s"],
+                peak_bytes=run_a["peak"], plain_step_s=want_a["step_s"],
+                plain_peak_bytes=want_a["peak"], losses=run_a["losses"] +
+                resume["losses"], profile=run_a["profile"],
+                plain_profile=want_a["profile"], phases_s=phases,
+                path_s=time.perf_counter() - t_path)
 
 
 def _cells(rt, name):
@@ -5104,6 +5320,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_train = lm_train_path(rt, torch, dev, card)
+    train_mesh = train_mesh_path(rt, torch, dev, card)
     del index, searcher, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5120,7 +5337,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels, "search_split_ms": split,
                       "recon_split_ms": recon_split, "eval": eval_numbers,
                       "serve": serve_numbers, "colbert_train": colbert_train,
-                      "lm_train": lm_train, "moe": moe_numbers,
+                      "lm_train": lm_train, "train_mesh": train_mesh,
+                      "moe": moe_numbers,
                       "sharding": sharding_numbers,
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
                       "roofline": roofline_numbers,

@@ -3,8 +3,8 @@
 The counterpart of ``src/repro/configs/__init__.py``: the 10 assigned
 architectures (the MoE and dense causal LMs, DimeNet, the four recsys
 models) and ColBERTv2, each ``CONFIG`` and test-size ``SMOKE`` equal to
-the reference's on every field the port has. An unknown name raises
-``KeyError``.
+the reference's on every field the port has, and ``get_ja_config``
+(JaColBERTv2). An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -50,3 +50,9 @@ def get_config(arch: str):
 
 def get_smoke_config(arch: str):
     return _module(arch).SMOKE
+
+
+def get_ja_config():
+    """JaColBERTv2 (the paper's Japanese model): ColBERTv2's head over
+    its own trunk."""
+    return _module("colbertv2").JA_CONFIG

@@ -2,7 +2,8 @@
 
 Counterparts of ``src/repro/core/ivf.py``: ``InvertedLists`` (CSR,
 host numpy), ``DeviceInvertedLists`` and its host-side build (shipped
-to the device once), ``train_centroids`` and ``build_inverted_lists``.
+to the device once), ``train_centroids``, ``assign_vectors`` and
+``build_inverted_lists``.
 """
 from __future__ import annotations
 
@@ -101,6 +102,17 @@ def train_centroids(vectors: torch.Tensor, n_centroids: int,
     """vectors [M, dim] -> unit centroids [K, dim] (cosine k-means)."""
     return kmeans_train(vectors, n_centroids, n_iters, init_idx=init_idx,
                         seed=seed)
+
+
+def assign_vectors(vectors: torch.Tensor,
+                   centroids: torch.Tensor) -> np.ndarray:
+    """Nearest (max cosine) centroid per vector -> host [M] int32 (ties
+    to the lowest centroid id)."""
+    v = torch.as_tensor(vectors).float()
+    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                        min=1e-9)
+    c = torch.as_tensor(centroids, device=v.device).float()
+    return torch.argmax(v @ c.T, dim=-1).to(torch.int32).cpu().numpy()
 
 
 def build_inverted_lists(assign: np.ndarray, n_centroids: int

@@ -2,11 +2,12 @@
 
 Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_scores`` (the
 ColBERT search step's scoring, its queries and docs annotated as the
-reference's), ``maxsim_all_docs`` (flat search and the dense corpus-wide
-fallback) and ``maxsim_rerank_store``
-(candidates read from a ``DocStore``), both through the ``maxsim``
-kernels (``kernels/maxsim``), ``topk_with_pads``, and ``topk_shard``
-(a shard's top-k kept on the device for the sharded merge).
+reference's; ``maxsim_scores_blocked`` the same), ``maxsim_all_docs``
+(flat search and the dense corpus-wide fallback) and
+``maxsim_rerank_store`` (candidates read from a ``DocStore``), both
+through the ``maxsim`` kernels (``kernels/maxsim``), ``topk_docs``,
+``topk_with_pads``, and ``topk_shard`` (a shard's top-k kept on the
+device for the sharded merge).
 
 ``torch.topk`` does not order ties by lowest index; ``jax.lax.top_k``
 does, and the candidate slates depend on it. ``stable_topk`` sorts
@@ -28,6 +29,13 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties broken by lowest index."""
     s, i = torch.sort(x, dim=-1, descending=True, stable=True)
     return s[..., :k], i[..., :k]
+
+
+def topk_docs(scores: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores [Nq, Nd] -> (top scores [Nq, k], doc ids [Nq, k]), ties to
+    the lowest id (``jax.lax.top_k``'s order)."""
+    return stable_topk(scores, k)
 
 
 def topk_with_pads(scores: torch.Tensor, cand: Optional[torch.Tensor],
@@ -102,6 +110,13 @@ def maxsim_scores(q, q_mask, d, d_mask, block: Optional[int] = None):
     if d.device.type == "meta":
         return maxsim_ref(q, q_mask, d, d_mask, block=block)
     return maxsim_all_docs(q, q_mask, d.contiguous(), d_mask.contiguous())
+
+
+def maxsim_scores_blocked(q, q_mask, d, d_mask, block: int = 256):
+    """The reference's memory-bounded variant: ``maxsim_scores`` with
+    ``block`` docs a pass wherever the plain version runs (the kernel
+    bounds its own memory)."""
+    return maxsim_scores(q, q_mask, d, d_mask, block=block)
 
 
 def maxsim_rerank_store(store, q, q_mask, cand, cand_mask, *,

@@ -26,7 +26,8 @@ shift). Both drop the cached device views (the packed view and the
 device IVF), so the next search plans on the new lists. The device
 path's stages run inside ``torch.profiler`` ranges named ``search.*``
 (no cost without a profiler), so a trace splits one batch's time by
-stage.
+stage. ``plaid_search_batch`` and ``plaid_search`` run the four stages
+on a bare ``PLAIDIndex`` (no deletions) and take the top-k.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from repro_torch.core.docstore import (DocStore, pad_candidate_sets,
 from repro_torch.core.ivf import (DeviceInvertedLists, InvertedLists,
                                   build_device_inverted_lists,
                                   build_inverted_lists)
-from repro_torch.core.maxsim import stable_topk
+from repro_torch.core.maxsim import stable_topk, topk_with_pads
 from repro_torch.core.quantization import ResidualCodec, decode, encode
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
@@ -469,3 +470,34 @@ def maxsim_packed_rerank_store(index: PLAIDIndex, q: torch.Tensor,
                                      bits=codec.bits, impl=impl)
             parts.append(s.masked_fill(~cm, float("-inf")))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def plaid_search_batch(index: PLAIDIndex, qs, k: int = 10, nprobe: int = 8,
+                       t_cs: float = 0.3, ndocs: int = 8192,
+                       probe_kernel: str = "auto"
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """The batch API: qs [Nq, Lq, dim] -> host (scores [Nq, k], ids
+    [Nq, k]), padded with -inf / -1: stages 1-3 (``plaid_candidates``),
+    the packed rerank and one top-k."""
+    qs = torch.as_tensor(qs).float().to(index.device)
+    Nq = qs.shape[0]
+    if index.n_vectors == 0:
+        return (np.full((Nq, k), -np.inf, np.float32),
+                np.full((Nq, k), -1, np.int64))
+    cand, cmask = plaid_candidates(index, qs, nprobe=nprobe, t_cs=t_cs,
+                                   ndocs=ndocs, probe_kernel=probe_kernel)
+    qm = torch.ones(qs.shape[:2], dtype=torch.bool, device=index.device)
+    scores = maxsim_packed_rerank_store(index, qs, qm, cand, cmask)
+    return topk_with_pads(scores, cand, k)
+
+
+def plaid_search(index: PLAIDIndex, q, k: int = 10, nprobe: int = 8,
+                 t_cs: float = 0.3, ndocs: int = 8192,
+                 probe_kernel: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+    """One query: q [Lq, dim] -> (scores [<= k], doc ids [<= k]), best
+    first."""
+    S, I = plaid_search_batch(index, torch.as_tensor(q)[None], k=k,
+                              nprobe=nprobe, t_cs=t_cs, ndocs=ndocs,
+                              probe_kernel=probe_kernel)
+    valid = I[0] >= 0
+    return S[0][valid], I[0][valid]

@@ -20,8 +20,10 @@ import torch
 
 from repro_torch.core.kmeans import kmeans_cluster_batch
 from repro_torch.core.segment import batched_segment_sum
-from repro_torch.core.spec import POOL_METHODS
+from repro_torch.core.spec import BUILTIN_POOL_METHODS, POOL_METHODS
 from repro_torch.kernels.ward_pool.ops import ward_assign
+
+METHODS = BUILTIN_POOL_METHODS        # the reference's name
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:

@@ -118,3 +118,20 @@ def decode(codec: ResidualCodec, assign: torch.Tensor,
     """-> reconstructed unit vectors [M, dim]."""
     return decode_rows_ref(words, assign, codec.centroids, codec.values,
                            codec.bits)
+
+
+def reconstruction_error(codec: ResidualCodec,
+                         vectors: torch.Tensor) -> torch.Tensor:
+    """The mean cosine of each vector and its reconstruction (a 0-d
+    tensor; 1.0 is lossless)."""
+    vectors = vectors.float()
+    a, w = encode(codec, vectors)
+    rec = decode(codec, a, w)
+    vn = vectors / torch.clamp(torch.linalg.vector_norm(
+        vectors, dim=-1, keepdim=True), min=1e-9)
+    return torch.mean(torch.sum(vn * rec, dim=-1))
+
+
+def storage_bytes(n_vectors: int, dim: int, bits: int) -> int:
+    """Bytes for the compressed store: ids (4 B) + packed codes."""
+    return n_vectors * (4 + dim * bits // 8)

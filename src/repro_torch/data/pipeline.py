@@ -82,11 +82,14 @@ class DataPipeline:
 
 
 def lm_batches(tokens: np.ndarray, batch_size: int, seq_len: int,
-               seed: int = 0, start_step: int = 0) -> Iterator[Dict]:
+               seed: int = 0, start_step: int = 0,
+               shard_count: Optional[int] = None) -> Iterator[Dict]:
     """Fixed-shape causal-LM batches from a flat token stream.
 
     tokens: [N] int32. Yields {tokens [B, S], labels [B, S]} (labels are
     tokens shifted left; last position predicts the next stream token).
+    ``shard_count=1``: every rank takes the whole stream (the global
+    batch, which a trainer over a mesh lays out itself).
     """
     n_seq = (len(tokens) - 1) // seq_len
 
@@ -98,5 +101,7 @@ def lm_batches(tokens: np.ndarray, batch_size: int, seq_len: int,
         return {"tokens": b_tok.astype(np.int32),
                 "labels": b_lab.astype(np.int32)}
 
-    pipe = DataPipeline(n_seq, batch_size, make, seed=seed)
+    pipe = DataPipeline(n_seq, batch_size, make, seed=seed,
+                        shard_index=0 if shard_count == 1 else None,
+                        shard_count=shard_count)
     return pipe.batches(start_step=start_step)

@@ -46,7 +46,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
@@ -65,7 +64,7 @@ from repro_torch.launch.mesh import (PRODUCTION_SHAPES, fake_process_group,
 from repro_torch.roofline.analysis import (TraceCounter,
                                            collective_bytes_from_trace,
                                            nbytes, tensors)
-from repro_torch.sharding.api import mesh_context
+from repro_torch.sharding.api import rank_context
 from repro_torch.sharding.params import distribute_meta, to_placements
 
 DOC = __doc__
@@ -166,17 +165,6 @@ def _where(exc: BaseException) -> str:
         os.path.join(_SRC, "repro_torch")) and not f.filename.endswith(tools)]
     f = (own or frames)[-1]
     return f"{os.path.relpath(os.path.abspath(f.filename), _SRC)}:{f.lineno}"
-
-
-@contextlib.contextmanager
-def rank_context(mesh, rules):
-    """One rank's program over ``mesh``: the rules' annotations active
-    (``mesh_context``) and a plain tensor a step makes (a mask, an
-    ``arange``) taken as the same value on every rank
-    (``implicit_replication``)."""
-    from torch.distributed.tensor.experimental import implicit_replication
-    with mesh_context(mesh, rules), implicit_replication():
-        yield
 
 
 def stage_rank(build, mesh, dargs) -> dict:

@@ -25,7 +25,8 @@ Two kinds, with the reference's axis names:
 ``serve_device_table`` tiles (replica, shard) cells over the cards
 round-robin when there are fewer cards than cells; ``distinct_row``
 says whether a row reuses none, the precondition of a shard grid over
-it. ``batch_axes`` and ``fsdp_axes`` name a mesh's data-parallel axes.
+it. ``batch_axes`` and ``fsdp_axes`` name a mesh's data-parallel axes,
+``model_axis`` its tensor-parallel one (None on the host mesh).
 
 Importing this module touches no device and opens no group.
 """
@@ -68,24 +69,32 @@ def _backend(dev: torch.device) -> str:
 
 @contextlib.contextmanager
 def process_group(device: DeviceLike = None, *, world_size: int = 1,
-                  rank: int = 0, store=None):
+                  rank: int = 0, store=None, init_method: str = None,
+                  timeout: float = None):
     """The default process group for the block: NCCL on the card, gloo
     on the CPU; one rank from an in-process ``HashStore`` unless a
-    ``store`` (a ``FileStore`` or ``TCPStore`` every rank shares) is
-    given. Destroyed on exit. Raises if a default group is open already
-    (nothing is nested, nothing leaks)."""
+    ``store`` (a ``FileStore`` or ``TCPStore`` every rank shares) or an
+    ``init_method`` (``"env://"`` under ``torchrun``) is given.
+    ``timeout``: seconds a collective waits for a rank that is gone
+    before it raises (torch's default when None). Destroyed on exit.
+    Raises if a default group is open already (nothing is nested,
+    nothing leaks)."""
+    import datetime
     import torch.distributed as dist
     dev = resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("a default process group is open already")
-    if store is None:
+    if store is None and init_method is None:
         if world_size != 1:
             raise ValueError(f"{world_size} ranks need a shared store")
         store = dist.HashStore()
     if dev.type == "cuda":
         torch.cuda.set_device(dev if dev.index is not None else rank)
-    dist.init_process_group(_backend(dev), store=store, rank=rank,
-                            world_size=world_size)
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(_backend(dev), store=store,
+                            init_method=init_method, rank=rank,
+                            world_size=world_size, **kw)
     try:
         yield dev
     finally:
@@ -211,3 +220,9 @@ def batch_axes(mesh):
 def fsdp_axes(mesh):
     """Weight-sharding (ZeRO) axes: the data-parallel axes."""
     return batch_axes(mesh)
+
+
+def model_axis(mesh):
+    """The tensor-parallel axis, ``"model"``, or None on a mesh without
+    one (the 1-D host mesh), where the rules' ``model`` maps to none."""
+    return "model" if "model" in mesh.mesh_dim_names else None

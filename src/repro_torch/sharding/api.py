@@ -19,11 +19,18 @@ transpose of ``with_sharding_constraint``). ``split_last`` and
 ``reshard`` is DTensor's own ``redistribute`` (the gradient back to
 the input's layout) and ``from_local`` a ``DTensor`` from a rank's
 local result, for the models' code that runs on local shards.
+``local_index`` and ``from_host`` lay out a host array that every rank
+holds whole (a batch, a checkpoint's leaf), each rank taking its own
+slice, so nothing moves between ranks. ``rank_context`` is one rank's
+program over a mesh: the rules active and a plain tensor taken as
+replicated.
 
 The rule tables are the reference's: ``lm_rules`` (heads-TP, or
 ``attn_shard="sequence"`` for head counts the TP axis does not divide),
 ``lm_decode_rules``, ``lm_long_decode_rules``, ``gnn_rules``,
-``recsys_rules``, ``serve_rules`` and ``retrieval_rules``.
+``recsys_rules``, ``serve_rules`` and ``retrieval_rules``. A
+``model_axis`` of None (a mesh without one: the 1-D host mesh) maps
+what the tables name on it to no axis.
 """
 from __future__ import annotations
 
@@ -226,6 +233,47 @@ class _FromLocal(torch.autograd.Function):
         return g.to_local(), None, None
 
 
+def local_index(shape, mesh, place) -> Tuple[slice, ...]:
+    """This rank's slice of a tensor of global ``shape`` laid out as
+    ``place`` over ``mesh`` (``Shard`` splits as ``torch.chunk`` does)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, tuple(place))
+    return tuple(slice(o, o + n) for o, n in zip(offset, local))
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards of ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def from_host(array, mesh, place, device=None):
+    """A ``DTensor`` of a host array's global shape laid out as
+    ``place``, every rank holding the whole array and taking its own
+    slice (``local_index``) to ``device`` (default the mesh's): no
+    traffic between ranks."""
+    from torch.distributed.tensor import DTensor
+    t = torch.as_tensor(array)
+    local = t[local_index(t.shape, mesh, place)].to(
+        device or _mesh_device(mesh)).contiguous()
+    return DTensor.from_local(local, mesh, tuple(place), run_check=False,
+                              shape=t.shape, stride=t.contiguous().stride())
+
+
+@contextlib.contextmanager
+def rank_context(mesh, rules):
+    """One rank's program over ``mesh``: the rules' annotations active
+    (``mesh_context``) and a plain tensor a step makes (a mask, an
+    ``arange``) taken as the same value on every rank
+    (``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with mesh_context(mesh, rules), implicit_replication():
+        yield
+
+
 def constrain(x, *names: Optional[str]):
     """``x`` unchanged with no context; under one, a ``DTensor`` of the
     names' placements on the context's ``DeviceMesh``: a ``DTensor``
@@ -288,12 +336,15 @@ def merge_last(x, *names: Optional[str]):
 # ---------------------------------------------------------------------------
 # Standard rule sets
 # ---------------------------------------------------------------------------
-def _with_model(batch_axes: Axis, model_axis: str) -> Tuple[str, ...]:
-    return ((batch_axes,) if isinstance(batch_axes, str)
-            else tuple(batch_axes)) + (model_axis,)
+def _with_model(batch_axes: Axis, model_axis: Optional[str]) -> Axis:
+    axes = ((batch_axes,) if isinstance(batch_axes, str)
+            else tuple(batch_axes or ())) + (
+        (model_axis,) if model_axis else ())
+    return axes if len(axes) > 1 else axes[0] if axes else None
 
 
-def lm_rules(batch_axes: Axis = "data", model_axis: str = "model",
+def lm_rules(batch_axes: Axis = "data",
+             model_axis: Optional[str] = "model",
              attn_shard: str = "heads") -> Dict[str, Axis]:
     """Megatron-style TP + DP rules for LM transformers.
 
@@ -324,7 +375,7 @@ def lm_rules(batch_axes: Axis = "data", model_axis: str = "model",
 
 
 def lm_decode_rules(batch_axes: Axis = "data",
-                    model_axis: str = "model") -> Dict[str, Axis]:
+                    model_axis: Optional[str] = "model") -> Dict[str, Axis]:
     """Decode: flash-decoding style — KV cache sequence-sharded over TP,
     queries (1 token) replicated; exact softmax combine via all-reduce."""
     return {
@@ -343,7 +394,8 @@ def lm_decode_rules(batch_axes: Axis = "data",
 
 
 def lm_long_decode_rules(batch_axes: Axis = "data",
-                         model_axis: str = "model") -> Dict[str, Axis]:
+                         model_axis: Optional[str] = "model"
+                         ) -> Dict[str, Axis]:
     """long_500k (batch=1): the KV cache sequence axis is the ONLY big axis
     — shard it over every mesh axis (data+model combined)."""
     r = lm_decode_rules(batch_axes, model_axis)
@@ -353,7 +405,7 @@ def lm_long_decode_rules(batch_axes: Axis = "data",
 
 
 def gnn_rules(batch_axes: Axis = "data",
-              model_axis: str = "model") -> Dict[str, Axis]:
+              model_axis: Optional[str] = "model") -> Dict[str, Axis]:
     """Node tables shard on data; edge/triplet tables (the big ones) shard
     over data+model combined — DimeNet's triplet tensors dwarf everything."""
     axes = _with_model(batch_axes, model_axis)
@@ -368,7 +420,7 @@ def gnn_rules(batch_axes: Axis = "data",
 
 
 def recsys_rules(batch_axes: Axis = "data",
-                 model_axis: str = "model") -> Dict[str, Axis]:
+                 model_axis: Optional[str] = "model") -> Dict[str, Axis]:
     return {
         "batch": batch_axes,
         "vocab_rows": model_axis,   # embedding tables row-sharded over TP
@@ -397,7 +449,7 @@ def serve_rules(shard_axis: str = "shard",
 
 
 def retrieval_rules(batch_axes: Axis = "data",
-                    model_axis: str = "model") -> Dict[str, Axis]:
+                    model_axis: Optional[str] = "model") -> Dict[str, Axis]:
     return {
         "docs": _with_model(batch_axes, model_axis),  # docs over EVERY axis
         "queries": None,            # queries replicated

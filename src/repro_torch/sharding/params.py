@@ -23,7 +23,10 @@ in the port as in the reference (one factored slot over all layers), so
 their specs are the reference's, the layer axis included.
 
 ``to_placements`` is the reference's ``to_shardings``: a tree of specs
-to the same tree of DTensor placements over a mesh; ``distribute_meta``
+to the same tree of DTensor placements over a mesh;
+``checkpoint_placements`` the flat path -> placements dict a
+checkpoint's restore lays its arrays out by (a stack stacked, as the
+checkpoint holds it); ``distribute_meta``
 lays a tree of ``meta`` tensors out as ``meta`` DTensors by those
 placements, each holding one rank's shard (the dry run's arguments:
 nothing allocates).
@@ -177,6 +180,28 @@ def to_placements(mesh, specs):
     if isinstance(specs, (list, tuple)):
         return type(specs)(to_placements(mesh, v) for v in specs)
     raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def _flat_specs(specs, prefix: str, out: Dict[str, P]) -> None:
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            _flat_specs(v, f"{prefix}{k}/", out)
+    else:
+        out[prefix[:-1]] = _stacked_spec(specs)
+
+
+def checkpoint_placements(mesh, p_specs, o_specs=None) -> Dict[str, tuple]:
+    """The specs of a trainer's parameters (``param_specs``) and of its
+    optimizer state (``opt_state_specs``; its host ``step`` left out) ->
+    {path in the checkpoint's tree: placements over ``mesh``}, a stack's
+    per-layer spec with the layer axis in front, as the checkpoint
+    stacks it: ``CheckpointManager.restore``'s ``placements``."""
+    flat: Dict[str, P] = {}
+    _flat_specs(p_specs, "params/", flat)
+    if o_specs is not None:
+        _flat_specs({k: v for k, v in o_specs.items() if k != "step"},
+                    "opt_state/", flat)
+    return {path: placements(spec, mesh) for path, spec in flat.items()}
 
 
 def distribute_meta(tree, mesh, place):

@@ -16,6 +16,13 @@ inside ``update``; the schedule read at ``step + 1``. Adafactor keeps a
 factored second moment for every leaf of two or more dims, a stack
 counting its layer axis: a stacked norm scale [L, d] is factored, and
 its update clip is taken over all L layers, as the reference's is.
+
+Over a mesh (parameters and gradients ``DTensor``s laid out alike) the
+state is laid out as its parameter: AdamW's moments as the parameter,
+Adafactor's factored rows and columns as its spec with the averaged dim
+dropped (``sharding/params.py`` ``opt_state_specs``). The clip takes
+the norm of the whole arrays; where no mesh dim of more than one rank
+splits a tensor, its norm is the one-device arithmetic.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from repro_torch.train.params import leaves, param_groups, tree_map
+from repro_torch.train.params import (is_dtensor, leaves, param_groups,
+                                      tree_map)
 
 _F = np.float32
 
@@ -59,11 +67,40 @@ class Optimizer:
     update: Callable[..., Dict]    # (params, grads, state) -> state
 
 
+def _split_dims(x) -> tuple:
+    """The mesh dims of more than one rank that split ``x`` (a
+    ``DTensor``; none for a plain tensor)."""
+    if not is_dtensor(x):
+        return ()
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError("a partial sum has no norm of its own: lay it out")
+    mesh = x.device_mesh
+    return tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard() and mesh.size(i) > 1)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (in f32), on the
-    tensors' device."""
-    xs = [x.float() for x in leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(xs)))
+    tensors' device. A ``DTensor`` counts its whole array: each rank
+    takes its shard's norm, and the squares of a split tensor's shard
+    norms are summed over the ranks that split it."""
+    import torch.distributed as dist
+    xs = leaves(tree)
+    norms = list(torch._foreach_norm(
+        [(x.to_local() if is_dtensor(x) else x).float() for x in xs]))
+    split: Dict[tuple, list] = {}
+    for i, x in enumerate(xs):
+        dims = _split_dims(x)
+        if dims:
+            split.setdefault((id(x.device_mesh), dims), []).append(i)
+    for (_, dims), idx in split.items():
+        sq = torch.stack([norms[i] for i in idx]).square()
+        mesh = xs[idx[0]].device_mesh
+        for d in dims:
+            dist.all_reduce(sq, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            norms[i] = sq[j].sqrt()
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -75,6 +112,9 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros of ``p``'s shape; a ``DTensor``'s laid out as it."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
@@ -143,6 +183,35 @@ def _shape(p):
     return tuple(p.shape)
 
 
+def _placements(p):
+    """A group's placements over its mesh, a stack's layer axis first
+    (None for plain tensors)."""
+    from torch.distributed.tensor import Shard
+    t = leaves(p)[0]
+    if not is_dtensor(t):
+        return None
+    off = 1 if isinstance(p, (list, tuple)) else 0
+    return tuple(Shard(q.dim + off) if q.is_shard() else q
+                 for q in t.placements)
+
+
+def _drop(place, dim: int):
+    """Placements once tensor dim ``dim`` is averaged away (its mesh
+    dims replicated, later dims one lower)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Replicate() if q.is_shard() and q.dim == dim
+                 else Shard(q.dim - 1) if q.is_shard() and q.dim > dim
+                 else q for q in place)
+
+
+def _laid_as(x, like):
+    """``x`` laid out as the ``DTensor`` ``like`` (a plain ``x`` as it
+    is)."""
+    if is_dtensor(like) and tuple(x.placements) != tuple(like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
 def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0, weight_decay: float = 0.0,
               min_dim_factored: int = 2) -> Optimizer:
@@ -150,11 +219,22 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
 
     def _slot(p):
         shape = _shape(p)
-        dev = leaves(p)[0].device
-        z = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)
-        if len(shape) >= min_dim_factored:
-            return {"vr": z(shape[:-1]), "vc": z(shape[:-2] + shape[-1:])}
-        return {"v": z(shape)}
+        t = leaves(p)[0]
+        place = _placements(p)
+
+        def z(s, pl=None):
+            if place is None:
+                return torch.zeros(s, dtype=torch.float32, device=t.device)
+            from torch.distributed.tensor import zeros
+            return zeros(s, dtype=torch.float32, device_mesh=t.device_mesh,
+                         placements=pl)
+
+        n = len(shape)
+        if n >= min_dim_factored:
+            return {"vr": z(shape[:-1], place and _drop(place, n - 1)),
+                    "vc": z(shape[:-2] + shape[-1:],
+                            place and _drop(place, n - 2))}
+        return {"v": z(shape, place)}
 
     def init(params):
         groups = param_groups(params)
@@ -171,21 +251,24 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
             g = _stacked(grads[path]).float()
             g2 = g * g + eps
             if "vr" in slot:
-                vr = beta2 * slot["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * slot["vc"] + (1 - beta2) * g2.mean(-2)
+                vr = _laid_as(beta2 * slot["vr"]
+                              + (1 - beta2) * g2.mean(-1), slot["vr"])
+                vc = _laid_as(beta2 * slot["vc"]
+                              + (1 - beta2) * g2.mean(-2), slot["vc"])
                 denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
                 u = (g * torch.rsqrt(vr / denom)[..., None]
                      * torch.rsqrt(vc)[..., None, :])
                 slot["vr"], slot["vc"] = vr, vc
             else:
-                v = beta2 * slot["v"] + (1 - beta2) * g2
+                v = _laid_as(beta2 * slot["v"] + (1 - beta2) * g2,
+                             slot["v"])
                 u = g * torch.rsqrt(v)
                 slot["v"] = v
             # update clipping (RMS(u) <= clip_threshold)
             rms_u = torch.sqrt(torch.mean(u * u) + 1e-12)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             pf = _stacked(p).float()
-            new = pf - (lr_t * u + weight_decay * lr_t * pf)
+            new = _laid_as(pf - (lr_t * u + weight_decay * lr_t * pf), pf)
             if isinstance(p, (list, tuple)):
                 for i, t in enumerate(p):
                     t.copy_(new[i])

@@ -16,7 +16,12 @@ slot over all L layers) and a checkpoint holds the reference's tree.
   * ``value_and_grad``: a loss and its gradient per group, through
     autograd; ``microbatch_value_and_grad`` over slices of a batch;
   * ``to_tree`` / ``load_tree``: groups to the reference's nested tree
-    of host arrays (stacks stacked) and back, in place;
+    of host arrays (stacks stacked) and back, in place; a tensor laid
+    out over a mesh (a ``DTensor``) is gathered one leaf at a time on
+    the way out (kept by the rank that writes it, dropped at once by
+    the others), and comes back from a tree laid out as it is
+    (``CheckpointManager.restore(placements=...)``), each rank copying
+    its own shard;
   * ``from_tree``: the reference's tree to a module's state dict
     (``params_from_jax`` of every model);
   * ``tree_paths``: the reference's ``a/b/0/c`` flattening.
@@ -131,18 +136,21 @@ def value_and_grad(loss_fn: Callable, model, *args):
 
 def microbatch_value_and_grad(loss_fn: Callable, model, batch: Dict,
                               n_micro: int = 1,
-                              acc_dtype: torch.dtype = torch.float32):
+                              acc_dtype: torch.dtype = torch.float32,
+                              place: Optional[Callable] = None):
     """``value_and_grad`` over ``n_micro`` consecutive slices of the
     batch's leading axis (the reference's reshape to [n, B / n, ...]):
     the mean loss, the last slice's metrics, and the gradients summed in
     ``acc_dtype`` and divided by ``n_micro``. At 1, one call, its
-    gradients as autograd gives them."""
+    gradients as autograd gives them. ``place``: a slice of the batch
+    (as sliced here, on the host under a mesh) -> the model's input."""
+    place = place or (lambda part: part)
     if n_micro == 1:
-        return value_and_grad(loss_fn, model, batch)
+        return value_and_grad(loss_fn, model, place(batch))
     mb = next(iter(batch.values())).shape[0] // n_micro
     loss, grads = 0.0, None
     for i in range(n_micro):
-        part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        part = place({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
         li, metrics, g = value_and_grad(loss_fn, model, part)
         g = tree_map(lambda x: x.to(acc_dtype), g)
         grads = g if grads is None else tree_map(torch.Tensor.add_, grads, g)
@@ -151,20 +159,45 @@ def microbatch_value_and_grad(loss_fn: Callable, model, batch: Dict,
             tree_map(lambda g: g.div_(n_micro), grads))
 
 
-def host(t) -> np.ndarray:
-    """A host numpy copy (never a view of a tensor updated in place)."""
+def is_dtensor(t) -> bool:
+    """True for a tensor laid out over a mesh."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def full_value(t):
+    """A ``DTensor``'s full value, gathered on every rank of its mesh (a
+    plain tensor as it is)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def host(t, keep: bool = True) -> Optional[np.ndarray]:
+    """A host numpy copy (never a view of a tensor updated in place); a
+    ``DTensor``'s full array, gathered on every rank of its mesh.
+    ``keep=False``: the gather alone (a rank that writes nothing takes
+    part in it), its result dropped at once -> None."""
     if torch.is_tensor(t):
-        t = t.detach()
+        t = full_value(t.detach())
+        if not keep:
+            return None
         return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
-    return np.array(t)
+    return np.array(t) if keep else None
 
 
-def _host_leaf(v):
+def _host_leaf(v, keep: bool):
     if isinstance(v, dict):
-        return {k: _host_leaf(x) for k, x in v.items()}
+        return {k: _host_leaf(x, keep) for k, x in v.items()}
     if isinstance(v, (list, tuple)):
-        return np.stack([host(x) for x in v])
-    return host(v)
+        if not keep:
+            for x in v:
+                host(x, keep=False)
+            return None
+        # one host copy: each layer straight into its row of the stack
+        out = torch.empty((len(v),) + tuple(v[0].shape), dtype=v[0].dtype)
+        for i, x in enumerate(v):
+            out[i].copy_(full_value(x.detach()))
+        return out.numpy()
+    return host(v, keep)
 
 
 def listify(node):
@@ -178,17 +211,19 @@ def listify(node):
     return out
 
 
-def to_tree(groups: Dict[str, Any]) -> Dict[str, Any]:
+def to_tree(groups: Dict[str, Any], keep: bool = True) -> Dict[str, Any]:
     """Groups -> the reference's nested tree of host arrays: each path
     split on ``/``, a stack stacked on axis 0, a slot dict kept under its
-    path, a node keyed 0..n-1 a list."""
+    path, a node keyed 0..n-1 a list. ``keep=False`` (a rank of a mesh
+    that writes nothing): every ``DTensor`` leaf still gathered, one at
+    a time, and dropped; the tree's leaves None."""
     tree: Dict[str, Any] = {}
     for path, v in groups.items():
         parts = path.split("/")
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _host_leaf(v)
+        node[parts[-1]] = _host_leaf(v, keep)
     return listify(tree)
 
 
@@ -226,19 +261,30 @@ def _copy_into(leaf, node, path: str) -> None:
             _copy_into(x, node[k], f"{path}/{k}")
         return
     if isinstance(leaf, (list, tuple)):
-        node = np.asarray(node)
+        # a laid-out stack's local rows are its layers' local shards
+        rows = node.to_local() if is_dtensor(node) else np.asarray(node)
         if node.shape[0] != len(leaf):
             raise ValueError(f"{path}: {node.shape[0]} layers in the tree, "
                              f"{len(leaf)} in the module")
         for i, t in enumerate(leaf):
-            _copy_into(t, node[i], f"{path}/{i}")
+            _copy_into(t, rows[i], f"{path}/{i}")
         return
-    src = torch.as_tensor(np.asarray(node))
-    if tuple(src.shape) != tuple(leaf.shape):
+    if is_dtensor(node):
+        if (tuple(node.shape) != tuple(leaf.shape) or not is_dtensor(leaf)
+                or tuple(node.placements) != tuple(leaf.placements)):
+            raise ValueError(f"{path}: {tuple(node.shape)} laid out as "
+                             f"{tuple(node.placements)} in the tree, "
+                             f"{tuple(leaf.shape)} as "
+                             f"{getattr(leaf, 'placements', None)} here")
+        node = node.to_local()
+    # into a DTensor: this rank's shard (a laid-out tree's local values)
+    dst = leaf.to_local() if is_dtensor(leaf) else leaf
+    src = node if torch.is_tensor(node) else torch.as_tensor(np.asarray(node))
+    if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{path}: shape {tuple(src.shape)} in the tree, "
-                         f"{tuple(leaf.shape)} here")
+                         f"{tuple(dst.shape)} here")
     with torch.no_grad():
-        leaf.copy_(src)
+        dst.copy_(src)
 
 
 def load_tree(groups: Dict[str, Any], tree) -> None:
