@@ -23,7 +23,16 @@
      batches of 32 (k = 10). With random weights each document's vectors
      crowd into one or two centroids, so a query's candidate set is ~6-9%
      of the corpus: under the default ndocs = 8192 the approximate-score
-     prune — the ``plaid_probe`` kernel — would never run;
+     prune — the ``plaid_probe`` kernel — would never run. The build's
+     artifact payloads' sha256 and its device-to-host compaction bytes
+     (the per-doc counts alone) are printed; on its first 4 encode
+     batches the one-batch-behind loop (``encode_and_pool_counted``)
+     must give a serial ``compact_pooled`` loop's rows, counts and raw
+     count bit for bit, and ``compact_pooled_finish(
+     compact_pooled_begin(...))`` of batch 0 ``compact_pooled``'s rows on
+     the host, moving at most 1/2 + 1/64 of the padded bytes; after the
+     train paths the loop's device idle share over 4,096 docs is
+     printed beside docs/s;
    * from_dir: ``Searcher.from_dir`` serves the written artifact; its
      results must equal the in-memory index's exactly;
    * host_probe: the same index with ``probe_kernel="host"``; ids equal
@@ -111,6 +120,15 @@
      fallback through ``maxsim``) the sharded search equals a monolithic
      ``Indexer.build`` with the first shard's codec, ids tie-aware
      within 1e-5, the largest score difference printed;
+   * examples: the four ``repro_torch.examples`` on the card at their
+     own sizes (the SMOKE encoder): quickstart (Ward f=2 against f=1 on
+     plaid, nDCG@10), build_and_search on plaid, flat and hnsw (build,
+     search, save, load, add, delete), train_colbert (80 ``Trainer``
+     steps of 16 pairs, checkpoints, its ``QualitySweep``) and
+     multi_arch_smoke (one loss and gradient per assigned
+     architecture), each timed; then ``core.maxsim.maxsim_rerank``
+     (the gathered route, ``maxsim_rerank_launch``) held against its
+     plain version on build_and_search's docs and queries;
    * lm: causal-LM serving of Qwen3-0.6B at full width (28 layers,
      d_model 1024, 16 heads over 8 kv heads, d_head 64, vocab 151,936;
      random weights from a seed; bf16 compute; ``use_flash_kernel``)
@@ -342,6 +360,9 @@ KMEANS_NDOCS = 256                 # PLAID's k=10 setting (see the docstring)
 SEQUENTIAL_DOCS = 1024
 CASCADE_DOCS = 4096
 ENCODE_BATCH = 128
+COMPACT_BATCHES = 4                # main-build batches held to a serial loop
+PROFILE_DOCS = 4096                # the build loop's profiled docs
+EXAMPLE_BACKENDS = ("plaid", "flat", "hnsw")
 MUTATE_DELETE = 512                # main-index docs deleted on the mutate path
 MUTATE_ADD = 1024                  # new docs added there (another corpus seed)
 MUTATE_SELF = 16                   # added docs queried by their own vectors
@@ -512,6 +533,7 @@ SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serve")
 CT_DIR = os.path.join(ROOT, "build", "chip_smoke_colbert_train")
 LMT_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 TMESH_DIR = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
+EXAMPLES_DIR = os.path.join(ROOT, "build", "chip_smoke_examples")
 # kernels each path must launch
 PATH_KERNELS = {
     "main": ("ward_pool", "plaid_probe", "maxsim_packed"),
@@ -545,6 +567,10 @@ PATH_KERNELS = {
     "roofline": (),                    # dlrm-rm2 again; the traces on meta
     "sharded": (),                     # the plain paths under a mesh
     "train_mesh": (),                  # lm_train's driver over the mesh
+    # the four examples: Ward pooling, plaid's packed rerank, the dense
+    # scans of flat, of hnsw's whole-corpus slate and of the sweeps
+    # (multi_arch_smoke: autograd, no kernel)
+    "examples": ("ward_pool", "maxsim_packed", "maxsim"),
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
@@ -621,6 +647,7 @@ def run_path(name, torch, fn):
         return gather(self, cand)
 
     DocStore.gather = counted
+    t0 = time.perf_counter()
     try:
         reset_launch_counts()
         out = fn()
@@ -629,7 +656,8 @@ def run_path(name, torch, fn):
         DocStore.gather = gather
     launches = launch_counts()
     PATH_LAUNCHES[name] = launches
-    print(f"{name} path launches: {launches}")
+    print(f"{name} path launches: {launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
     missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {name} path: "
@@ -681,6 +709,7 @@ def _steady_search_s(torch, searcher, qv):
 def main_path(rt, torch, dev):
     """Build (writing the artifact) and search through the entry points;
     returns what the other paths and the checks need."""
+    from repro_torch.core.pooling import compaction_transfer_stats
     from repro_torch.data.corpus import DatasetSpec, SyntheticRetrievalCorpus
 
     cfg = rt.CONFIG
@@ -700,10 +729,11 @@ def main_path(rt, torch, dev):
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
 
     def drive():
+        compaction_transfer_stats(reset=True)
         t0 = time.perf_counter()
         indexer = rt.Indexer(model, index_spec=rt.IndexSpec(ndocs=NDOCS),
                              pooling_spec=rt.PoolingSpec("ward", 2),
-                             encode_batch=128, device=dev)
+                             encode_batch=ENCODE_BATCH, device=dev)
         index, stats = indexer.build(docs, out_dir=ARTIFACT_DIR)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
@@ -715,10 +745,19 @@ def main_path(rt, torch, dev):
 
     index, stats, build_s, searcher, S, I, search_s = run_path(
         "main", torch, drive)
+    moved = compaction_transfer_stats(reset=True)
     _candidate_report(torch, index, searcher.encode_queries(queries))
+    build_ratio = moved["compact_bytes"] / moved["padded_bytes"]
     print(f"build: {stats.n_docs} docs in {build_s:.3f}s "
-          f"({stats.n_docs / build_s:.1f} docs/s); stages "
-          + ", ".join(f"{k} {v:.3f}s" for k, v in stats.stage_seconds.items()))
+          f"({stats.n_docs / build_s:.1f} docs/s); stages (encode and pool "
+          f"device seconds) "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in stats.stage_seconds.items())
+          + f"; device-to-host compaction bytes {moved['compact_bytes']} of "
+          f"{moved['padded_bytes']} padded over {moved['batches']} batches "
+          f"(ratio {build_ratio:.3g}: the counts alone)")
+    print("main artifact payload sha256: " + json.dumps(
+        _artifact_digests(ARTIFACT_DIR)))
+    host_ratio = check_compaction(rt, torch, model, docs)
     print(f"vectors: raw {stats.n_vectors_raw}, stored "
           f"{stats.n_vectors_stored} (reduction "
           f"{stats.vector_reduction:.4f}); device bytes {stats.device_bytes}")
@@ -741,9 +780,183 @@ def main_path(rt, torch, dev):
           f"{N_QUERIES / (t_enc + t_search):.1f} QPS (encode {t_enc:.4f}s, "
           f"index search {t_search:.4f}s)")
     MAIN_NUMBERS.update(build_docs_s=stats.n_docs / build_s,
-                        index_search_s=t_search)
+                        index_search_s=t_search,
+                        stage_seconds=dict(stats.stage_seconds),
+                        build_transfer_ratio=build_ratio,
+                        host_transfer_ratio=host_ratio)
     qrels = [dict(q) for q in corpus.qrels]
     return index, stats, model, docs, searcher, queries, qrels, S, I
+
+
+def _artifact_digests(root):
+    """{payload name: sha256 of its .npy bytes} of a monolithic artifact."""
+    import hashlib
+    from repro_torch.core.persist import read_manifest
+    out = {}
+    for name, p in sorted(read_manifest(root)["payloads"].items()):
+        with open(os.path.join(root, p["file"]), "rb") as fh:
+            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def check_compaction(rt, torch, model, docs):
+    """The main build's first ``COMPACT_BATCHES`` encode batches: the
+    pipelined loop (``encode_and_pool_counted``) gives the rows, per-doc
+    counts and raw count of a serial loop that compacts each batch with
+    ``compact_pooled``, bit for bit; on the first batch,
+    ``compact_pooled_finish(compact_pooled_begin(...))`` gives
+    ``compact_pooled``'s rows moved to the host, bit for bit, and moves
+    at most 1/2 + 1/64 of the padded bytes (Ward f=2). -> that ratio."""
+    from repro_torch.core.pooling import (compact_pooled,
+                                          compact_pooled_begin,
+                                          compact_pooled_finish,
+                                          compaction_transfer_stats)
+    from repro_torch.models.colbert import encode_docs
+    indexer = rt.Indexer(model, index_spec=rt.IndexSpec(ndocs=NDOCS),
+                         pooling_spec=rt.PoolingSpec("ward", 2),
+                         encode_batch=ENCODE_BATCH, device=model.device)
+    sub = docs[:COMPACT_BATCHES * ENCODE_BATCH]
+    flat, counts, raw = indexer.encode_and_pool_counted(sub)
+    rows, cnts, raw_s, first = [], [], 0, None
+    for lo in range(0, len(sub), ENCODE_BATCH):
+        v, emit = encode_docs(model, sub[lo:lo + ENCODE_BATCH])
+        pooled, pmask = indexer.pooling.apply(v, emit)
+        f, c = compact_pooled(pooled, pmask)
+        rows.append(f)
+        cnts.append(c)
+        raw_s += int(emit.sum())
+        first = first or (pooled, pmask, f, c)
+    if not (torch.equal(flat, torch.cat(rows)) and raw == raw_s
+            and np.array_equal(counts, torch.cat(cnts).cpu().numpy())):
+        raise AssertionError("the pipelined build loop differs from the "
+                             "serial compact_pooled loop")
+    pooled, pmask, f, c = first
+    compaction_transfer_stats(reset=True)
+    got = compact_pooled_finish(compact_pooled_begin(pooled, pmask))
+    moved = compaction_transfer_stats(reset=True)
+    want = np.split(f.cpu().numpy(), np.cumsum(c.cpu().numpy()[:-1]))
+    if len(got) != len(want) or not all(
+            g.dtype == w.dtype and np.array_equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError("compact_pooled_finish(begin) differs from "
+                             "compact_pooled on the host")
+    ratio = moved["compact_bytes"] / moved["padded_bytes"]
+    print(f"compaction: {COMPACT_BATCHES} pipelined batches bitwise equal "
+          f"to the serial compact_pooled loop ({len(flat)} rows, raw "
+          f"{raw}); finish(begin) of batch 0 bitwise compact_pooled's rows "
+          f"on the host, moving {moved['compact_bytes']} of "
+          f"{moved['padded_bytes']} padded bytes (ratio {ratio:.4f})")
+    if ratio > 1 / 2 + 1 / 64:
+        raise AssertionError(f"compaction moved {ratio:.4f} of the padded "
+                             f"bytes at Ward f=2")
+    return ratio
+
+
+def build_loop_profile(rt, torch, model, docs, card):
+    """The main build's loop (``encode_and_pool_counted``) over the first
+    ``PROFILE_DOCS`` docs under the profiler: its device idle share."""
+    indexer = rt.Indexer(model, index_spec=rt.IndexSpec(ndocs=NDOCS),
+                         pooling_spec=rt.PoolingSpec("ward", 2),
+                         encode_batch=ENCODE_BATCH, device=model.device)
+    sub = docs[:PROFILE_DOCS]
+    out = _profile_step(torch, f"main build loop ({PROFILE_DOCS} docs)",
+                        lambda: indexer.encode_and_pool_counted(sub),
+                        host_ops=False)
+    MAIN_NUMBERS.update(build_loop=out)
+    print(f"main build: {MAIN_NUMBERS['build_docs_s']:.1f} docs/s, stages "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in
+                      MAIN_NUMBERS["stage_seconds"].items())
+          + ", compaction transfer ratio "
+          f"{MAIN_NUMBERS['build_transfer_ratio']:.3g} (host finish of one "
+          f"batch {MAIN_NUMBERS['host_transfer_ratio']:.4f}), build loop idle "
+          f"share {out['idle_share']:.4f} [{card}]")
+    return out
+
+
+def examples_path(rt, torch, dev, card):
+    """The four examples (``repro_torch.examples``) on the card at their
+    own sizes, as a user runs them: quickstart, build_and_search on
+    plaid, flat and hnsw, train_colbert (80 steps of 16, its sweep) and
+    multi_arch_smoke; then ``core.maxsim.maxsim_rerank`` (the gathered
+    route) held against its plain version at build_and_search's
+    shapes."""
+    from repro_torch.core.maxsim import maxsim_rerank
+    from repro_torch.data.corpus import DatasetSpec, SyntheticRetrievalCorpus
+    from repro_torch.examples import (build_and_search, multi_arch_smoke,
+                                      quickstart, train_colbert)
+    from repro_torch.models.colbert import encode_queries
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def drive():
+        out = {"quickstart": timed("quickstart", lambda: quickstart.main([]))}
+        for b in EXAMPLE_BACKENDS:
+            out[b] = timed(f"build_and_search {b}", lambda: (
+                build_and_search.main(["--backend", b])))
+        out["train"] = timed("train_colbert", lambda: train_colbert.main(
+            ["--checkpoint-dir", EXAMPLES_DIR]))
+        out["archs"] = timed("multi_arch_smoke",
+                             lambda: multi_arch_smoke.main([]))
+        return out
+
+    t0 = time.perf_counter()
+    out = run_path("examples", torch, drive)
+    total = time.perf_counter() - t0
+    q = out["quickstart"]
+    if not (q["rows"]["ward f=2"]["vectors"] < q["rows"]["unpooled"][
+            "vectors"] and 0.4 < q["vector_reduction"] < 0.55
+            and all(np.isfinite(r["ndcg@10"]) for r in q["rows"].values())):
+        raise AssertionError(f"quickstart: {q}")
+    for b in EXAMPLE_BACKENDS:
+        r = out[b]
+        if (r["n_docs"] != 100 or r["added"] != [100, 119]
+                or r["victim"] in r["after_delete"][1][0].tolist()
+                or not np.isfinite(r["initial"][0]).all()):
+            raise AssertionError(f"build_and_search {b}: {r}")
+    t = out["train"]
+    losses = [h["loss"] for h in t["history"]]
+    f1 = [c for c in t["report"]["cells"] if c["factor"] == 1]
+    if (t["final_step"] != 80 or not np.isfinite(losses).all()
+            or not f1 or f1[0]["relative"]["ndcg@10"] != 100.0):
+        raise AssertionError(f"train_colbert: {t['final_step']} {losses}")
+    if not np.isfinite(list(out["archs"].values())).all():
+        raise AssertionError(f"multi_arch_smoke: {out['archs']}")
+
+    # maxsim_rerank's gathered route at build_and_search's shapes
+    model = rt.init_colbert(rt.get_smoke_config("colbertv2"), seed=SEED,
+                            device=dev)
+    cfg = model.cfg
+    corpus = SyntheticRetrievalCorpus(DatasetSpec(
+        "crud-demo", n_docs=120, n_queries=16, n_topics=6, doc_len_mean=36,
+        doc_len_std=6, seed=11), vocab_size=cfg.trunk.vocab_size)
+    idx = rt.Indexer(model, pooling_spec=rt.PoolingSpec("ward", 2),
+                     device=dev)
+    per_doc = idx.encode_and_pool(corpus.doc_token_batch(cfg.doc_maxlen - 2))
+    d = torch.nn.utils.rnn.pad_sequence(per_doc, batch_first=True)
+    dm = torch.nn.utils.rnn.pad_sequence(
+        [torch.ones(len(v), dtype=torch.bool, device=dev) for v in per_doc],
+        batch_first=True)
+    qv, qm = encode_queries(model, corpus.query_token_batch(
+        cfg.query_maxlen - 2))
+    S = 32
+    cand = (torch.arange(S, device=dev)[None] * 3
+            + torch.arange(len(qv), device=dev)[:, None] * 7) % len(per_doc)
+    got = maxsim_rerank(qv, qm, d[cand], dm[cand])
+    want = maxsim_rerank(qv, qm, d[cand], dm[cand], impl="ref")
+    err = _hold("examples maxsim_rerank (gathered)", torch, got, want, [])
+    print("examples: " + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                   seconds.items())
+          + f"; path {total:.3f}s; core.maxsim.maxsim_rerank [{len(qv)}, "
+          f"{S}] max abs err {err:.3g} vs its plain version [{card}]")
+    return dict(seconds=seconds, total_s=total,
+                launches=PATH_LAUNCHES["examples"], rerank_max_abs_err=err)
 
 
 def _candidate_report(torch, index, qv):
@@ -1286,7 +1499,7 @@ def recon_path(torch, index, searcher, queries, S, I):
 def capture_rerank_args(torch, searcher, queries):
     """The arguments of the ``maxsim_rerank_indexed`` call of one search
     batch. Outside every counted run."""
-    import repro_torch.kernels.maxsim.ops as mo
+    from repro_torch.kernels.maxsim import ops as mo
     seen = []
     inner = mo.maxsim_rerank_indexed
 
@@ -2635,7 +2848,7 @@ def _allpairs_bound(q, qm, d, dm):
 def capture_maxsim_args(torch, searcher, queries):
     """The arguments of the all-pairs ``maxsim`` call of one search batch
     (the flat path's own inputs). Outside every counted run."""
-    import repro_torch.kernels.maxsim.ops as mo
+    from repro_torch.kernels.maxsim import ops as mo
     seen = []
     inner = mo.maxsim
 
@@ -5274,6 +5487,7 @@ def main(argv=None) -> int:
     eval_numbers = eval_path(rt, torch, dev, model, docs, queries, qrels,
                              searcher)
     serve_numbers = serve_path(rt, torch, model, index, searcher, queries)
+    examples_numbers = examples_path(rt, torch, dev, card)
     gc.collect()                    # the sharded indexes go before the LM
     torch.cuda.empty_cache()
     lm_cfg, lm = _lm_model(rt, torch)
@@ -5321,6 +5535,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_train = lm_train_path(rt, torch, dev, card)
     train_mesh = train_mesh_path(rt, torch, dev, card)
+    build_loop_profile(rt, torch, model, docs, card)
     del index, searcher, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5342,7 +5557,8 @@ def main(argv=None) -> int:
                       "sharding": sharding_numbers,
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
                       "roofline": roofline_numbers,
-                      "sharded": sharded_numbers, "card": card}))
+                      "sharded": sharded_numbers, "main": MAIN_NUMBERS,
+                      "examples": examples_numbers, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

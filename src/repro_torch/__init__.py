@@ -84,6 +84,12 @@ _EXPORTS = {
     "EncodedDocs": "repro_torch.retrieval.indexer",
     "Searcher": "repro_torch.retrieval.searcher",
     "CascadeIndex": "repro_torch.retrieval.cascade",
+    "ServingEngine": "repro_torch.launch.engine",
+    "evaluate_pooling": "repro_torch.retrieval.evaluate",
+    "EvalDataset": "repro_torch.eval.datasets",
+    "QualitySweep": "repro_torch.eval.sweep",
+    "QualityReport": "repro_torch.eval.report",
+    "load_beir": "repro_torch.eval.datasets",
     "build_cascade": "repro_torch.retrieval.cascade",
     "ColBERT": "repro_torch.models.colbert",
     "init_colbert": "repro_torch.models.colbert",

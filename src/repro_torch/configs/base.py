@@ -19,8 +19,15 @@ picks a config's.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+
+def asdict(cfg) -> dict:
+    """A config as nested plain dicts (checkpoint and manifest
+    metadata)."""
+    return dataclasses.asdict(cfg)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,8 @@
 """MaxSim scoring entry points and the top-k epilogue of every search.
 
-Counterpart of ``src/repro/core/maxsim.py``: ``maxsim_scores`` (the
+Counterpart of ``src/repro/core/maxsim.py``: ``maxsim`` (one query
+against one document, plain torch), ``maxsim_rerank`` (gathered
+candidates, through the ``maxsim_rerank`` kernel), ``maxsim_scores`` (the
 ColBERT search step's scoring, its queries and docs annotated as the
 reference's; ``maxsim_scores_blocked`` the same), ``maxsim_all_docs``
 (flat search and the dense corpus-wide fallback) and
@@ -89,6 +91,29 @@ def tie_aware_mismatches(I0: np.ndarray, S0: np.ndarray, I1: np.ndarray,
             bad += int(abs(S0[r, j] - S1[r, j]) > tol
                        or abs(other - S0[r, j]) > tol)
     return bad
+
+
+def maxsim(q, q_mask, d, d_mask) -> torch.Tensor:
+    """q [Lq, dim]; d [Ld, dim] -> the scalar score
+    sum_i max_j q_i . d_j over valid tokens (a query token with no valid
+    doc token adds 0)."""
+    sim = q @ d.T                                          # [Lq, Ld]
+    sim = sim.masked_fill(~d_mask[None, :], float("-inf"))
+    best = sim.amax(dim=-1)
+    best = torch.where(q_mask & torch.isfinite(best), best,
+                       torch.zeros((), dtype=best.dtype, device=best.device))
+    return best.sum()
+
+
+def maxsim_rerank(q, q_mask, d, d_mask, impl: str = "auto"):
+    """Per-query scores of gathered candidates: q [Nq, Lq, dim]; d
+    [Nq, S, Ld, dim], d_mask [Nq, S, Ld] -> [Nq, S] f32, query i scoring
+    only d[i]: the ``maxsim_rerank`` kernel on the card, its plain
+    version on CPU tensors."""
+    return maxsim_ops.maxsim_rerank(q.float().contiguous(),
+                                    q_mask.contiguous(),
+                                    d.float().contiguous(),
+                                    d_mask.contiguous(), impl=impl)
 
 
 def maxsim_all_docs(q, q_mask, d, d_mask, impl: str = "auto"):

@@ -1,6 +1,7 @@
 """Ward agglomerative clustering per document: the plain PyTorch version.
 
-Counterpart of ``src/repro/core/ward.py`` ``ward_cluster_batch`` and the
+Counterpart of ``src/repro/core/ward.py`` ``ward_cluster`` (one document
+to ``k_target`` clusters), ``ward_cluster_batch`` and the
 plain twin of the ``ward_pool`` CUDA kernel. The state is a batched
 [B, N, N] matrix of squared Ward linkage distances; each step merges the
 first row-major minimum pair (i < j) of every document that still has
@@ -36,9 +37,27 @@ def ward_targets(mask: torch.Tensor, factor: int):
     return k, torch.clamp(n_valid - k, min=0).to(torch.int32)
 
 
+def ward_cluster(x: torch.Tensor, mask: torch.Tensor,
+                 k_target: int) -> torch.Tensor:
+    """One document: x [N, d], mask [N] bool -> assign [N] int32, merged
+    down to ``max(k_target, 1)`` clusters (padded tokens keep their own
+    index)."""
+    n_valid = mask.sum().to(torch.int32)
+    steps = torch.clamp(n_valid - max(int(k_target), 1), min=0)
+    return _ward_merge(x[None], mask[None], steps[None])[0]
+
+
 def ward_cluster_batch(x: torch.Tensor, mask: torch.Tensor,
                        factor: int) -> torch.Tensor:
     """x [B, N, d]; mask [B, N] bool -> assign [B, N] int32."""
+    _, steps = ward_targets(mask, factor)
+    return _ward_merge(x, mask, steps)
+
+
+def _ward_merge(x: torch.Tensor, mask: torch.Tensor,
+                steps: torch.Tensor) -> torch.Tensor:
+    """The merge loop: document b merges ``steps[b]`` times (its valid
+    tokens less its target k) -> assign [B, N] int32."""
     B, N, _ = x.shape
     dev = x.device
     x = normalize_masked(x, mask)
@@ -50,7 +69,6 @@ def ward_cluster_batch(x: torch.Tensor, mask: torch.Tensor,
     d2 = d2.masked_fill(~valid, _INF)
     sizes = mask.float()
     assign = torch.arange(N, dtype=torch.int32, device=dev).repeat(B, 1)
-    _, steps = ward_targets(mask, factor)
     n_steps = int(steps.max()) if B else 0
     bidx = torch.arange(B, device=dev)
     lane = torch.arange(N, device=dev)[None, :]

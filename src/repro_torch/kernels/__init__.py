@@ -7,7 +7,17 @@ tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises; given ``meta`` tensors (shapes only, as the dry run
 traces a step) it traces the plain version, since no kernel runs on
 ``meta``. ``impl="ref"`` forces the plain version — only the
-tests and ``chip_smoke.py`` pass it. No kernel has a backward, so every
+tests and ``chip_smoke.py`` pass it.
+
+The package exports the reference's five wrappers under its names
+(``repro.kernels.__all__``). Three of them are also the names of
+subpackages (``maxsim``, ``kmeans_assign``, ``flash_attention``): the
+functions are bound last, after the subpackages are imported, so the
+attribute is the function while ``from repro_torch.kernels.maxsim
+import ops`` still finds the subpackage (``import
+repro_torch.kernels.maxsim.ops as m`` does not: it walks attributes).
+Importing a wrapper builds and loads nothing; a kernel is built at its
+first launch. No kernel has a backward, so every
 wrapper raises when autograd would record its call, and on a
 ``DTensor`` off ``meta`` (``check_inputs``).
 """
@@ -133,3 +143,17 @@ def sum_over_query_chunks(fn, q, q_mask, max_lq: int):
         part = fn(q[:, lo:hi].contiguous(), q_mask[:, lo:hi].contiguous())
         out = part if out is None else out + part
     return out
+
+
+# the reference's exports, bound after every name above exists (the ops
+# modules import them) and after the subpackages they shadow
+from repro_torch.kernels.maxsim.ops import maxsim  # noqa: E402
+from repro_torch.kernels.maxsim_packed.ops import (  # noqa: E402
+    maxsim_packed_rerank)
+from repro_torch.kernels.kmeans_assign.ops import kmeans_assign  # noqa: E402
+from repro_torch.kernels.quant.ops import dequant_score  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+
+__all__ = ["maxsim", "maxsim_packed_rerank", "kmeans_assign",
+           "dequant_score", "flash_attention"]

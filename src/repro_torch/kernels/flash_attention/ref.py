@@ -1,7 +1,10 @@
 """Plain PyTorch version of the flash-attention kernel
 (``csrc/flash_attention.cu``).
 
-It follows the contract of the TPU kernel
+``attention_ref`` is the reference's oracle (``kernels/flash_attention/
+ref.py``): [B, H, Sq, dh] heads, an f32 softmax, NaN on a row with no
+visible column. ``flash_attention_ref`` follows the contract of the TPU
+kernel
 ``src/repro/kernels/flash_attention/kernel.py`` ``flash_attention_pallas``
 (body ``_flash_kernel``), not of ``attention_ref``:
 
@@ -44,3 +47,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.bmm(p.to(v.dtype).float(), vf)
     return (o / torch.where(l == 0.0, torch.ones((), device=l.device), l)
             ).to(q.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool) -> torch.Tensor:
+    """q [B, H, Sq, dh]; k, v [B, KV, Skv, dh], H % KV == 0 -> o
+    [B, H, Sq, dh] in q's dtype (f32 softmax; the causal diagonal
+    anchored bottom-right)."""
+    _, H, Sq, dh = q.shape
+    G = H // k.shape[1]
+    kf = k.repeat_interleave(G, dim=1).float()
+    vf = v.repeat_interleave(G, dim=1).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        Skv = k.shape[2]
+        rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        s = s.masked_fill(~(rows >= torch.arange(Skv, device=q.device)),
+                          float("-inf"))
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vf)
+    return o.to(q.dtype)

@@ -1,8 +1,9 @@
 """Plain PyTorch version of the compressed-domain rerank kernel.
 
 Counterpart of ``src/repro/kernels/maxsim_packed/ref.py``: decode the
-gathered packed rows (``quant.ref.decode_rows_ref``), then the masked
-MaxSim of ``kernels/maxsim/ref.py`` ``maxsim_rerank_ref``.
+gathered packed rows (``decode_rows_ref``, defined in ``quant/ref.py``
+and exported here under the reference's path), then the masked MaxSim of
+``kernels/maxsim/ref.py`` ``maxsim_rerank_ref``.
 """
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ import torch
 
 from repro_torch.kernels.maxsim.ref import einsum_3xtf32, maxsim_rerank_ref
 from repro_torch.kernels.quant.ref import decode_rows_ref
+
+__all__ = ["decode_rows_ref", "maxsim_packed_rerank_ref",
+           "maxsim_packed_3xtf32_ref"]
 
 
 def maxsim_packed_rerank_ref(q, q_mask, words, ids, d_mask, centroids,

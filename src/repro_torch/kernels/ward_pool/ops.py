@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.ward import normalize_masked
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
                                  check_impl, check_inputs, plain_version)
-from repro_torch.kernels.ward_pool.ref import ward_assign_ref
+from repro_torch.kernels.ward_pool import ref as ward_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "ward_pool"
@@ -45,7 +45,7 @@ def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
     check_impl(impl)
     check_inputs(_NAME, x, mask)
     if plain_version(impl, x):
-        return ward_assign_ref(x, mask, factor)
+        return ward_ref.ward_assign_ref(x, mask, factor)
     if x.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x.device}")
     check_dtype(_NAME, "mask", mask, torch.bool)

@@ -363,3 +363,9 @@ def build_cell(arch: str, cell_name: str, mesh,
 
 def all_cells(arch: str):
     return [c.name for c in shapes_for(get_config(arch))]
+
+
+def input_specs(arch: str, cell_name: str, mesh) -> Tuple[Any, ...]:
+    """The cell's model inputs as shape-only stand-ins (``meta`` tensors,
+    the reference's ``ShapeDtypeStruct``s)."""
+    return build_cell(arch, cell_name, mesh).args

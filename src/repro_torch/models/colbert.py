@@ -104,6 +104,15 @@ def params_to_jax(state) -> Dict:
             "proj": {"w": host(state["proj.w"])}}
 
 
+def _head(B: int, mark: int, device) -> torch.Tensor:
+    """[B, 2] of [CLS][mark], filled on ``device`` (a tensor made from a
+    host list would be a blocking copy, which waits for the queue)."""
+    head = torch.empty((B, 2), dtype=torch.int32, device=device)
+    head[:, 0] = CLS_ID
+    head[:, 1] = mark
+    return head
+
+
 def prepare_query_tokens(tokens: torch.Tensor, query_maxlen: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, L] raw ids -> ([B, Lq] [CLS][Q] body, PAD slots as [MASK];
@@ -114,8 +123,7 @@ def prepare_query_tokens(tokens: torch.Tensor, query_maxlen: int
     if body.shape[1] < body_len:
         body = torch.nn.functional.pad(body, (0, body_len - body.shape[1]))
     body = torch.where(body == PAD_ID, torch.full_like(body, MASK_ID), body)
-    head = torch.tensor([CLS_ID, Q_MARK_ID], dtype=torch.int32,
-                        device=tokens.device).expand(B, 2)
+    head = _head(B, Q_MARK_ID, tokens.device)
     out = torch.cat([head, body], dim=1)
     return out, torch.ones(out.shape, dtype=torch.bool, device=out.device)
 
@@ -128,8 +136,7 @@ def prepare_doc_tokens(tokens: torch.Tensor, doc_maxlen: int
     body = tokens[:, :body_len].to(torch.int32)
     if body.shape[1] < body_len:
         body = torch.nn.functional.pad(body, (0, body_len - body.shape[1]))
-    head = torch.tensor([CLS_ID, D_MARK_ID], dtype=torch.int32,
-                        device=tokens.device).expand(B, 2)
+    head = _head(B, D_MARK_ID, tokens.device)
     out = torch.cat([head, body], dim=1)
     return out, out != PAD_ID
 

@@ -36,6 +36,7 @@ import queue
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -44,7 +45,7 @@ import torch
 
 from repro_torch.core.index import MultiVectorIndex
 from repro_torch.core.persist import artifact_bytes, serialized_nbytes
-from repro_torch.core.pooling import compact_pooled
+from repro_torch.core.pooling import CompactionTicket, compact_pooled_begin
 from repro_torch.core.quantization import ResidualCodec
 from repro_torch.core.spec import BACKENDS, IndexSpec, PoolingSpec
 from repro_torch.device import DeviceLike, resolve_device, sync
@@ -78,7 +79,7 @@ class EncodedDocs:
             n_real = chunk.shape[0]
             if n_real < B:
                 chunk = np.pad(chunk, ((0, B - n_real), (0, 0)))
-            v, emit = encode_docs(model, chunk)
+            v, emit = encode_docs(model, _upload(chunk, model.device))
             batches.append((v, emit, n_real))
         return cls(batches, n_docs=N, encode_batch=B)
 
@@ -97,7 +98,9 @@ class IndexStats:
     pipelined: bool = False
     flush_wait_s: float = 0.0        # encoder stalled behind the flush
     flush_busy_s: float = 0.0        # wall seconds inside flush
-    # wall seconds per build stage (host clock around synchronized work)
+    # seconds per build stage: encode and pool the device time between
+    # CUDA events on the card (``_StageClock``; the host clock on the
+    # CPU), index and save the host clock around synchronized work
     stage_seconds: Dict[str, float] = field(default_factory=dict)
 
     @property
@@ -126,6 +129,60 @@ def _build_views(index: MultiVectorIndex) -> None:
         index._store.padded()
 
 
+def _upload(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A token chunk on ``device`` without waiting for its queue: a copy
+    from pageable memory to the card waits for the stream to drain, one
+    queued from pinned memory does not."""
+    t = torch.from_numpy(np.ascontiguousarray(tokens))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _finished(done, raw: torch.Tensor, tag):
+    """A pipelined batch's (rows, counts, raw, tag), its compaction
+    ticket finished on the device."""
+    if isinstance(done, CompactionTicket):
+        done = done.device_rows()
+    return done[0], done[1], raw, tag
+
+
+class _StageClock:
+    """Seconds per build stage, added to ``times``. On the card: CUDA
+    events recorded around each stage's launches and read once, in
+    ``close`` (the device's time between them; nothing in the loop
+    waits); on the CPU, where the work is done when a call returns, the
+    host clock."""
+
+    def __init__(self, device: torch.device,
+                 times: Optional[Dict[str, float]]):
+        self.cuda = device.type == "cuda"
+        self.times = {} if times is None else times
+        self.times.setdefault("encode", 0.0)
+        self.times.setdefault("pool", 0.0)
+        self.marks = []
+
+    @contextmanager
+    def stage(self, name: str):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            yield
+            self.times[name] += time.perf_counter() - t0
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.marks.append((name, start, end))
+
+    def close(self) -> None:
+        for name, start, end in self.marks:
+            end.synchronize()
+            self.times[name] += start.elapsed_time(end) / 1e3
+        self.marks.clear()
+
+
 class Indexer:
     def __init__(self, model: ColBERT, index_spec: Optional[IndexSpec] = None,
                  pooling_spec: Optional[PoolingSpec] = None,
@@ -147,53 +204,92 @@ class Indexer:
         self.backend = self.index_spec.backend
         self.encode_batch = int(encode_batch)
 
-    def _encoded_batches(self, doc_tokens, times: Dict[str, float]):
-        """Yield (vectors [B, N, d], emit [B, N], n_real_docs) per encode
-        batch, from the encoder or from an ``EncodedDocs``."""
-        if isinstance(doc_tokens, EncodedDocs):
-            yield from doc_tokens.batches
-            return
-        doc_tokens = np.asarray(doc_tokens)
+    def _chunks(self, doc_tokens: np.ndarray):
+        """(chunk [encode_batch, L] on the device, n_real_docs) per
+        encode batch of ``doc_tokens``, the last chunk zero-padded."""
         N, B = doc_tokens.shape[0], self.encode_batch
         for lo in range(0, N, B):
             chunk = doc_tokens[lo:lo + B]
             n_real = chunk.shape[0]
             if n_real < B:
                 chunk = np.pad(chunk, ((0, B - n_real), (0, 0)))
-            t0 = time.perf_counter()
-            v, emit = encode_docs(self.model, chunk)
-            sync(self.device)
-            times["encode"] += time.perf_counter() - t0
-            yield v, emit, n_real
+            yield _upload(chunk, self.device), n_real
+
+    def _encoded_batches(self, token_batches, clock: "_StageClock"):
+        """Yield (vectors [B, N, d], emit [B, N], n_real_docs, last) per
+        encode batch of each [n_b, L] array in ``token_batches`` (empty
+        ones skipped), ``last`` True on a token batch's last encode
+        batch; or the batches of an ``EncodedDocs``."""
+        if isinstance(token_batches, EncodedDocs):
+            for v, emit, n_real in token_batches.batches:
+                yield v, emit, n_real, True
+            return
+        for batch in token_batches:
+            batch = np.asarray(batch)
+            if batch.size == 0:
+                continue
+            chunks = list(self._chunks(batch))
+            for i, (chunk, n_real) in enumerate(chunks):
+                with clock.stage("encode"):
+                    v, emit = encode_docs(self.model, chunk)
+                yield v, emit, n_real, i == len(chunks) - 1
+
+    def _pooled_batches(self, encoded, impl: str, clock: "_StageClock"):
+        """Pool and compact each encoded batch, one batch behind: batch
+        i+1 is encoded, pooled and its compaction queued
+        (``compact_pooled_begin``) before batch i's ticket is finished, so
+        the host's wait for batch i's counts overlaps the card's work on
+        batch i+1, and nothing in the loop waits for the whole device.
+        ``encoded`` yields (v, emit, n_real, tag); this yields (rows
+        [M, d] on the device, counts [n_real] int32 on the host, the raw
+        emitted-vector count as a device scalar, tag) in input order. A
+        host strategy's output (a registered pooling function returning
+        arrays) is compacted at once, as the reference does."""
+        pending = None
+        for v, emit, n_real, tag in encoded:
+            with clock.stage("pool"):
+                pooled, pmask = self.pooling.apply(v, emit, impl=impl)
+                raw = emit[:n_real].sum()
+                if torch.is_tensor(pooled):
+                    done = compact_pooled_begin(pooled[:n_real],
+                                                pmask[:n_real])
+                else:       # a host strategy's arrays: compacted at once
+                    pooled = torch.as_tensor(np.asarray(pooled),
+                                             device=v.device)
+                    pmask = torch.as_tensor(np.asarray(pmask, bool),
+                                            device=v.device)
+                    done = compact_pooled_begin(
+                        pooled[:n_real], pmask[:n_real]).device_rows()
+            if pending is not None:
+                yield _finished(*pending)
+            pending = (done, raw, tag)
+        if pending is not None:
+            yield _finished(*pending)
 
     def encode_and_pool_counted(self, doc_tokens, impl: str = "auto",
                                 times: Optional[Dict[str, float]] = None
                                 ) -> Tuple[torch.Tensor, np.ndarray, int]:
         """doc_tokens [N, L] (or an ``EncodedDocs``) -> (pooled rows
-        [M, dim] doc-major, per-doc counts [N], raw emitted-vector
-        count)."""
-        times = {} if times is None else times
-        times.setdefault("encode", 0.0)
-        times.setdefault("pool", 0.0)
+        [M, dim] doc-major, per-doc counts [N] int64, raw emitted-vector
+        count), through the one-batch-behind loop of
+        ``_pooled_batches``; ``times`` gains the encode and pool stages'
+        seconds (``_StageClock``)."""
+        clock = _StageClock(self.device, times)
         rows, counts, raw = [], [], []
-        for v, emit, n_real in self._encoded_batches(doc_tokens, times):
-            t0 = time.perf_counter()
-            pooled, pmask = self.pooling.apply(v, emit, impl=impl)
-            if not torch.is_tensor(pooled):    # a host strategy's output
-                pooled = torch.as_tensor(np.asarray(pooled), device=v.device)
-                pmask = torch.as_tensor(np.asarray(pmask, bool),
-                                        device=v.device)
-            flat, cnt = compact_pooled(pooled[:n_real], pmask[:n_real])
-            sync(self.device)
-            times["pool"] += time.perf_counter() - t0
+        if not isinstance(doc_tokens, EncodedDocs):
+            doc_tokens = [doc_tokens]
+        for flat, cnt, raw_b, _ in self._pooled_batches(
+                self._encoded_batches(doc_tokens, clock), impl, clock):
             rows.append(flat)
             counts.append(cnt)
-            raw.append(emit[:n_real].sum())
+            raw.append(raw_b)
+        clock.close()
         if not rows:
             dim = self.cfg.proj_dim
             return (torch.zeros((0, dim), device=self.device),
                     np.zeros(0, np.int64), 0)
-        return (torch.cat(rows).float(), torch.cat(counts).cpu().numpy(),
+        return (torch.cat(rows).float(),
+                np.concatenate(counts).astype(np.int64),
                 int(torch.stack(raw).sum()))
 
     def encode_and_pool(self, doc_tokens) -> List[torch.Tensor]:
@@ -285,7 +381,7 @@ class Indexer:
                                device=self.device, **self.index_spec.params())
         times: Dict[str, float] = {}
         buffer: "deque[torch.Tensor]" = deque()
-        buffered = raw = peak = max_batch = 0
+        buffered = peak = max_batch = 0
         flush_wait_s = flush_busy_s = 0.0
 
         def flush(group: List[torch.Tensor]) -> None:
@@ -340,17 +436,25 @@ class Indexer:
             handoff.put(group)          # blocks only behind a backlog
             flush_wait_s += time.perf_counter() - t0
 
+        clock = _StageClock(self.device, times)
+        rows: List[torch.Tensor] = []
+        counts: List[np.ndarray] = []
+        raw_parts: List[torch.Tensor] = []
         try:
-            for batch in token_batches:
-                batch = np.asarray(batch)
-                if batch.size == 0:
+            for flat, cnt, raw_b, last in self._pooled_batches(
+                    self._encoded_batches(token_batches, clock), impl,
+                    clock):
+                rows.append(flat)
+                counts.append(cnt)
+                raw_parts.append(raw_b)
+                if not last:
                     continue
-                flat, counts, raw_b = self.encode_and_pool_counted(
-                    batch, impl, times)
-                raw += raw_b
-                got = int(counts.sum())
+                flat = torch.cat(rows).float()
+                cnt = np.concatenate(counts)
+                rows, counts = [], []
+                got = int(cnt.sum())
                 max_batch = max(max_batch, got)
-                buffer.extend(torch.split(flat, counts.tolist()))
+                buffer.extend(torch.split(flat, cnt.tolist()))
                 buffered += got
                 peak = max(peak, buffered)
                 while buffered >= shard_max_vectors:
@@ -375,6 +479,8 @@ class Indexer:
                 worker.join()
         if failures:
             raise failures[0]
+        clock.close()
+        raw = int(torch.stack(raw_parts).sum()) if raw_parts else 0
 
         if out_dir is not None:
             manifest = finalize_sharded(sharded, out_dir, extra_meta={
