@@ -27,10 +27,11 @@
      artifact payloads' sha256 and its device-to-host compaction bytes
      (the per-doc counts alone) are printed; on its first 4 encode
      batches the one-batch-behind loop (``encode_and_pool_counted``)
-     must give a serial ``compact_pooled`` loop's rows, counts and raw
-     count bit for bit, and ``compact_pooled_finish(
-     compact_pooled_begin(...))`` of batch 0 ``compact_pooled``'s rows on
-     the host, moving at most 1/2 + 1/64 of the padded bytes; after the
+     must give a serial ``compact_pooled_flat`` loop's rows, counts and
+     raw count bit for bit, and ``compact_pooled_finish(
+     compact_pooled_begin(...))`` of batch 0 ``compact_pooled_flat``'s
+     rows on the host, moving at most 1/2 + 1/64 of the padded bytes;
+     after the
      train paths the loop's device idle share over 4,096 docs is
      printed beside docs/s;
    * from_dir: ``Searcher.from_dir`` serves the written artifact; its
@@ -67,7 +68,23 @@
      encoded, Ward-pooled and added, 64 queries: no deleted id comes
      back, the host probe path and the plain versions agree, 16 added
      docs' own vectors find them at top-1, and the index saved
-     (compacted) and served again gives equal results;
+     (compacted) and served again gives equal results; right after
+     the add (which drops the packed view) ``device_bytes()`` still
+     counts the packed representation;
+   * surface: the reference's names on the main path's model, docs and
+     index. ``compact_pooled`` of the first pooled batch is bitwise
+     ``compact_pooled_finish(compact_pooled_begin(...))`` and
+     ``compact_pooled_flat`` split by its counts; ``Indexer(model,
+     pool_method="ward", pool_factor=2, backend="plaid", ndocs=16)`` (the
+     shorthand, ``ndocs`` a deprecated raw keyword, at which every
+     slate prunes) over the first 512 docs resolves the specs of, and
+     writes payloads byte-equal to, the spec-built ``Indexer``, and its
+     64 queries give bitwise-equal ids and scores (``ward_pool``,
+     ``plaid_probe`` and ``maxsim_packed`` counted); the main index's
+     ``device_bytes_detail()`` is printed, its ``packed`` equal to the
+     bytes of the resident ``padded_packed()`` tensors; ``ward_assign``
+     and ``plaid_probe_scores`` with ``impl="kernel"`` are bitwise
+     ``"auto"``;
    * hnsw: ``Indexer.build`` of an hnsw index over 128 docs at Ward f=4
      (the graph built in host Python, timed), 16 docs added and 8
      deleted, 32 queries with ``hnsw_candidates`` 1024 (the slate stays
@@ -526,6 +543,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_index")
 CASCADE_DIR = os.path.join(ROOT, "build", "chip_smoke_cascade")
 MUTATE_DIR = os.path.join(ROOT, "build", "chip_smoke_mutate")
+SURFACE_DIR = os.path.join(ROOT, "build", "chip_smoke_surface")
 HNSW_DIR = os.path.join(ROOT, "build", "chip_smoke_hnsw")
 STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke_stream")
 PARITY_DIR = os.path.join(ROOT, "build", "chip_smoke_parity")
@@ -547,6 +565,7 @@ PATH_KERNELS = {
     "cascade": ("ward_pool", "maxsim", "maxsim_rerank"),
     "cascade_from_dir": ("maxsim", "maxsim_rerank"),
     "mutate": ("plaid_probe", "maxsim_packed"),
+    "surface": ("ward_pool", "plaid_probe", "maxsim_packed"),
     "hnsw": ("ward_pool", "maxsim_rerank"),
     "plaid_k8192": ("plaid_probe", "maxsim_packed"),
     "facade": ("plaid_probe", "maxsim_packed"),
@@ -574,6 +593,8 @@ PATH_KERNELS = {
 }
 PATH_LAUNCHES = {}
 MAIN_NUMBERS = {}                  # the main path's build and search times
+SURFACE = {}                       # the surface phase's figures
+SURFACE_NDOCS = 16                 # every slate of 512 docs prunes here
 LMT_RUNS = {}                      # lm_train's driver runs: losses, params
 FLASH_ERRS = []                    # flash_attention vs plain, every check
 NO_LIBRARY = ("null: no single PyTorch call does the masked max over doc "
@@ -803,13 +824,14 @@ def check_compaction(rt, torch, model, docs):
     """The main build's first ``COMPACT_BATCHES`` encode batches: the
     pipelined loop (``encode_and_pool_counted``) gives the rows, per-doc
     counts and raw count of a serial loop that compacts each batch with
-    ``compact_pooled``, bit for bit; on the first batch,
+    ``compact_pooled_flat``, bit for bit; on the first batch,
     ``compact_pooled_finish(compact_pooled_begin(...))`` gives
-    ``compact_pooled``'s rows moved to the host, bit for bit, and moves
-    at most 1/2 + 1/64 of the padded bytes (Ward f=2). -> that ratio."""
-    from repro_torch.core.pooling import (compact_pooled,
-                                          compact_pooled_begin,
+    ``compact_pooled_flat``'s rows moved to the host, bit for bit, and
+    moves at most 1/2 + 1/64 of the padded bytes (Ward f=2). -> that
+    ratio."""
+    from repro_torch.core.pooling import (compact_pooled_begin,
                                           compact_pooled_finish,
+                                          compact_pooled_flat,
                                           compaction_transfer_stats)
     from repro_torch.models.colbert import encode_docs
     indexer = rt.Indexer(model, index_spec=rt.IndexSpec(ndocs=NDOCS),
@@ -821,7 +843,7 @@ def check_compaction(rt, torch, model, docs):
     for lo in range(0, len(sub), ENCODE_BATCH):
         v, emit = encode_docs(model, sub[lo:lo + ENCODE_BATCH])
         pooled, pmask = indexer.pooling.apply(v, emit)
-        f, c = compact_pooled(pooled, pmask)
+        f, c = compact_pooled_flat(pooled, pmask)
         rows.append(f)
         cnts.append(c)
         raw_s += int(emit.sum())
@@ -829,7 +851,7 @@ def check_compaction(rt, torch, model, docs):
     if not (torch.equal(flat, torch.cat(rows)) and raw == raw_s
             and np.array_equal(counts, torch.cat(cnts).cpu().numpy())):
         raise AssertionError("the pipelined build loop differs from the "
-                             "serial compact_pooled loop")
+                             "serial compact_pooled_flat loop")
     pooled, pmask, f, c = first
     compaction_transfer_stats(reset=True)
     got = compact_pooled_finish(compact_pooled_begin(pooled, pmask))
@@ -839,11 +861,12 @@ def check_compaction(rt, torch, model, docs):
             g.dtype == w.dtype and np.array_equal(g, w)
             for g, w in zip(got, want)):
         raise AssertionError("compact_pooled_finish(begin) differs from "
-                             "compact_pooled on the host")
+                             "compact_pooled_flat on the host")
     ratio = moved["compact_bytes"] / moved["padded_bytes"]
     print(f"compaction: {COMPACT_BATCHES} pipelined batches bitwise equal "
-          f"to the serial compact_pooled loop ({len(flat)} rows, raw "
-          f"{raw}); finish(begin) of batch 0 bitwise compact_pooled's rows "
+          f"to the serial compact_pooled_flat loop ({len(flat)} rows, raw "
+          f"{raw}); finish(begin) of batch 0 bitwise compact_pooled_flat's "
+          f"rows "
           f"on the host, moving {moved['compact_bytes']} of "
           f"{moved['padded_bytes']} padded bytes (ratio {ratio:.4f})")
     if ratio > 1 / 2 + 1 / 64:
@@ -1551,17 +1574,31 @@ def mutate_path(rt, torch, model, queries):
         ids = index.add(added)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        # the add dropped the packed view: the figure before the search
+        after_add = (index._plaid._packed_padded is None,
+                     index._plaid.device_bytes_detail(), index.device_bytes())
         res = _search_all(searcher, queries)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         picks = np.linspace(0, MUTATE_ADD - 1, MUTATE_SELF).astype(int)
         own = [index.search(added[i], k=TOP_K)[1] for i in picks]
-        return (searcher, index, dead, ids, picks, own, res,
+        return (searcher, index, dead, ids, picks, own, res, after_add,
                 dict(delete_encode_s=t1 - t0, add_s=t2 - t1,
                      search_s=t3 - t2))
 
-    searcher, index, dead, ids, picks, own, (S, I), times = run_path(
-        "mutate", torch, drive)
+    (searcher, index, dead, ids, picks, own, (S, I), after_add,
+     times) = run_path("mutate", torch, drive)
+    dropped, detail, total = after_add
+    built = sum(t.numel() * t.element_size()
+                for t in index._plaid.padded_packed())
+    print(f"mutate: after the add, before the next search (packed view "
+          f"dropped: {dropped}): device_bytes {total}, detail "
+          f"{json.dumps(detail)}; the search then built {built} packed bytes")
+    if not (dropped and detail["packed"] == built
+            and total == sum(detail.values())):
+        raise AssertionError("mutate: device_bytes() after the add does not "
+                             "count the packed view the search builds")
+    SURFACE.update(mutate_after_add=dict(detail, device_bytes=total))
     print(f"mutate: {index.n_docs} docs ({MUTATE_DELETE} deleted, "
           f"{len(ids)} added as ids {ids[0]}..{ids[-1]}); device plan "
           f"{index._probe_plan(QUERY_LEN)[0]}; " + ", ".join(
@@ -1594,6 +1631,122 @@ def mutate_path(rt, torch, model, queries):
     if not (np.array_equal(I, I1) and np.array_equal(S, S1)):
         raise AssertionError("mutate: the reloaded index's results differ")
     print("mutate: reloaded results equal the mutated index's exactly")
+
+
+def _same_arrays(a, b) -> bool:
+    """Two lists of numpy arrays, bit for bit (dtype, shape, bytes)."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def surface_path(rt, torch, model, docs, queries, index, searcher):
+    """The reference's names on the card (the docstring's ``surface``):
+    the two compaction forms, the ``Indexer`` shorthand against the spec
+    build, the main index's device bytes, and the forced kernels."""
+    import warnings
+    from repro_torch.core.pooling import (compact_pooled,
+                                          compact_pooled_begin,
+                                          compact_pooled_finish,
+                                          compact_pooled_flat)
+    from repro_torch.kernels.plaid_probe import plaid_probe_scores
+    from repro_torch.kernels.ward_pool import ward_assign
+    from repro_torch.models.colbert import encode_docs
+    t0 = time.perf_counter()
+    v, emit = encode_docs(model, docs[:ENCODE_BATCH])
+    pooled, pmask = rt.PoolingSpec("ward", 2).apply(v, emit)
+    lst = compact_pooled(pooled, pmask)
+    flat, counts = compact_pooled_flat(pooled, pmask)
+    for what, other in (
+            ("compact_pooled_finish(compact_pooled_begin(...))",
+             compact_pooled_finish(compact_pooled_begin(pooled, pmask))),
+            ("compact_pooled_flat split by its counts",
+             np.split(flat.cpu().numpy(),
+                      np.cumsum(counts.cpu().numpy()[:-1])))):
+        if not _same_arrays(lst, other):
+            raise AssertionError(f"surface: compact_pooled differs from "
+                                 f"{what}")
+    print(f"surface: compact_pooled of the first pooled batch ({len(lst)} "
+          f"docs, {sum(len(a) for a in lst)} rows) bitwise "
+          f"finish(begin) and compact_pooled_flat")
+
+    sub = docs[:COMPACT_BATCHES * ENCODE_BATCH]
+    short_dir, spec_dir = SURFACE_DIR + "_short", SURFACE_DIR + "_spec"
+
+    def drive():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            short = rt.Indexer(model, pool_method="ward", pool_factor=2,
+                               backend="plaid", ndocs=SURFACE_NDOCS,
+                               encode_batch=ENCODE_BATCH)
+        built, _ = short.build(sub, out_dir=short_dir)
+        res = _search_all(rt.Searcher(model, built,
+                                      encode_batch=QUERY_BATCH), queries)
+        return short, caught, built, res
+
+    short, caught, built, (S, I) = run_path("surface", torch, drive)
+    spec_ix = rt.Indexer(
+        model, index_spec=rt.IndexSpec.from_config(
+            model.cfg, backend="plaid", ndocs=SURFACE_NDOCS),
+        pooling_spec=rt.PoolingSpec("ward", 2), encode_batch=ENCODE_BATCH)
+    spec_index, _ = spec_ix.build(sub, out_dir=spec_dir)
+    S1, I1 = _search_all(rt.Searcher(model, spec_index,
+                                     encode_batch=QUERY_BATCH), queries)
+    same_specs = (dataclasses.asdict(short.index_spec)
+                  == dataclasses.asdict(spec_ix.index_spec)
+                  and dataclasses.asdict(short.pooling)
+                  == dataclasses.asdict(spec_ix.pooling))
+    same_payloads = _artifact_digests(short_dir) == _artifact_digests(
+        spec_dir)
+    shutil.rmtree(short_dir, ignore_errors=True)
+    shutil.rmtree(spec_dir, ignore_errors=True)
+    valid = I >= 0
+    print(f"surface: Indexer shorthand over {len(sub)} docs: specs equal "
+          f"{same_specs}, payloads byte-equal {same_payloads}, deprecation "
+          f"warned {any(w.category is DeprecationWarning for w in caught)}; "
+          f"{N_QUERIES} queries ids equal {np.array_equal(I, I1)}, scores "
+          f"equal {np.array_equal(S, S1)} ({int(valid.sum())} of {I.size} "
+          f"slots filled at ndocs {SURFACE_NDOCS})")
+    if not (same_specs and same_payloads and np.array_equal(I, I1)
+            and np.array_equal(S, S1)):
+        raise AssertionError("surface: the shorthand Indexer differs from "
+                             "the spec-built one")
+    if not any(w.category is DeprecationWarning for w in caught):
+        raise AssertionError("surface: Indexer(**index_kw) did not warn")
+    if not (np.isfinite(S[valid]).all() and (I[valid] < built.n_docs).all()
+            and valid[:, 0].all()):
+        raise AssertionError("surface: invalid shorthand search results")
+    del built, spec_index
+
+    p = index._plaid
+    detail = p.device_bytes_detail()
+    resident = sum(t.numel() * t.element_size() for t in p.padded_packed())
+    print(f"surface: main index device_bytes_detail {json.dumps(detail)} "
+          f"(device_bytes {index.device_bytes()}); packed {detail['packed']} "
+          f"against {resident} bytes of the resident padded_packed() "
+          f"tensors")
+    if detail["packed"] != resident or index.device_bytes() != sum(
+            detail.values()):
+        raise AssertionError("surface: device_bytes_detail's packed is not "
+                             "the resident packed view")
+
+    ward_kernel = ward_assign(v, emit, 2, impl="kernel")
+    ward_auto = ward_assign(v, emit, 2)
+    args = capture_path_args(torch, searcher, queries)[0]
+    probe_kernel = plaid_probe_scores(*args, t_cs=index.t_cs, impl="kernel")
+    probe_auto = plaid_probe_scores(*args, t_cs=index.t_cs)
+    torch.cuda.synchronize()
+    forced = dict(ward_pool=torch.equal(ward_kernel, ward_auto),
+                  plaid_probe=torch.equal(probe_kernel, probe_auto))
+    print(f"surface: impl='kernel' bitwise 'auto': {forced}")
+    if not all(forced.values()):
+        raise AssertionError(f"surface: impl='kernel' differs from 'auto': "
+                             f"{forced}")
+    seconds = time.perf_counter() - t0
+    print(f"surface: {seconds:.1f} s")
+    SURFACE.update(main_device_bytes_detail=detail, seconds=seconds,
+                   launches=PATH_LAUNCHES["surface"],
+                   shorthand_slots_filled=int(valid.sum()))
 
 
 def hnsw_path(rt, torch, model, docs, queries):
@@ -5470,6 +5623,7 @@ def main(argv=None) -> int:
     flat_args, flat_index = flat_path(rt, torch, model, docs, queries)
     recon_args = recon_path(torch, index, searcher, queries, S, I)
     mutate_path(rt, torch, model, queries)
+    surface_path(rt, torch, model, docs, queries, index, searcher)
     shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     hnsw_path(rt, torch, model, docs, queries)
     k8192_probe = plaid_k8192_path(rt, torch, model, flat_index, queries)
@@ -5558,6 +5712,7 @@ def main(argv=None) -> int:
                       "gnn": gnn_numbers, "recsys": recsys_numbers,
                       "roofline": roofline_numbers,
                       "sharded": sharded_numbers, "main": MAIN_NUMBERS,
+                      "surface": SURFACE,
                       "examples": examples_numbers, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

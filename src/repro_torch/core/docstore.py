@@ -19,6 +19,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 
 def ragged_arange(counts: np.ndarray) -> np.ndarray:
     """[0..c0), [0..c1), ... concatenated: counts [2, 0, 3] ->
@@ -41,10 +43,15 @@ def padded_scatter_index(offsets: np.ndarray, L: int, device
 
 
 class DocStore:
-    def __init__(self, dim: int, doc_maxlen: int = 256, device=None):
+    def __init__(self, dim: int, doc_maxlen: int = 256,
+                 device: DeviceLike = None):
+        """An empty store on ``device`` (``resolve_device``: ``cuda``
+        unless the caller names another). It grows to fit on each add:
+        the reference's doubling reserve (``init_capacity``) would hold
+        up to twice the store on the card."""
         self.dim = dim
         self.doc_maxlen = doc_maxlen
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.flat = torch.zeros((0, dim), dtype=torch.float32,
                                 device=self.device)
         self.offsets = np.zeros((1,), np.int64)

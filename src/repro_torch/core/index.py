@@ -48,8 +48,12 @@ from repro_torch.core.plaid import (PLAIDIndex, PROBE_KERNELS,
                                     maxsim_packed_rerank_store,
                                     plaid_candidates)
 from repro_torch.core.quantization import ResidualCodec, train_codec
-from repro_torch.core.spec import BACKENDS
+from repro_torch.core.spec import BACKENDS, INDEX_PARAM_KEYS
 from repro_torch.device import DeviceLike, resolve_device
+
+# construction knobs shared by persistence and sharding: the defining
+# copy is ``core/spec.py``'s, re-exported under the reference's names
+PARAM_KEYS = INDEX_PARAM_KEYS
 
 
 @dataclass

@@ -27,6 +27,20 @@ class InvertedLists:
     def n_centroids(self) -> int:
         return len(self.offsets) - 1
 
+    def list_for(self, c: int) -> np.ndarray:
+        return self.ids[self.offsets[c]:self.offsets[c + 1]]
+
+    def lists_for(self, cs) -> np.ndarray:
+        """Sorted unique vector ids of several centroids' lists, in one
+        gather (the sweep ``plaid._gather_candidates`` runs)."""
+        cs = np.unique(np.asarray(cs, np.int64))
+        starts = self.offsets[cs]
+        lens = self.offsets[cs + 1] - starts
+        if int(lens.sum()) == 0:
+            return np.zeros((0,), np.int64)
+        pos = np.repeat(starts, lens) + ragged_arange(lens)
+        return np.unique(self.ids[pos])
+
 
 @dataclass
 class DeviceInvertedLists:
@@ -40,14 +54,17 @@ class DeviceInvertedLists:
         probed-centroid row times this table counts how many probed
         lists own each doc.
 
-    The view is exact: every (centroid, doc) pair is kept.
+    ``list_cap`` bounds Lmax: a longer list keeps its lowest doc ids and
+    the dropped entries are counted in ``overflow``. Only an exact view
+    (``overflow == 0``) serves the device candidate path.
     """
     offsets: torch.Tensor
     ids: torch.Tensor
     doc_lists: torch.Tensor
     doc_valid: torch.Tensor
     doc_member: torch.Tensor
-    list_cap: int                # Lmax: the longest unique-doc list
+    list_cap: int                # Lmax actually used
+    overflow: int                # entries dropped by the cap (0: exact)
     n_docs: int = 0
 
     @property
@@ -61,9 +78,13 @@ class DeviceInvertedLists:
 
 
 def build_device_inverted_lists(ivf: InvertedLists, vec2doc: np.ndarray,
-                                n_docs: int, device: torch.device
+                                n_docs: int, list_cap: int = 0, *,
+                                device: torch.device
                                 ) -> DeviceInvertedLists:
-    """Host-side build, then one copy to ``device``."""
+    """Host-side build, then one copy to ``device``. ``list_cap=0``
+    sizes Lmax to the longest unique-doc list (exact); a positive cap
+    keeps each list's lowest doc ids and counts the drops in
+    ``overflow``."""
     K = ivf.n_centroids
     lens = np.diff(ivf.offsets)
     cent = np.repeat(np.arange(K, dtype=np.int64), lens)
@@ -72,8 +93,9 @@ def build_device_inverted_lists(ivf: InvertedLists, vec2doc: np.ndarray,
     cd = np.unique(cent * np.int64(nd) + docs)
     ci, di = cd // nd, cd % nd
     counts = np.bincount(ci, minlength=K)
-    cap = max(int(counts.max(initial=0)), 1)
-    kept = counts
+    full = int(counts.max(initial=0))
+    cap = max(full if list_cap <= 0 else min(int(list_cap), full), 1)
+    kept = np.minimum(counts, cap)
     group_starts = np.zeros(K, np.int64)
     np.cumsum(counts[:-1], out=group_starts[1:])
     pos = np.repeat(group_starts, kept) + ragged_arange(kept)
@@ -93,7 +115,8 @@ def build_device_inverted_lists(ivf: InvertedLists, vec2doc: np.ndarray,
         offsets=dev(ivf.offsets.astype(np.int32)),
         ids=dev(ivf.ids.astype(np.int32)),
         doc_lists=dev(doc_lists), doc_valid=dev(doc_valid),
-        doc_member=dev(doc_member), list_cap=cap, n_docs=int(n_docs))
+        doc_member=dev(doc_member), list_cap=cap,
+        overflow=int((counts - kept).sum()), n_docs=int(n_docs))
 
 
 def train_centroids(vectors: torch.Tensor, n_centroids: int,

@@ -21,9 +21,10 @@ provably the host path's and ``doc_member`` fits the gather cap
 65,536 docs, and larger corpora take the host path. Index arrays the
 search reads live on the index's device; the IVF bookkeeping is host
 numpy, as in the reference. ``PLAIDIndex.add_flat`` encodes new docs
-with the index's codec and appends them; ``delete`` compacts (doc ids
-shift). Both drop the cached device views (the packed view and the
-device IVF), so the next search plans on the new lists. The device
+with the index's codec and appends them (``add`` takes the reference's
+list of per-doc arrays); ``delete`` compacts (doc ids shift). Both drop
+the cached device views (the packed view and the device IVF), so the
+next search plans on the new lists. The device
 path's stages run inside ``torch.profiler`` ranges named ``search.*``
 (no cost without a profiler), so a trace splits one batch's time by
 stage. ``plaid_search_batch`` and ``plaid_search`` run the four stages
@@ -143,11 +144,17 @@ class PLAIDIndex:
         ids, _, mask = self.padded_packed()
         return ids, mask
 
-    def device_ivf(self) -> DeviceInvertedLists:
-        """Cached exact device IVF."""
+    def device_ivf(self, list_cap: int = 0) -> DeviceInvertedLists:
+        """Cached exact device IVF (``list_cap=0``), what the device
+        candidate path reads; a capped view (``list_cap > 0``, for
+        footprint experiments) is built anew and bypasses the cache."""
+        if list_cap:
+            return build_device_inverted_lists(
+                self.ivf, self.vec2doc, self.n_docs, list_cap,
+                device=self.device)
         if self._device_ivf is None:
             self._device_ivf = build_device_inverted_lists(
-                self.ivf, self.vec2doc, self.n_docs, self.device)
+                self.ivf, self.vec2doc, self.n_docs, device=self.device)
         return self._device_ivf
 
     def _invalidate(self) -> None:
@@ -155,6 +162,16 @@ class PLAIDIndex:
         self._device_ivf = None
 
     # ------------------------------------------------------------------ CRUD
+    def add(self, doc_vectors) -> np.ndarray:
+        """Append docs given as a list of [n_i, dim] arrays or tensors (the
+        reference's form) -> their new ids; ``add_flat`` of their rows."""
+        dim = self.codec.dim
+        flat = (torch.cat([torch.as_tensor(v).to(self.device, torch.float32)
+                           .reshape(-1, dim) for v in doc_vectors])
+                if len(doc_vectors) else
+                torch.zeros((0, dim), device=self.device))
+        return self.add_flat(flat, [len(v) for v in doc_vectors])
+
     def add_flat(self, flat: torch.Tensor, lens) -> np.ndarray:
         """Append docs given as doc-major rows [sum(lens), dim] and per-doc
         counts: encoded on the device with the index's codec, the IVF
@@ -195,18 +212,30 @@ class PLAIDIndex:
         self.recon = None
         self._invalidate()
 
+    def device_bytes_detail(self) -> dict:
+        """Device bytes of the query-time doc representation, by the
+        reference's rules: ``packed`` the [n, L] ids (4 B), [n, L, W]
+        words (4 B each) and [n, L] mask (1 B) of ``padded_packed``, from
+        shapes whether or not the view is built; ``codec`` the centroid,
+        cutoff and value tables; ``recon`` the reconstruction store while
+        it is built (``DocStore.device_nbytes``: the port counts its flat
+        rows too, which live on the card); ``ivf`` the device IVF while
+        it is built."""
+        n = max(self.n_docs, 1)
+        W = self.codes.shape[1]
+        return {
+            "packed": n * self._padded_len() * (4 + 4 * W + 1),
+            "codec": sum(t.numel() * t.element_size()
+                         for t in (self.codec.centroids, self.codec.cutoffs,
+                                   self.codec.values)),
+            "recon": (self.recon.device_nbytes()
+                      if self.recon is not None else 0),
+            "ivf": (self._device_ivf.device_bytes()
+                    if self._device_ivf is not None else 0),
+        }
+
     def device_bytes(self) -> int:
-        total = sum(t.numel() * t.element_size()
-                    for t in (self.codec.centroids, self.codec.cutoffs,
-                              self.codec.values))
-        if self._packed_padded is not None:
-            total += sum(t.numel() * t.element_size()
-                         for t in self._packed_padded)
-        if self._device_ivf is not None:
-            total += self._device_ivf.device_bytes()
-        if self.recon is not None:
-            total += self.recon.device_nbytes()
-        return total
+        return sum(self.device_bytes_detail().values())
 
 
 def build_plaid_index(flat: torch.Tensor, lens: np.ndarray,
@@ -257,18 +286,20 @@ def _centroid_scores_batch(qs: torch.Tensor,
 
 def device_probe_plan(index: PLAIDIndex, Lq: int, nprobe: int, ndocs: int,
                       probe_kernel: str = "auto"):
-    """``(use_device, (div, k, c_score, s_out))`` — the reference's plan
-    (the port's IVF view is always exact): the device path is taken only
-    when the dense corpus-wide dispatch is unreachable for every possible
-    candidate count and, under ``"auto"``, ``doc_member`` is under the
-    gather cap; ``"host"`` always refuses it. ``c_score`` is the static
-    stage-2/3 width, ``s_out`` the rerank slate width."""
+    """``(use_device, (div, k, c_score, s_out))`` — the reference's plan:
+    the device path is taken only on an exact IVF view (``overflow ==
+    0``), when the dense corpus-wide dispatch is unreachable for every
+    possible candidate count and, under ``"auto"``, ``doc_member`` is
+    under the gather cap; ``"host"`` always refuses it. ``c_score`` is
+    the static stage-2/3 width, ``s_out`` the rerank slate width."""
     if probe_kernel not in PROBE_KERNELS:
         raise ValueError(f"probe_kernel must be one of {PROBE_KERNELS}, "
                          f"got {probe_kernel!r}")
     if probe_kernel == "host" or index.n_vectors == 0 or index.n_docs == 0:
         return False, None
     div = index.device_ivf()
+    if div.overflow != 0:
+        return False, None
     n_docs = index.n_docs
     k = min(nprobe, index.codec.n_centroids)
     W = max(Lq, 1) * k * div.list_cap

@@ -18,6 +18,8 @@ only ``sum(counts)`` rows and the counts leave the card
 (``compact_pooled_finish``; ``compaction_transfer_stats`` sums the
 bytes). ``begin`` queues the work and the counts' copy without waiting,
 so the indexer finishes batch i while batch i+1 runs.
+``compact_pooled`` returns the reference's per-doc numpy list;
+``compact_pooled_flat`` keeps the rows on the device with the counts.
 """
 from __future__ import annotations
 
@@ -70,11 +72,17 @@ def _mean_pool_by_assign(x: torch.Tensor, mask: torch.Tensor,
 
 def pool_doc_embeddings(x: torch.Tensor, mask: torch.Tensor, factor: int,
                         method: str = "ward", renormalize: bool = True,
-                        impl: str = "auto"
+                        ward_kernel: str = "auto", impl: str = "auto"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, N, d] token embeddings, mask [B, N] -> (pooled [B, N, d]
     scattered into slots (zero rows where no cluster lives),
-    pooled_mask [B, N])."""
+    pooled_mask [B, N]). ``ward_kernel`` is the reference's: Ward's
+    implementation, one of ``WARD_IMPLS``. ``impl="ref"`` runs every
+    method's kernel as its plain version (Ward's and k-means'); either
+    one at ``"ref"`` gives the plain Ward."""
+    if ward_kernel not in ward_ops.WARD_IMPLS:
+        raise ValueError(f"ward_kernel must be one of {ward_ops.WARD_IMPLS}, "
+                         f"got {ward_kernel!r}")
     if method not in POOL_METHODS:
         raise ValueError(f"unknown pooling method {method!r}")
     if method == "none" or factor <= 1:
@@ -86,7 +94,8 @@ def pool_doc_embeddings(x: torch.Tensor, mask: torch.Tensor, factor: int,
     N = x.shape[1]
     if method == "ward":
         # assign ids live in [0, N) (representative token index)
-        assign = ward_ops.ward_assign(x, mask, factor, impl=impl)
+        ward_impl = "ref" if "ref" in (impl, ward_kernel) else ward_kernel
+        assign = ward_ops.ward_assign(x, mask, factor, impl=ward_impl)
         return _mean_pool_by_assign(x, mask, assign, N, renormalize)
     if method == "sequential":
         assign = sequential_assign(mask, factor)
@@ -193,8 +202,8 @@ def compact_pooled_finish(ticket: CompactionTicket) -> List[np.ndarray]:
     return np.split(host, np.cumsum(counts[:-1]))
 
 
-def compact_pooled(pooled: torch.Tensor, pooled_mask: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def compact_pooled_flat(pooled: torch.Tensor, pooled_mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop empty slots on the device: -> (flat [sum(counts), d] rows
     doc-major in slot order, counts [B] int64), through the validity
     sort of ``compact_pooled_begin``: the host waits for the counts'
@@ -203,6 +212,24 @@ def compact_pooled(pooled: torch.Tensor, pooled_mask: torch.Tensor
     ticket = compact_pooled_begin(pooled, pooled_mask)
     rows, _ = ticket.device_rows()
     return rows, ticket.counts.long()
+
+
+def compact_pooled(pooled, pooled_mask) -> List[np.ndarray]:
+    """Drop empty slots -> the reference's list of per-doc [n_i, d]
+    numpy arrays (``[]`` for an empty batch). Tensors go through
+    ``compact_pooled_begin`` / ``compact_pooled_finish`` (only the valid
+    rows and the counts leave the card); numpy inputs take the boolean
+    gather. Both give the same arrays, ``np.split`` views on the
+    cumulative counts."""
+    if pooled.shape[0] == 0:
+        return []
+    if torch.is_tensor(pooled) and torch.is_tensor(pooled_mask):
+        return compact_pooled_finish(compact_pooled_begin(pooled,
+                                                          pooled_mask))
+    pooled = np.asarray(pooled)
+    pooled_mask = np.asarray(pooled_mask).astype(bool)
+    counts = pooled_mask.sum(axis=1)
+    return np.split(pooled[pooled_mask], np.cumsum(counts[:-1]))
 
 
 def vector_counts(mask: torch.Tensor, pooled_mask: torch.Tensor):

@@ -173,8 +173,9 @@ class PoolingSpec(_SpecBase):
     """Which pooling method, at what factor. ``factor <= 1`` is the
     identity (the unpooled baseline) regardless of ``method``.
     ``ward_kernel`` is a runtime choice, never persisted: ``"ref"`` pools
-    Ward through the plain version, ``"auto"`` / ``"kernel"`` through the
-    ``ward_pool`` kernel on the card."""
+    Ward through the plain version, ``"auto"`` through the ``ward_pool``
+    kernel on the card (the plain version on the CPU), ``"kernel"``
+    through the kernel or, off the card, raises."""
     method: str = field(default="ward", metadata={
         "help": "token pooling method", "choices": pooling_methods})
     factor: int = field(default=1, metadata={
@@ -200,8 +201,12 @@ class PoolingSpec(_SpecBase):
             return _builtin_strategy("none")(x, mask, 1)
         if self.method in _POOLING_REGISTRY:
             return _POOLING_REGISTRY[self.method](x, mask, int(self.factor))
-        if self.method == "ward" and self.ward_kernel == "ref":
-            impl = "ref"
+        if self.method == "ward":
+            # the builtin Ward carries the kernel/ref toggle
+            from repro_torch.core.pooling import pool_doc_embeddings
+            return pool_doc_embeddings(x, mask, int(self.factor), "ward",
+                                       ward_kernel=self.ward_kernel,
+                                       impl=impl)
         return pooling_strategy(self.method)(x, mask, int(self.factor),
                                              impl=impl)
 

@@ -7,7 +7,9 @@ tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises; given ``meta`` tensors (shapes only, as the dry run
 traces a step) it traces the plain version, since no kernel runs on
 ``meta``. ``impl="ref"`` forces the plain version — only the
-tests and ``chip_smoke.py`` pass it.
+tests and ``chip_smoke.py`` pass it. ``ward_pool`` and ``plaid_probe``
+also take the reference's ``impl="kernel"``, which launches the kernel
+on a CUDA tensor and raises on any other.
 
 The package exports the reference's five wrappers under its names
 (``repro.kernels.__all__``). Three of them are also the names of
@@ -71,15 +73,24 @@ class LaunchCounter:
             self.count = 0
 
 
-def check_impl(impl: str) -> None:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+def check_impl(impl: str, impls=IMPLS) -> None:
+    if impl not in impls:
+        raise ValueError(f"impl must be one of {impls}, got {impl!r}")
 
 
-def plain_version(impl: str, t) -> bool:
+def plain_version(impl: str, t, name: str = "") -> bool:
     """True where a wrapper runs its plain version: ``impl="ref"``, or
     ``t`` on the CPU or on ``meta`` (a trace). Anything else takes the
-    kernel's route, which launches on CUDA or raises."""
+    kernel's route, which launches on CUDA or raises. ``impl="kernel"``
+    (``ward_pool`` and ``plaid_probe`` take it, as the reference's do)
+    forces the kernel: on a CPU or ``meta`` tensor it raises, since the
+    kernel runs only on the card."""
+    if impl == "kernel":
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name}: impl='kernel' forces the CUDA kernel, which runs "
+                f"only on the card; the input is on {t.device}")
+        return False
     return impl == "ref" or t.device.type in ("cpu", "meta")
 
 

@@ -2,7 +2,8 @@
 
 Same argument layout as ``src/repro/kernels/plaid_probe/ops.py``
 ``plaid_probe_scores``. CPU tensors (or ``impl="ref"``) run the plain
-version; CUDA tensors launch the kernel on the current stream or raise.
+version; CUDA tensors launch the kernel on the current stream or raise;
+``impl="kernel"`` launches it or raises.
 A launch takes at most ``MAX_LQ`` query tokens; longer queries are split
 into chunks, one launch each, and the partial scores summed. A launch
 runs two kernels (the [Lq, K] table once per query into a scratch, then
@@ -25,6 +26,7 @@ from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
 from repro_torch.kernels.plaid_probe.ref import plaid_probe_ref
 
 LAUNCHES = LaunchCounter()
+PROBE_IMPLS = ("auto", "kernel", "ref")
 _NAME = "plaid_probe"
 _SMEM_LIMIT = 232448
 MAX_LQ = 128                # query tokens a launch (csrc: 32 * MAX_R)
@@ -66,10 +68,12 @@ def plaid_probe_scores(q, q_mask, centroids, codes, code_mask, cand_mask, *,
     codes [Nq, C, L] int32 centroid ids; code_mask [Nq, C, L] bool;
     cand_mask [Nq, C] bool -> approx scores [Nq, C] f32 (-inf invalid).
     ``route`` overrides ``probe_route``'s choice and ``chunk`` the query
-    tokens a launch (at most ``MAX_LQ``), to time one against another."""
-    check_impl(impl)
+    tokens a launch (at most ``MAX_LQ``), to time one against another.
+    ``impl`` is one of ``PROBE_IMPLS``: ``"kernel"`` launches as
+    ``"auto"`` does on the card and raises on any other device."""
+    check_impl(impl, PROBE_IMPLS)
     check_inputs(_NAME, q, q_mask, centroids, codes, code_mask, cand_mask)
-    if plain_version(impl, q):
+    if plain_version(impl, q, _NAME):
         return plaid_probe_ref(q, q_mask, centroids, codes, code_mask,
                                cand_mask, t_cs=t_cs)
     if q.device.type != "cuda":

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
                                  check_impl, check_inputs, plain_version)
-from repro_torch.kernels.quant.ref import dequant_score_ref
+from repro_torch.kernels.quant.ref import dequant_score_ids_ref
 
 LAUNCHES = LaunchCounter()
 _NAME = "dequant_score"
@@ -44,8 +44,8 @@ def dequant_score(words, centroid_ids, centroids, values, q, *,
     check_impl(impl)
     check_inputs(_NAME, words, centroid_ids, centroids, values, q)
     if plain_version(impl, words):
-        return dequant_score_ref(words, centroid_ids, centroids, values, q,
-                                 bits)
+        return dequant_score_ids_ref(words, centroid_ids, centroids, values,
+                                     q, bits)
     if words.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {words.device}")
     for key, t, dt in (("words", words, torch.int32),

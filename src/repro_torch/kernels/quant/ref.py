@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the packed-code primitives.
 
 Counterparts of ``src/repro/kernels/quant/ref.py`` ``unpack_ref`` and
-``dequant_score_ref``, and of the decode half of
-``kernels/maxsim_packed/ref.py``; ``dequant_score_3xtf32_ref`` repeats
+``dequant_score_ref`` (pre-gathered centroid rows), and of the decode
+half of ``kernels/maxsim_packed/ref.py``; ``dequant_score_ids_ref``
+gathers the rows from centroid ids (the wrapper's plain version);
+``dequant_score_3xtf32_ref`` repeats
 the ``dequant_score`` kernel's products (3xTF32) on the CPU and is
 called by the tests only. Packed words are
 held as ``torch.int32`` tensors carrying the uint32 bit pattern: ``>>``
@@ -27,26 +29,43 @@ def unpack_ref(words: torch.Tensor, bits: int, dim: int) -> torch.Tensor:
     return c.reshape(words.shape[0], dim).long()
 
 
+def _reconstruct(words: torch.Tensor, centroid_rows: torch.Tensor,
+                 values: torch.Tensor, bits: int) -> torch.Tensor:
+    """words [M, W], centroid_rows [M, dim] -> [M, dim] unit
+    reconstructions: centroid row + per-dimension bucket value,
+    renormalized by max(||v||, 1e-9)."""
+    dim = centroid_rows.shape[1]
+    codes = unpack_ref(words, bits, dim)                          # [M, dim]
+    res = values[torch.arange(dim, device=words.device)[None, :], codes]
+    v = centroid_rows + res
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=1e-9)
+
+
 def decode_rows_ref(words: torch.Tensor, ids: torch.Tensor,
                     centroids: torch.Tensor, values: torch.Tensor,
                     bits: int) -> torch.Tensor:
     """words [M, W], ids [M] -> [M, dim] unit reconstructions: centroid
     row + per-dimension bucket value, renormalized by max(||v||, 1e-9)."""
-    dim = centroids.shape[1]
-    codes = unpack_ref(words, bits, dim)                          # [M, dim]
-    res = values[torch.arange(dim, device=words.device)[None, :], codes]
-    v = centroids[ids.long()] + res
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                           min=1e-9)
+    return _reconstruct(words, centroids[ids.long()], values, bits)
 
 
-def dequant_score_ref(words: torch.Tensor, centroid_ids: torch.Tensor,
-                      centroids: torch.Tensor, values: torch.Tensor,
-                      q: torch.Tensor, bits: int) -> torch.Tensor:
-    """Counterpart of ``src/repro/kernels/quant/ref.py``
-    ``dequant_score_ref`` with the centroid gather inside: words [M, W],
-    centroid_ids [M] -> sims [M, Lq] f32 of the unit-renormalized
-    reconstructions against q [Lq, dim]."""
+def dequant_score_ref(words: torch.Tensor, centroid_rows: torch.Tensor,
+                      values: torch.Tensor, q: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """The reference's form: words [M, W], centroid_rows [M, dim] (the
+    coarse centroids, gathered), values [dim, 2^bits], q [Lq, dim] ->
+    sims [M, Lq] f32 of the unit-renormalized reconstructions."""
+    v = _reconstruct(words, centroid_rows.float(), values.float(), bits)
+    return v @ q.float().T
+
+
+def dequant_score_ids_ref(words: torch.Tensor, centroid_ids: torch.Tensor,
+                          centroids: torch.Tensor, values: torch.Tensor,
+                          q: torch.Tensor, bits: int) -> torch.Tensor:
+    """``dequant_score_ref`` with the centroid gather inside, the
+    ``dequant_score`` wrapper's arguments (its plain version): words
+    [M, W], centroid_ids [M] -> sims [M, Lq] f32."""
     v = decode_rows_ref(words, centroid_ids, centroids.float(),
                         values.float(), bits)
     return v @ q.float().T

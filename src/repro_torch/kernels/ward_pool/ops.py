@@ -8,7 +8,7 @@ mask as ``ward_targets`` does. The kernel keeps a document's distance
 triangle in shared memory up to 330 tokens; above that the wrapper gives
 it a [B, N(N-1)/2] scratch in device memory. CPU tensors (or
 ``impl="ref"``) run the plain version; CUDA tensors launch the kernel on
-the current stream or raise.
+the current stream or raise; ``impl="kernel"`` launches it or raises.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.kernels import (LaunchCounter, build, check_cuda, check_dtype,
 from repro_torch.kernels.ward_pool import ref as ward_ref
 
 LAUNCHES = LaunchCounter()
+WARD_IMPLS = ("auto", "kernel", "ref")
 _NAME = "ward_pool"
 _lib = None
 
@@ -41,10 +42,12 @@ def _load():
 
 def ward_assign(x, mask, factor: int, *, impl: str = "auto"):
     """x [B, N, d] float; mask [B, N] bool -> assign [B, N] int32, each
-    valid token's cluster representative (lowest token index)."""
-    check_impl(impl)
+    valid token's cluster representative (lowest token index).
+    ``impl`` is one of ``WARD_IMPLS``: ``"kernel"`` launches as
+    ``"auto"`` does on the card and raises on any other device."""
+    check_impl(impl, WARD_IMPLS)
     check_inputs(_NAME, x, mask)
-    if plain_version(impl, x):
+    if plain_version(impl, x, _NAME):
         return ward_ref.ward_assign_ref(x, mask, factor)
     if x.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x.device}")

@@ -35,6 +35,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -82,6 +83,13 @@ class EncodedDocs:
             v, emit = encode_docs(model, _upload(chunk, model.device))
             batches.append((v, emit, n_real))
         return cls(batches, n_docs=N, encode_batch=B)
+
+    def nbytes(self) -> int:
+        """Device bytes held by the cached encodes: every batch's vectors
+        and emit mask."""
+        return sum(v.numel() * v.element_size()
+                   + emit.numel() * emit.element_size()
+                   for v, emit, _ in self.batches)
 
 
 @dataclass
@@ -186,21 +194,48 @@ class _StageClock:
 class Indexer:
     def __init__(self, model: ColBERT, index_spec: Optional[IndexSpec] = None,
                  pooling_spec: Optional[PoolingSpec] = None,
-                 encode_batch: int = 64, device: DeviceLike = None):
+                 encode_batch: int = 64, device: DeviceLike = None, *,
+                 pool_method: Optional[str] = None,
+                 pool_factor: Optional[int] = None,
+                 backend: Optional[str] = None, **index_kw):
+        """The typed surface is ``index_spec`` / ``pooling_spec``. The
+        reference's shorthand ``pool_method`` / ``pool_factor`` /
+        ``backend`` builds the same specs (the rest from the model's
+        config); a shorthand beside its spec raises ``TypeError``. Raw
+        ``**index_kw`` construction knobs are deprecated in favour of
+        ``index_spec=IndexSpec(...)``, as in the reference."""
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, indexer on "
                              f"{self.device}")
         self.model = model
         self.cfg = model.cfg
-        self.index_spec = index_spec or IndexSpec.from_config(model.cfg)
+        if index_spec is not None and (backend is not None or index_kw):
+            raise TypeError("pass either index_spec or loose "
+                            "backend/**index_kw knobs, not both")
+        if pooling_spec is not None and (pool_method is not None
+                                         or pool_factor is not None):
+            raise TypeError("pass either pooling_spec or loose "
+                            "pool_method/pool_factor knobs, not both")
+        if index_kw:
+            warnings.warn(
+                "Indexer(**index_kw) is deprecated; pass "
+                "index_spec=repro_torch.IndexSpec(...) (see "
+                "repro_torch.core.spec)", DeprecationWarning, stacklevel=2)
+        self.index_spec = index_spec or IndexSpec.from_config(
+            model.cfg, backend=backend, **index_kw)
         if self.index_spec.backend not in BACKENDS:
             raise ValueError(
                 f"Indexer builds {BACKENDS} indexes; backend "
                 f"{self.index_spec.backend!r} builds through "
                 f"repro_torch.Retriever")
         self.pooling = pooling_spec or PoolingSpec(
-            method=model.cfg.pool_method, factor=model.cfg.pool_factor)
+            method=pool_method or model.cfg.pool_method,
+            factor=max(int(pool_factor if pool_factor is not None
+                           else model.cfg.pool_factor), 1))
+        # the reference's attribute surface
+        self.pool_method = self.pooling.method
+        self.pool_factor = self.pooling.factor
         self.backend = self.index_spec.backend
         self.encode_batch = int(encode_batch)
 

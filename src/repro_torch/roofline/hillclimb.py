@@ -21,6 +21,8 @@ import sys
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.roofline.run import EXTRAPOLATED
 
+DOC = __doc__                       # the reference's name for the usage text
+
 # variant -> dict(cfg=..., rules=..., note=...)
 VARIANTS = {
     # Megatron-style sequence parallelism: residual-stream activations
@@ -123,7 +125,7 @@ def run_variant(arch: str, cell: str, variant: str, *, unroll_L=(2, 4),
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=DOC.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--cell", required=True)
     ap.add_argument("--variant", required=True, choices=sorted(VARIANTS))

@@ -10,12 +10,13 @@ over it, against the JAX package's.
 * over Ward-pooled batches at f = 2, 3 and 4: the compact share of the
   padded bytes at most 1/f + 1/64 (``benchmarks/index_bench.py``'s
   gate), equal in both packages;
-* ``compact_pooled`` unchanged: the boolean gather's rows and counts,
-  bit for bit;
+* ``compact_pooled_flat`` (the port's tuple form, ``compact_pooled``
+  before it took the reference's list) unchanged: the boolean gather's
+  rows and counts, bit for bit;
 * ``Indexer.encode_and_pool_counted`` (pipelined) on the SMOKE encoder
   in f32 with the JAX weights (``params_from_jax``): rows, per-doc
   counts and raw count bitwise those of a serial loop compacting each
-  batch with ``compact_pooled``; against the JAX indexer, counts and raw
+  batch with ``compact_pooled_flat``; against the JAX indexer, counts and raw
   count equal and rows within 1e-6 (f32 sums in another order), for a
   ragged last batch and for one batch; a host pooling strategy (arrays)
   takes the synchronous path with the same result;
@@ -128,11 +129,11 @@ def test_compact_share_at_most_one_over_factor(factor, fresh_stats):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_compact_pooled_unchanged(case):
-    """The boolean gather's output (the port's former ``compact_pooled``)
-    bit for bit: rows, counts and their dtype."""
+    """``compact_pooled_flat``: the boolean gather's output bit for bit,
+    rows, counts and their dtype."""
     x, m = _batch(*CASES[case])
     xt, mt = torch.from_numpy(x), torch.from_numpy(m)
-    flat, counts = tpool.compact_pooled(xt, mt)
+    flat, counts = tpool.compact_pooled_flat(xt, mt)
     assert torch.equal(flat, xt[mt]) and flat.shape == xt[mt].shape
     assert counts.dtype == torch.int64
     assert torch.equal(counts, mt.sum(dim=1))
@@ -155,8 +156,8 @@ def encoders():
 
 
 def _serial(indexer, docs):
-    """The loop before the pipeline: encode, pool and ``compact_pooled``
-    each batch in turn."""
+    """The loop before the pipeline: encode, pool and
+    ``compact_pooled_flat`` each batch in turn."""
     rows, counts, raw = [], [], 0
     B = indexer.encode_batch
     for lo in range(0, len(docs), B):
@@ -167,7 +168,7 @@ def _serial(indexer, docs):
         pooled, pmask = indexer.pooling.apply(v, emit)
         if not torch.is_tensor(pooled):
             pooled, pmask = torch.as_tensor(pooled), torch.as_tensor(pmask)
-        flat, cnt = tpool.compact_pooled(pooled[:n], pmask[:n])
+        flat, cnt = tpool.compact_pooled_flat(pooled[:n], pmask[:n])
         rows.append(flat)
         counts.append(cnt)
         raw += int(emit[:n].sum())

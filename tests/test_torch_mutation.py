@@ -243,7 +243,7 @@ def test_index_crud(backend):
 def test_docstore_delete_is_lazy_and_views_stay():
     rng = np.random.default_rng(6)
     docs = _docs(rng, 6)
-    store = DocStore(DIM, 8)
+    store = DocStore(DIM, 8, device="cpu")
     store.add([torch.from_numpy(d) for d in docs])
     view = store.padded()
     store.delete([1, 4])

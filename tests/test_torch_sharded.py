@@ -273,7 +273,8 @@ def test_sharded_equals_monolithic_pooled(seed, backend, method, factor):
     """Docs made by the port's pooling stage (every method's geometry:
     short docs, renormalized means), 2-4 shards: the port's sharded
     search equals the port's and the JAX package's monolithic index."""
-    from repro_torch.core.pooling import compact_pooled, pool_doc_embeddings
+    from repro_torch.core.pooling import (compact_pooled_flat,
+                                          pool_doc_embeddings)
     rng = np.random.default_rng(seed)
     n_docs, N = int(rng.integers(6, 24)), 20
     x = rng.normal(size=(n_docs, N, DIM)).astype(np.float32)
@@ -282,7 +283,7 @@ def test_sharded_equals_monolithic_pooled(seed, backend, method, factor):
     pooled, pmask = pool_doc_embeddings(torch.from_numpy(x),
                                         torch.from_numpy(mask), factor,
                                         method)
-    flat, counts = compact_pooled(pooled, pmask)
+    flat, counts = compact_pooled_flat(pooled, pmask)
     docs = [d.numpy() for d in torch.split(flat, counts.tolist())]
     qs = unit_queries(rng, n=4)
     n_shards = 2 + seed % 3

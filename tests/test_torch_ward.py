@@ -13,7 +13,8 @@ import torch
 
 from repro.core.pooling import pool_doc_embeddings as j_pool
 from repro.core.ward import ward_cluster_batch as j_ward
-from repro_torch.core.pooling import compact_pooled, pool_doc_embeddings
+from repro_torch.core.pooling import (compact_pooled_flat,
+                                      pool_doc_embeddings)
 from repro_torch.core.ward import ward_cluster_batch
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.ward_pool.ops import ward_assign
@@ -47,7 +48,7 @@ def test_ward_pooling_matches_reference(factor):
                                  factor, "ward")
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5)
-    flat, counts = compact_pooled(tp, tm)
+    flat, counts = compact_pooled_flat(tp, tm)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jm).sum(1))
     np.testing.assert_allclose(flat.numpy(), np.asarray(jp)[np.asarray(jm)],
                                atol=1e-5)
