@@ -1,0 +1,6 @@
+"""``ward_pool``'s bound time over its device time (``bench/roofline.py``)."""
+from bench.roofline import share
+
+
+def read(ctx):
+    return share(ctx, "ward_pool")
