@@ -36,7 +36,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.docstore import DocStore, pad_candidate_sets
 from repro_torch.core.hnsw import HNSW
@@ -50,6 +49,7 @@ from repro_torch.core.plaid import (PLAIDIndex, PROBE_KERNELS,
 from repro_torch.core.quantization import ResidualCodec, train_codec
 from repro_torch.core.spec import BACKENDS, INDEX_PARAM_KEYS
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.trace import span
 
 # construction knobs shared by persistence and sharding: the defining
 # copy is ``core/spec.py``'s, re-exported under the reference's names
@@ -198,8 +198,10 @@ class MultiVectorIndex:
         codec = self._preset_codec
         if codec is None:
             k = min(self.n_centroids, len(flat))
-            centroids = train_centroids(flat, k)
-            codec = train_codec(flat, centroids, bits=self.quant_bits)
+            with span("build.kmeans"):
+                centroids = train_centroids(flat, k)
+            with span("build.codec"):
+                codec = train_codec(flat, centroids, bits=self.quant_bits)
         codec = ResidualCodec(
             centroids=torch.as_tensor(codec.centroids, device=self.device),
             cutoffs=torch.as_tensor(codec.cutoffs, device=self.device),
@@ -333,7 +335,7 @@ class MultiVectorIndex:
             return (np.full((Nq, k), -np.inf, np.float32),
                     np.full((Nq, k), -1, np.int64))
         scores, cand = self.scored_candidates(qs, q_mask, impl)
-        with record_function("search.topk"):
+        with span("search.topk"):
             return topk_with_pads(scores, cand, k)
 
     def candidate_widths(self, qs) -> Tuple[List[int], bool]:

@@ -21,10 +21,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.kernels.maxsim import ops as maxsim_ops
 from repro_torch.sharding.api import constrain
+from repro_torch.trace import count, span
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +50,9 @@ def topk_with_pads(scores: torch.Tensor, cand: Optional[torch.Tensor],
     top_s, top_i = stable_topk(scores, kk)
     ids = top_i if cand is None else torch.gather(cand, 1, top_i)
     top_s = top_s.float().cpu().numpy()
+    count("search.host_reads", 1)
     ids = ids.long().cpu().numpy()
+    count("search.host_reads", 1)
     ids = np.where(np.isfinite(top_s), ids, -1)
     if kk < k:
         top_s = np.pad(top_s, ((0, 0), (0, k - kk)), constant_values=-np.inf)
@@ -157,7 +159,7 @@ def maxsim_rerank_store(store, q, q_mask, cand, cand_mask, *,
     plain = impl == "ref" or q.device.type != "cuda"
     width = slab if plain else max(cand.shape[1], 1)
     parts = []
-    with record_function("search.maxsim_rerank"):
+    with span("search.maxsim_rerank"):
         for lo in range(0, cand.shape[1], width):
             c = cand[:, lo:lo + width]
             cm = cand_mask[:, lo:lo + width]

@@ -37,7 +37,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.docstore import (DocStore, pad_candidate_sets,
                                        padded_scatter_index, ragged_arange)
@@ -48,6 +47,7 @@ from repro_torch.core.maxsim import stable_topk, topk_with_pads
 from repro_torch.core.quantization import ResidualCodec, decode, encode
 from repro_torch.kernels.maxsim_packed.ops import maxsim_packed_rerank
 from repro_torch.kernels.plaid_probe.ops import plaid_probe_scores
+from repro_torch.trace import count, counting_open, span
 
 _CAND_BLOCK = 32       # candidate-axis padding granularity
 PROBE_KERNELS = ("auto", "device", "host")
@@ -244,13 +244,14 @@ def build_plaid_index(flat: torch.Tensor, lens: np.ndarray,
     """flat [n_vectors, dim] doc-major vectors, lens [n_docs] per-doc
     counts -> index (encode on the vectors' device, IVF on the host)."""
     lens = np.asarray(lens, np.int64)
-    a, w = encode(codec, flat)
+    with span("build.codes"):
+        a, w = encode(codec, flat)
     doc_offsets = np.zeros(len(lens) + 1, np.int64)
     np.cumsum(lens, out=doc_offsets[1:])
+    with span("build.ivf"):
+        ivf = build_inverted_lists(a.cpu().numpy(), codec.n_centroids)
     return PLAIDIndex(
-        codec=codec,
-        ivf=build_inverted_lists(a.cpu().numpy(), codec.n_centroids),
-        assignments=a, codes=w,
+        codec=codec, ivf=ivf, assignments=a, codes=w,
         vec2doc=np.repeat(np.arange(len(lens)), lens),
         doc_offsets=doc_offsets, doc_maxlen=doc_maxlen)
 
@@ -346,7 +347,7 @@ def _device_candidates(cs, qs, qm, doc_member, live, codes, tok_mask,
     Nq = cs.shape[0]
     n_docs = live.shape[0]
     dev = cs.device
-    with record_function("search.probe_members"):
+    with span("search.probe_members"):
         member, counts = probe_members(cs, qm, doc_member, live, k)
         pos = torch.cumsum(member, dim=1) - 1
         tpos = torch.where(member, pos, torch.full_like(pos, c_score))
@@ -358,16 +359,20 @@ def _device_candidates(cs, qs, qm, doc_member, live, codes, tok_mask,
         mask_c = torch.arange(c_score, device=dev)[None, :] < counts[:, None]
 
     maxc = max(int(counts.max()), 1)                        # host sync
+    count("search.host_reads", 1)
     if _ladder(maxc) <= ndocs:
         return cand_c[:, :s_out], mask_c[:, :s_out]
     keep = min(ndocs, c_score)
-    with record_function("search.code_gather"):
+    if counting_open():
+        count("search.probe_slots", Nq * c_score)
+        count("search.probe_candidates", counts.sum())
+    with span("search.code_gather"):
         gcodes = codes[cand_c]                              # [Nq, C, L]
         gmask = tok_mask[cand_c] & mask_c[:, :, None]
-    with record_function("search.plaid_probe"):
+    with span("search.plaid_probe"):
         approx = plaid_probe_scores(qs, qm, centroids, gcodes, gmask, mask_c,
                                     t_cs=t_cs, impl=impl)
-    with record_function("search.prune"):
+    with span("search.prune"):
         top_s, top_i = stable_topk(approx, keep)
         cand_p = torch.gather(cand_c, 1, top_i)
         mask_p = torch.isfinite(top_s)
@@ -415,8 +420,13 @@ def _host_candidates(index: PLAIDIndex, cs, qs, qm, live, *, k: int,
     _, probe = stable_topk(cs.masked_fill(~qm[:, :, None], float("-inf")),
                            k)                               # [Nq, Lq, k]
     probe_valid = qm[:, :, None].expand(probe.shape).cpu().numpy()
-    cand, cmask = _gather_candidates(index, probe.cpu().numpy(), live,
-                                     probe_valid)
+    count("search.host_reads", 1)
+    probe = probe.cpu().numpy()
+    count("search.host_reads", 1)
+    cand, cmask = _gather_candidates(index, probe, live, probe_valid)
+    if cand.shape[1] > ndocs and counting_open():
+        count("search.probe_slots", cmask.size)
+        count("search.probe_candidates", int(cmask.sum()))
     cand = torch.from_numpy(cand).to(dev)
     cmask = torch.from_numpy(cmask).to(dev)
     if cand.shape[1] <= ndocs:
@@ -457,7 +467,7 @@ def plaid_candidates(index: PLAIDIndex, qs: torch.Tensor, nprobe: int = 8,
                                          probe_kernel)
     qm = (torch.ones((Nq, Lq), dtype=torch.bool, device=dev)
           if q_mask is None else q_mask.to(dev, torch.bool).contiguous())
-    with record_function("search.centroid_scores"):
+    with span("search.centroid_scores"):
         cs = _centroid_scores_batch(qs, index.codec.centroids)
     if not use_device:
         if isinstance(live, torch.Tensor):
@@ -493,10 +503,10 @@ def maxsim_packed_rerank_store(index: PLAIDIndex, q: torch.Tensor,
     for lo in range(0, cand.shape[1], slab):
         c = cand[:, lo:lo + slab]
         cm = cand_mask[:, lo:lo + slab]
-        with record_function("search.packed_gather"):
+        with span("search.packed_gather"):
             dm = tmask[c] & cm[:, :, None]
             w, a = words[c], ids[c]
-        with record_function("search.maxsim_packed"):
+        with span("search.maxsim_packed"):
             s = maxsim_packed_rerank(q, q_mask, w, a, dm, centroids, values,
                                      bits=codec.bits, impl=impl)
             parts.append(s.masked_fill(~cm, float("-inf")))

@@ -51,6 +51,7 @@ from repro_torch.core.quantization import ResidualCodec
 from repro_torch.core.spec import BACKENDS, IndexSpec, PoolingSpec
 from repro_torch.device import DeviceLike, resolve_device, sync
 from repro_torch.models.colbert import ColBERT, encode_docs
+from repro_torch.trace import span
 
 
 class EncodedDocs:
@@ -130,11 +131,12 @@ def _write_stats(out_dir: str, stats: IndexStats) -> None:
 def _build_views(index: MultiVectorIndex) -> None:
     """Build the device views search reads, so that the first query does
     not."""
-    if index._plaid is not None:
-        index._plaid.padded_packed()
-        index._plaid.device_ivf()
-    elif index._store is not None and index.n_docs:
-        index._store.padded()
+    with span("build.views"):
+        if index._plaid is not None:
+            index._plaid.padded_packed()
+            index._plaid.device_ivf()
+        elif index._store is not None and index.n_docs:
+            index._store.padded()
 
 
 def _upload(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -156,11 +158,13 @@ def _finished(done, raw: torch.Tensor, tag):
 
 
 class _StageClock:
-    """Seconds per build stage, added to ``times``. On the card: CUDA
-    events recorded around each stage's launches and read once, in
-    ``close`` (the device's time between them; nothing in the loop
+    """Seconds per build stage, added to ``times``, each stage inside the
+    span ``build.<stage>`` (``repro_torch/trace.py``). ``stage``: on the
+    card, CUDA events recorded around the stage's launches and read once,
+    in ``close`` (the device's time between them; nothing in the loop
     waits); on the CPU, where the work is done when a call returns, the
-    host clock."""
+    host clock. ``host_stage``: the host clock around work that ends
+    with the call (the index stage ends in a ``sync``)."""
 
     def __init__(self, device: torch.device,
                  times: Optional[Dict[str, float]]):
@@ -173,16 +177,24 @@ class _StageClock:
     @contextmanager
     def stage(self, name: str):
         if not self.cuda:
-            t0 = time.perf_counter()
-            yield
-            self.times[name] += time.perf_counter() - t0
+            with self.host_stage(name):
+                yield
             return
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
+        with span("build." + name):
+            start.record()
+            yield
+            end.record()
         self.marks.append((name, start, end))
+
+    @contextmanager
+    def host_stage(self, name: str):
+        with span("build." + name):
+            t0 = time.perf_counter()
+            yield
+            self.times[name] = (self.times.get(name, 0.0)
+                                + time.perf_counter() - t0)
 
     def close(self) -> None:
         for name, start, end in self.marks:
@@ -346,22 +358,21 @@ class Indexer:
         times: Dict[str, float] = {}
         flat, counts, raw = self.encode_and_pool_counted(doc_tokens, impl,
                                                          times)
-        t0 = time.perf_counter()
-        index = MultiVectorIndex(dim=self.cfg.proj_dim, backend=self.backend,
-                                 device=self.device,
-                                 **self.index_spec.params())
-        if codec is not None:
-            index.set_codec(codec)
-        index.add_flat(flat, counts)
-        _build_views(index)
-        sync(self.device)
-        times["index"] = time.perf_counter() - t0
+        clock = _StageClock(self.device, times)
+        with clock.host_stage("index"):
+            index = MultiVectorIndex(dim=self.cfg.proj_dim,
+                                     backend=self.backend, device=self.device,
+                                     **self.index_spec.params())
+            if codec is not None:
+                index.set_codec(codec)
+            index.add_flat(flat, counts)
+            _build_views(index)
+            sync(self.device)
         if out_dir is not None:
-            t0 = time.perf_counter()
-            manifest = index.save(out_dir, extra_meta={
-                "pool": self.pooling.manifest_meta()})
-            index_bytes = artifact_bytes(manifest)
-            times["save"] = time.perf_counter() - t0
+            with clock.host_stage("save"):
+                manifest = index.save(out_dir, extra_meta={
+                    "pool": self.pooling.manifest_meta()})
+                index_bytes = artifact_bytes(manifest)
         else:
             index_bytes = serialized_nbytes(index)
         stats = IndexStats(n_docs=index.n_docs, n_vectors_raw=raw,

@@ -31,6 +31,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.colbert import ColBERT, encode_queries
 from repro_torch.core.sharded import ShardedIndex
 from repro_torch.retrieval.cascade import CascadeIndex
+from repro_torch.trace import count, span
 
 
 class Searcher:
@@ -60,15 +61,16 @@ class Searcher:
         """[Nq, L] raw ids -> [Nq, Lq, dim] on the model's device."""
         query_tokens = np.asarray(query_tokens)
         out = []
-        for lo in range(0, query_tokens.shape[0], self.encode_batch):
-            chunk = query_tokens[lo:lo + self.encode_batch]
-            n = chunk.shape[0]
-            pad = self.encode_batch - n
-            if pad:
-                chunk = np.pad(chunk, ((0, pad), (0, 0)))
-            v, _ = encode_queries(self.model, chunk)
-            out.append(v[:n])
-        return torch.cat(out)
+        with span("search.encode"):
+            for lo in range(0, query_tokens.shape[0], self.encode_batch):
+                chunk = query_tokens[lo:lo + self.encode_batch]
+                n = chunk.shape[0]
+                pad = self.encode_batch - n
+                if pad:
+                    chunk = np.pad(chunk, ((0, pad), (0, 0)))
+                v, _ = encode_queries(self.model, chunk)
+                out.append(v[:n])
+            return torch.cat(out)
 
     def encode(self, query_tokens: np.ndarray) -> torch.Tensor:
         """Deprecated alias of ``encode_queries``."""
@@ -86,7 +88,9 @@ class Searcher:
     def search_encoded(self, query_vectors: torch.Tensor, k: int = 10,
                        impl: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
         """Pre-encoded [Nq, Lq, dim] -> (scores [Nq, k], ids [Nq, k])."""
-        return self.index.search_batch(query_vectors, k=k, impl=impl)
+        with span("search.index"):
+            count("search.batches", 1)
+            return self.index.search_batch(query_vectors, k=k, impl=impl)
 
     # a Searcher search is always batched
     search_batch = search
