@@ -339,7 +339,12 @@
    tool is there and the bf16 body issues HMMA (tensor-core)
    instructions.
 4. Re-runs the main search with the plain versions (``impl="ref"``): the
-   ids must agree tie-aware and the scores to 1e-4.
+   ids must agree tie-aware and the scores to 1e-4. Then the query
+   encode at JaColBERTv2's width ([256, 32], ``query_graph_row``): eager
+   against ``Searcher.encode_queries``' CUDA graph, with the largest
+   difference (fails above ``QG_ATOL``), host and device ms a batch and
+   launch calls and kernels a batch for each (fails unless the graph
+   makes fewer launch calls).
 
 The line before the last holds ``nvidia-smi``'s card name and power
 limit; the one before it the kernels' JSON record; the last line is
@@ -2503,6 +2508,9 @@ def serve_path(rt, torch, model, index, searcher, queries):
     retr.save(SERVE_DIR)
     spec = rt.ServeSpec(max_batch=SERVE_MAX_BATCH, k=TOP_K,
                         poll_interval_s=0.05)
+    # the searcher's query graph (its static buffers) outlives the
+    # engine: made before the baseline, it is not the engine's memory
+    retr.searcher.encode_queries(queries[:1])
     gc.collect()
     torch.cuda.synchronize()
     level0 = torch.cuda.memory_allocated()
@@ -2814,6 +2822,91 @@ def search_split(torch, searcher, qv, stages=SPLIT_STAGES, label="main"):
           f"outside the stages {busy - staged:.4f}): " + ", ".join(
               f"{k[len('search.'):]} {split[k]:.4f}" for k in stages))
     return split
+
+
+# Runtime calls that launch device work (a graph's kernels launch as one)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+QG_BATCH = 256                     # the search-batch cell's encode width
+QG_REPS = 20                       # batches a host timing
+QG_ATOL = 0.01                     # a GEMM picked anew moves bf16 by ~3e-3
+
+
+def _launches_of(torch, fn):
+    """(runtime launch calls, kernels) of one profiled ``fn()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS:
+            calls += 1
+        elif (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and not e.name.startswith(("Memcpy", "Memset"))):
+            kernels += 1
+    return calls, kernels
+
+
+def query_graph_row(rt, torch, dev):
+    """JaColBERTv2's query encode at the search cell's width ([256, 32]):
+    eager (``models.colbert.encode_queries`` of one chunk, the searcher's
+    path off the card) against ``Searcher.encode_queries``' CUDA graph.
+    Each: the largest difference from eager, host ms a batch (raw ids in,
+    vectors on the card, synced; ``QG_REPS`` batches), device ms a batch
+    (CUDA events behind a sleep kernel, ids already on the card: the
+    eager forward, or the graph's replay; one batch, so the eager host's
+    queueing stays inside the sleep) and launches a batch (runtime
+    launch calls and kernels, one profiled batch). Fails where the graph
+    differs by more than ``QG_ATOL`` or launches as often as eager."""
+    from repro_torch.configs import get_ja_config
+    from repro_torch.models.colbert import encode_queries, init_colbert
+    cfg = get_ja_config()
+    model = init_colbert(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    L = cfg.query_maxlen - 2
+    q = rng.integers(8, cfg.trunk.vocab_size, (QG_BATCH, L))
+    q[:, L // 2:] *= rng.random((QG_BATCH, L - L // 2)) < 0.5   # pads
+    searcher = rt.Searcher(model, None, encode_batch=QG_BATCH)
+    want = encode_queries(model, q)[0]
+    got = searcher.encode_queries(q)              # captured here
+    graph = searcher._graphs[QG_BATCH]
+    ids = torch.as_tensor(graph.stage(q).copy(), device=dev)
+    graph.ids.copy_(ids)
+    paths = {"eager": (lambda: encode_queries(model, q)[0],
+                       lambda: graph.encode_ids(ids)),
+             "graph": (lambda: searcher.encode_queries(q),
+                       graph.graph.replay)}
+    row = {"shape": [QG_BATCH, cfg.query_maxlen],
+           "max_abs_diff": (got - want).abs().max().item()}
+    for name, (call, device_work) in paths.items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(QG_REPS):
+            call()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / QG_REPS
+        with torch.no_grad():      # one batch: the eager host queues ~20 ms
+            device_ms = _time_ms(device_work, reps=1)
+        calls, kernels = _launches_of(torch, call)
+        row[name] = {"host_ms": host_ms, "device_ms": device_ms,
+                     "launch_calls": calls, "kernels": kernels}
+    print(f"query graph at [{QG_BATCH}, {cfg.query_maxlen}] (jacolbertv2): "
+          f"max abs diff {row['max_abs_diff']:.3g}; " + "; ".join(
+              f"{k} host {row[k]['host_ms']:.3f} ms, device "
+              f"{row[k]['device_ms']:.3f} ms, {row[k]['launch_calls']} "
+              f"launch calls, {row[k]['kernels']} kernels" for k in paths))
+    if not row["max_abs_diff"] <= QG_ATOL:
+        raise AssertionError(f"query graph: max abs diff "
+                             f"{row['max_abs_diff']} above {QG_ATOL}")
+    if row["graph"]["launch_calls"] >= row["eager"]["launch_calls"]:
+        raise AssertionError(f"query graph: {row['graph']['launch_calls']} "
+                             f"launch calls, eager "
+                             f"{row['eager']['launch_calls']}")
+    return row
 
 
 # The C entries an earlier checkout must declare for ``--parent``, by
@@ -5679,6 +5772,7 @@ def main(argv=None) -> int:
 
     _agree("main path vs plain versions", S, I,
            *_search_all(searcher, queries, impl="ref"))
+    query_graph = query_graph_row(rt, torch, dev)
     # the train paths come last: their profiled steps open profiler
     # sessions of their own, after which ``search_split`` found no
     # device time in its ranges
@@ -5713,7 +5807,8 @@ def main(argv=None) -> int:
                       "roofline": roofline_numbers,
                       "sharded": sharded_numbers, "main": MAIN_NUMBERS,
                       "surface": SURFACE,
-                      "examples": examples_numbers, "card": card}))
+                      "examples": examples_numbers,
+                      "query_graph": query_graph, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,16 @@ Training: ``colbert_loss``, the in-batch-negative contrastive loss over
 MaxSim scores (ColBERTv2's objective without distillation), and
 ``colbert_train_step``. ``encode_queries`` / ``encode_docs`` run without
 autograd; the loss encodes with it.
+
+``QueryGraph`` holds the whole query encode at one width as a CUDA
+graph, replayed a chunk (``Searcher.encode_queries`` takes it where
+``query_graph_blockers`` finds nothing in the way); the eager functions
+above stay the path on the CPU, under autograd and over a mesh.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +36,8 @@ from repro_torch.models.layers import Dense, Embed, dt
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.transformer import params_from_jax as trunk_params
 from repro_torch.models.transformer import params_to_jax as trunk_to_jax
-from repro_torch.sharding.api import constrain
+from repro_torch.sharding.api import constrain, current_ctx
+from repro_torch.trace import count
 from repro_torch.train.params import host, param_groups, value_and_grad
 
 # Special token ids (data/tokenizer.py — shared vocabulary layout)
@@ -181,6 +188,116 @@ def encode_docs(model: ColBERT, tokens):
     """Raw doc ids [B, L] -> ([B, Ld, dim] unit vectors, emit mask);
     non-emitting slots are zero."""
     return _encode_docs(model, tokens)
+
+
+# ---------------------------------------------------------------------------
+# The query encode as one CUDA graph
+# ---------------------------------------------------------------------------
+def query_graph_blockers(model: ColBERT) -> List[str]:
+    """What keeps ``model``'s query encode off a ``QueryGraph``, one
+    reason a rule that fails; empty where the graph may run: the model
+    on a CUDA device, grad mode off, no sharding context active and no
+    parameter a ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+    why = []
+    if model.device.type != "cuda":
+        why.append(f"the model is on {model.device.type}")
+    if torch.is_grad_enabled():
+        why.append("grad mode is on")
+    if current_ctx() is not None:
+        why.append("a sharding context is active")
+    if any(isinstance(p, DTensor) for p in model.parameters()):
+        why.append("a parameter is a DTensor")
+    return why
+
+
+def _param_key(model: ColBERT) -> tuple:
+    """Where and how each parameter is stored: a graph reads them at the
+    addresses they had when it was captured."""
+    return tuple((p.data_ptr(), p.dtype, p.shape, p.stride())
+                 for p in model.parameters())
+
+
+class QueryGraph:
+    """``model``'s whole query encode at width ``batch`` as one CUDA
+    graph: ``prepare_query_tokens``, the trunk, the projection and the
+    L2 normalization, replayed a chunk in place of the eager path's
+    launches (~58 a layer). Its input is a static [batch, query_maxlen -
+    2] int32 buffer, its output a static [batch, query_maxlen, proj_dim]
+    f32 one.
+
+    ``encode`` cuts or pads a chunk's raw ids to the body width on the
+    host (``PAD_ID`` the pad, as ``prepare_query_tokens`` does), so one
+    graph serves any raw width; the copy in is blocking, so the host
+    buffer is free again when it returns. The graph runs the eager path's
+    kernels in the same order on the same shapes: its vectors are the
+    eager path's.
+
+    The graph reads the parameters at their addresses, so an in-place
+    change (``load_params``, an optimizer step) is seen by the next
+    replay; a parameter stored anew (another storage, dtype or shape)
+    makes the next ``encode`` capture again. One lock covers the capture,
+    the copy in, the replay and the copy out: callers on several threads
+    (the serving engine's) each get their own rows."""
+
+    def __init__(self, model: ColBERT, batch: int):
+        self.model = model
+        self.batch = int(batch)
+        self.body_len = model.cfg.query_maxlen - 2
+        self.lock = threading.Lock()
+        self.host = np.empty((self.batch, self.body_len), np.int32)
+        self.graph = self.key = self.ids = self.out = None
+
+    def encode_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """What the graph holds, run eagerly: ids [batch, body width] ->
+        unit vectors [batch, query_maxlen, proj_dim]."""
+        return self.model(*prepare_query_tokens(ids,
+                                                self.model.cfg.query_maxlen))
+
+    def _capture(self, key: tuple) -> None:
+        dev = self.model.device
+        self.graph = self.ids = self.out = None   # the old pool goes first
+        ids = torch.full((self.batch, self.body_len), PAD_ID,
+                         dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # the lazy set-up (cuBLAS handles and workspaces on this
+            # stream, kernel modules) happens here, outside the capture
+            self.encode_ids(ids)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads keep issuing work while this one
+        # captures
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = self.encode_ids(ids)
+        self.graph, self.ids, self.out, self.key = graph, ids, out, key
+
+    def stage(self, chunk: np.ndarray) -> np.ndarray:
+        """The host buffer holding raw ids [n <= batch, L] cut or padded
+        to [batch, body width] with ``PAD_ID``: the graph's input, whose
+        first n rows ``prepare_query_tokens`` turns into the chunk's own
+        tokens."""
+        body = chunk[:, :self.body_len]
+        self.host.fill(PAD_ID)
+        self.host[:body.shape[0], :body.shape[1]] = body
+        return self.host
+
+    def encode(self, chunk: np.ndarray, out: torch.Tensor) -> None:
+        """Raw ids [n <= batch, L] -> their unit vectors written into
+        ``out`` [n, query_maxlen, proj_dim] on the model's device."""
+        with self.lock:
+            key = _param_key(self.model)
+            captured = key != self.key
+            if captured:
+                self._capture(key)
+            self.ids.copy_(torch.from_numpy(self.stage(chunk)))
+            self.graph.replay()
+            out.copy_(self.out[:chunk.shape[0]])
+        if captured:
+            count("search.encode_captures", 1)
+        count("search.encode_replays", 1)
 
 
 # ---------------------------------------------------------------------------

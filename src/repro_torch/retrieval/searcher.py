@@ -7,8 +7,12 @@ two): on the card cuBLAS picks its bf16 GEMM by the number of rows, and
 a query encoded in a batch of 2 and in one of 32 differs by up to ~3e-3
 a coordinate, which moves its candidate set; at one width its vector is
 the same whichever queries share the batch, so a serving engine's
-coalesced batches return a direct search's results. ``search_encoded``
-runs the index's batched
+coalesced batches return a direct search's results. On the card each
+chunk is replayed from one CUDA graph of the whole encode at that width
+(``models.colbert.QueryGraph``, captured on first use, which ``warmup``
+makes): one launch where the eager path makes ~700, the same vectors.
+On the CPU, under a sharding context or with ``DTensor`` parameters the
+chunks run eagerly. ``search_encoded`` runs the index's batched
 two-stage engine; ``search`` (alias ``search_batch``) chains the two;
 ``rankings`` gives each query's ranked ids; ``from_dir`` serves a saved
 artifact (written by either package): a flat, hnsw or plaid
@@ -20,15 +24,17 @@ unpooled indexes.
 """
 from __future__ import annotations
 
+import threading
 import warnings
-from typing import Iterable, List, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.index import MultiVectorIndex
 from repro_torch.device import DeviceLike
-from repro_torch.models.colbert import ColBERT, encode_queries
+from repro_torch.models.colbert import (ColBERT, QueryGraph, encode_queries,
+                                        query_graph_blockers)
 from repro_torch.core.sharded import ShardedIndex
 from repro_torch.retrieval.cascade import CascadeIndex
 from repro_torch.trace import count, span
@@ -46,6 +52,8 @@ class Searcher:
         self.cfg = model.cfg
         self.index = index
         self.encode_batch = int(encode_batch)
+        self._graphs: Dict[int, QueryGraph] = {}
+        self._graphs_lock = threading.Lock()
 
     @classmethod
     def from_dir(cls, model: ColBERT, path: str, device: DeviceLike = None,
@@ -58,19 +66,47 @@ class Searcher:
                    encode_batch=encode_batch)
 
     def encode_queries(self, query_tokens: np.ndarray) -> torch.Tensor:
-        """[Nq, L] raw ids -> [Nq, Lq, dim] on the model's device."""
+        """[Nq, L] raw ids -> [Nq, Lq, dim] on the model's device. Each
+        chunk is replayed from the searcher's ``QueryGraph`` at its width
+        where ``query_graph_blockers`` finds nothing in the way (the model
+        on the card, no sharding), else encoded eagerly; both give the
+        same vectors."""
         query_tokens = np.asarray(query_tokens)
-        out = []
-        with span("search.encode"):
-            for lo in range(0, query_tokens.shape[0], self.encode_batch):
-                chunk = query_tokens[lo:lo + self.encode_batch]
+        B = self.encode_batch
+        with span("search.encode"), torch.no_grad():
+            graph = self._query_graph()
+            if graph is not None:
+                out = torch.empty((query_tokens.shape[0],
+                                   self.cfg.query_maxlen, self.cfg.proj_dim),
+                                  dtype=torch.float32,
+                                  device=self.model.device)
+                for lo in range(0, query_tokens.shape[0], B):
+                    count("search.encode_chunks", 1)
+                    graph.encode(query_tokens[lo:lo + B], out[lo:lo + B])
+                return out
+            out = []
+            for lo in range(0, query_tokens.shape[0], B):
+                count("search.encode_chunks", 1)
+                chunk = query_tokens[lo:lo + B]
                 n = chunk.shape[0]
-                pad = self.encode_batch - n
+                pad = B - n
                 if pad:
                     chunk = np.pad(chunk, ((0, pad), (0, 0)))
                 v, _ = encode_queries(self.model, chunk)
                 out.append(v[:n])
             return torch.cat(out)
+
+    def _query_graph(self) -> Optional[QueryGraph]:
+        """The query graph at this searcher's width (made on first use),
+        or None where the eager path runs."""
+        if query_graph_blockers(self.model):
+            return None
+        with self._graphs_lock:
+            graph = self._graphs.get(self.encode_batch)
+            if graph is None:
+                graph = self._graphs[self.encode_batch] = QueryGraph(
+                    self.model, self.encode_batch)
+            return graph
 
     def encode(self, query_tokens: np.ndarray) -> torch.Tensor:
         """Deprecated alias of ``encode_queries``."""
@@ -104,8 +140,8 @@ class Searcher:
     def warmup(self, batch_sizes: Union[int, Iterable[int]],
                k: int = 10) -> None:
         """Encode a batch of each size once (the encoder's first calls
-        at that width) and call the index's ``warm_shapes`` where it has
-        one, else search once."""
+        at that width; on the card the query graph's capture) and call
+        the index's ``warm_shapes`` where it has one, else search once."""
         if isinstance(batch_sizes, (int, np.integer)):
             batch_sizes = [int(batch_sizes)]
         sizes = sorted({int(b) for b in batch_sizes})

@@ -40,6 +40,14 @@ ones ``chip_smoke.py``'s ``search_split`` reads):
 
 Counters:
 
+* ``search.encode_chunks``: one a chunk of ``Searcher.encode_queries``
+  (up to ``encode_batch`` queries), on either path.
+* ``search.encode_replays``: one a chunk replayed from the searcher's
+  CUDA graph (``models.colbert.QueryGraph``); over
+  ``search.encode_chunks``, how often the graph engages.
+* ``search.encode_captures``: one a capture of that graph (the first
+  chunk at a width, and the first after a parameter is stored anew).
+  All three are counted outside the captured region.
 * ``search.batches``: one a ``search.index``.
 * ``search.host_reads``: one a blocking device-to-host read of the
   search path: the device path's ``int(counts.max())``
